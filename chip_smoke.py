@@ -2,40 +2,63 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the CUDA stencil kernel from ``superbblas_tpu_torch/csrc`` and
-checks it against its plain PyTorch version at small shapes and at the
-Wilson bench shape (lattice 8x8x16x128, 8 columns), timing both there.
-Then it drives the main path once: a Wilson-Dirac normal-equation CG
-solve on a 32x32x32x64 lattice with 8 right-hand sides through
-``wilson_operator`` and ``cg_solve``.  Before the solve it holds the
-kernel against the plain version on that operator, its adjoint and the
-right-hand sides, and times both; after it, it checks the true residual
-and the adjoint identity, and that every matvec of the solve launched
-the kernel.  ``--profile`` adds one warm solve under ``torch.profiler``
-and prints the device's busy share and the ops that take its time.
+Builds the CUDA kernels from ``superbblas_tpu_torch/csrc`` (one nvcc per
+source, in parallel) and drives the port's two paths on the card.
 
-Prints the card's name and power limit, a JSON line with the kernel's
-launch count in the solve and its error and times at the main path's
-shape, and as its last line ``{"ok": true, "device": {...}}``.  Any
-failed check raises; without CUDA the script exits non-zero at once.
+Wilson path: checks the stencil kernel against its plain PyTorch version
+at small shapes and at the Wilson bench shape (lattice 8x8x16x128, 8
+columns), timing both there.  Then it drives the path once: a Wilson-Dirac
+normal-equation CG solve on a 32x32x32x64 lattice with 8 right-hand sides
+through ``wilson_operator`` and ``cg_solve``.  Before the solve it holds
+the kernel against the plain version on that operator, its adjoint and the
+right-hand sides, and times both; after it, it checks the true residual
+and the adjoint identity, and that every matvec of the solve launched the
+kernel.
+
+Dense path: checks the permute kernel against its plain version at small,
+ragged and strided shapes and a small box copy against a numpy oracle.
+Then it drives the dense engine once at full width through
+``local_permute``, ``local_copy`` and ``local_contraction``: 128x64x64x128
+f32 permutes of a tensor and of a split-complex pair, a wrapped box copy,
+a masked checkerboard compaction of a 32x32x32x64 field, a bf16 batched
+contraction (T=8, 1024^3) and the Gram matrix and rotation of a 64-vector
+split-complex Krylov basis of 12x16x16x16x32 sites; each result is held
+against a plain version, a numpy oracle or a float64 product on the card,
+and the kernel launches of the run are counted.  Then it times the permute
+kernel against the plain version (``x.permute(perm).contiguous()``, which
+is also the one PyTorch call computing the same function).
+
+``--profile`` adds one warm solve and one warm dense path under
+``torch.profiler`` and prints the device's busy share and the ops that
+take its time.
+
+Prints the card's name and power limit, a JSON line with each kernel's
+launches on its path and its error, times and bound, and as its last line
+``{"ok": true, "device": {...}}``.  Any failed check raises; without CUDA
+the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
+from superbblas_tpu_torch import ContractionPlan, local_contraction, local_copy, local_permute
 from superbblas_tpu_torch.cplx import CArray
 from superbblas_tpu_torch.models import (adjoint_operator, apply_wilson,
                                          cg_solve, wilson_offsets, wilson_operator)
 from superbblas_tpu_torch.bsr import bsr_cast_storage
 from superbblas_tpu_torch.ops import _cuda
+from superbblas_tpu_torch.ops.permute import maybe_permute, permute_4d, permute_4d_reference
 from superbblas_tpu_torch.ops.stencil import (stencil_matvec_soa,
                                               stencil_matvec_soa_reference)
 
@@ -44,6 +67,25 @@ WILSON_OFFSETS = wilson_offsets(4)
 #: f32 fields, one bf16 ulp (2^-7) for bf16 fields
 TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 CG_ITERS = 25
+#: the card's published peaks (H100 SXM data sheet): HBM bytes/s and f32
+#: FLOP/s outside the tensor cores; a card set below 700 W runs below them
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+#: the dense path's tensor: bench.py's bench_copy shape, f32
+DENSE_SHAPE = (128, 64, 64, 128)
+PERMS = {"tzyx": (3, 2, 1, 0), "tyzx": (3, 1, 2, 0)}
+#: max |bf16 result - f32 product| allowed, relative to max |f32 product|:
+#: one bf16 ulp (2^-7); rounding once costs at most half of it
+BF16_TOL = 8e-3
+#: Gram matrix of the f32 basis against float64, relative to max |G|: each
+#: entry sums K = 12*16*16*16*32 = 1,572,864 products; f32 sums of K terms
+#: err by about sqrt(K) * 2^-24 = 7.5e-5 of the sum of |terms|; for a
+#: random basis the diagonal is that sum, and the Gauss intermediates are
+#: of its size (a margin of 2)
+GRAM_TOL = 2e-4
+#: rotation V C against float64, relative to max |out|: sums of 64 terms,
+#: at most 64 * 2^-24 = 3.8e-6 of the sum of |terms| (under 2x max |out|)
+ROTATION_TOL = 1e-5
 
 
 def randn_c(shape, gen, dtype=torch.float32) -> CArray:
@@ -70,26 +112,42 @@ def compare(blocks, kron, x, offsets, label) -> float:
     return err
 
 
-def time_both(op, x, reps):
-    """Median CUDA-event ms of the kernel and of the plain version on one
-    matvec, taken in turns (kernel, plain, plain, kernel, ...) after
-    warm-up."""
-    args = (op.blocks, op.kron, x, op.offsets, 3, 3)
-    fns = {"kernel": lambda: stencil_matvec_soa(*args),
-           "plain": lambda: stencil_matvec_soa_reference(*args)}
+def time_turns(fns, reps):
+    """Median CUDA-event ms of each of ``fns`` (name -> callable), taken in
+    turns whose order alternates (a, b, b, a, ...), after warm-up."""
     for fn in fns.values():
         for _ in range(3):
             fn()
-    times = {k: [] for k in fns}
+    names = list(fns)
+    times = {k: [] for k in names}
     for r in range(reps):
-        for k in (("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")):
+        for k in (names if r % 2 == 0 else names[::-1]):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fns[k]()
             e.record()
             e.synchronize()
             times[k].append(s.elapsed_time(e))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def time_both(op, x, reps):
+    """Median ms of the stencil kernel and of its plain version on one
+    matvec."""
+    args = (op.blocks, op.kron, x, op.offsets, 3, 3)
+    ms = time_turns({"kernel": lambda: stencil_matvec_soa(*args),
+                     "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
+    return ms["kernel"], ms["plain"]
+
+
+def reset_counts():
+    stencil_matvec_soa.launches = 0
+    permute_4d.launches = 0
+
+
+def read_counts():
+    return {"stencil_matvec_soa": stencil_matvec_soa.launches,
+            "permute_4d": permute_4d.launches}
 
 
 def small_checks(gen):
@@ -129,37 +187,56 @@ def bench_shape(gen):
         ms = dict(zip(("kernel", "plain"), time_both(op, x, reps=25)))
         flops = op.flops_per_matvec(n)
         nbytes = op.memops_per_matvec(n, itemsize=2 * x.re.element_size())
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"bench {label} bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         for k in ("kernel", "plain"):
             print(f"bench {label} {k}: median {ms[k]:.4f} ms over 25, "
                   f"{flops / ms[k] / 1e6:.1f} GFLOP/s, {nbytes / ms[k] / 1e6:.1f} GB/s",
                   flush=True)
 
 
-def profile_solve(op, b):
-    """One warm solve under torch.profiler: the device's busy share of
-    the solve's wall time, and the ops that take the most device time."""
+def profile_run(label, fn):
+    """One warm run of ``fn`` under torch.profiler: the device's busy share
+    of its wall time, the ops that take the most device time, and the
+    host time and device span of each range named "step: ..."."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cg_solve(op, b, n_iters=CG_ITERS)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e6
-    print(f"profile: solve wall {wall:.4f} s, device busy {busy:.4f} s "
+    events = prof.events()
+    # a step's range also appears on the device side, spanning its kernels
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("step: ")) / 1e6
+    print(f"profile: {label} wall {wall:.4f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.1f}% busy)", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12),
           flush=True)
+    for e in events:
+        if e.name.startswith("step: "):
+            side = "host" if e.device_type == DeviceType.CPU else "device span"
+            print(f"profile: {label} {e.name[6:]}: {side} "
+                  f"{e.time_range.elapsed_us() / 1e3:.3f} ms", flush=True)
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
 
 
-def main_path(gen, profile: bool):
-    """The slice end to end: Wilson operator, kernel against plain on its
-    operands, CG solve, checks.  Returns (launches in the solve, max
-    error, kernel ms, plain ms) at this shape."""
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` f32 operations, at its published
+    peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wilson_path(gen, profile: bool):
+    """The Wilson path end to end: Wilson operator, kernel against plain
+    on its operands, CG solve, checks.  Returns (launches in the solve,
+    max error, kernel ms, plain ms, (bound ms, bound by)) at this
+    shape."""
     lat, n = (32, 32, 32, 64), 8
     t0 = time.perf_counter()
     op = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
@@ -179,12 +256,12 @@ def main_path(gen, profile: bool):
           f"plain median {plain_ms:.4f} ms over 11", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    stencil_matvec_soa.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     x, rs = cg_solve(op, b, n_iters=CG_ITERS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = stencil_matvec_soa.launches
+    launches = read_counts()["stencil_matvec_soa"]
     expected = 1 + 2 * CG_ITERS
     peak = torch.cuda.max_memory_allocated()
 
@@ -224,14 +301,248 @@ def main_path(gen, profile: bool):
         raise AssertionError(f"{launches} kernel launches, expected {expected}")
     if profile:
         del x, dx, dhdx, dhb, op_h
-        profile_solve(op, b)
-    return launches, err, ms, plain_ms
+        profile_run("solve", lambda: cg_solve(op, b, n_iters=CG_ITERS))
+    return launches, err, ms, plain_ms, bound(op.memops_per_matvec(n, itemsize=8),
+                                              op.flops_per_matvec(n))
+
+
+def exact(got, want, label):
+    """Raise unless ``got`` equals ``want`` bit for bit (same shape and
+    dtype); returns the max abs difference (0.0)."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{label}: differs from its plain version or oracle")
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def numpy_copy_oracle(alpha, x, o0, y, o1, from0, size0, from1, copy_add):
+    """Element-by-element toroidal reference copy, in f32 (as
+    tests/test_copy.py's oracle)."""
+    out = np.array(y, copy=True)
+    for rel in itertools.product(*[range(s) for s in size0]):
+        c0 = tuple((f + r) % d for f, r, d in zip(from0, rel, x.shape))
+        c1 = tuple((from1[j] + (rel[o0.index(c)] if c in o0 else 0)) % out.shape[j]
+                   for j, c in enumerate(o1))
+        v = np.float32(alpha) * x[c0]
+        if copy_add == "copy":
+            out[c1] = v
+        else:
+            out[c1] += v
+    return out
+
+
+def permute_checks(gen):
+    """The permute kernel against its plain version off the dense path:
+    ragged tiles, a strided view, int32 words; a small wrapped box copy
+    against the numpy oracle.  Returns the max abs error."""
+    err = 0.0
+    x = torch.randn((45, 6, 7, 70), generator=gen, device="cuda")
+    for perm in PERMS.values():
+        for label, v in (("ragged", x), ("strided view", x[3:40, 1:5, 2:7, 5:66]),
+                         ("int32", x.view(torch.int32))):
+            before = permute_4d.launches
+            got = maybe_permute(v, perm)
+            torch.cuda.synchronize()
+            if permute_4d.launches != before + 1:
+                raise AssertionError(f"permute {label}: the kernel was not launched")
+            err = max(err, exact(got, permute_4d_reference(v, perm),
+                                 f"permute {tuple(v.shape)} {label} {perm}"))
+    print("check permute kernel: ragged, strided and int32 cases bit-exact", flush=True)
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((12, 4, 4, 12)).astype(np.float32)
+    ys = rng.standard_normal((12, 4, 4, 12)).astype(np.float32)
+    box = dict(from0=(9, 0, 0, 10), size0=(8, 4, 4, 8), from1=(10, 0, 0, 9), copy_add="add")
+    got = local_copy(-2.5, torch.from_numpy(xs).cuda(), "xyzt",
+                     torch.from_numpy(ys).cuda(), "tzyx", **box)
+    want = numpy_copy_oracle(-2.5, xs, "xyzt", ys, "tzyx", **box)
+    err = max(err, exact(got.cpu(), torch.from_numpy(want), "small box copy vs numpy"))
+    print("check box copy 12x4x4x12, wrapped in x and t: equals the numpy oracle",
+          flush=True)
+    return err
+
+
+def box_copy_plain(alpha, x, y):
+    """The dense path's box copy with rolls and the plain permute: the box
+    (96, 0, 0, 100) + 64^4 of x ("xyzt") added, scaled, at (100, 0, 0, 96)
+    of y ("tzyx")."""
+    src = torch.roll(x, shifts=(-96, -100), dims=(0, 3))[:64, :, :, :64]
+    src = permute_4d_reference(src, PERMS["tzyx"]) * alpha
+    out = torch.roll(y, shifts=(-100, -96), dims=(0, 3))
+    out[:64, :, :, :64] += src
+    return torch.roll(out, shifts=(100, 96), dims=(0, 3))
+
+
+def event_ms(fn, reps):
+    """Median CUDA-event ms of ``fn`` over ``reps`` calls after one warm-up;
+    returns (ms, last result)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times), out
+
+
+def rel_err(got: CArray, want: torch.Tensor) -> float:
+    """max |got - want| over both parts, relative to max |want| (complex
+    float64 ``want``)."""
+    err = max(float((got.re.double() - want.real).abs().max()),
+              float((got.im.double() - want.imag).abs().max()))
+    return err / float(want.abs().max())
+
+
+def dense_data(gen):
+    """The dense path's operands, made on the card from ``gen``."""
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    field = randn((32, 32, 32, 64))
+    d = dict(x=randn(DENSE_SHAPE), xc=CArray(randn(DENSE_SHAPE), randn(DENSE_SHAPE)),
+             y=randn(DENSE_SHAPE), field=field,
+             a=randn((8, 1024, 1024), torch.bfloat16),
+             b=randn((8, 1024, 1024), torch.bfloat16),
+             V=CArray(randn((64, 12, 16, 16, 16, 32)), randn((64, 12, 16, 16, 16, 32))),
+             C=CArray(randn((64, 16)), randn((64, 16))),
+             even=np.add.reduce(np.indices(tuple(field.shape))) % 2 == 0,
+             low_half=np.indices(tuple(field.shape))[0] < 16)
+    torch.cuda.synchronize()
+    return d
+
+
+def dense_calls(d):
+    """The dense path: each public entry point at full width, once, each
+    step in a profiler range named "step: ...".  Returns the results and
+    the permute launch count after the permutes and after the box copy."""
+    r, steps = {}, []
+    with record_function("step: permutes"):
+        for o1 in PERMS:
+            r["permute", o1] = local_permute(d["x"], "xyzt", o1)
+            r["permute CArray", o1] = local_permute(d["xc"], "xyzt", o1)
+    steps.append(permute_4d.launches)
+    with record_function("step: box copy"):
+        r["box"] = local_copy(-2.5, d["x"], "xyzt", d["y"], "tzyx", from0=(96, 0, 0, 100),
+                              size0=(64, 64, 64, 64), from1=(100, 0, 0, 96),
+                              copy_add="add")
+    steps.append(permute_4d.launches)
+    with record_function("step: masked copy"):
+        r["masked"] = local_copy(1.0, d["field"], "xyzt", torch.zeros_like(d["field"]),
+                                 "xyzt", mask0=d["even"], mask1=d["low_half"])
+    with record_function("step: bf16 contraction"):
+        r["bf16"] = local_contraction(1.0, d["a"], "tab", False, d["b"], "tac", False,
+                                      0.0, None, "tbc")
+    with record_function("step: Gram"):
+        r["gram"] = local_contraction(1.0, d["V"], "kSxyzt", True, d["V"], "lSxyzt",
+                                      False, 0.0, None, "kl")
+    with record_function("step: rotation"):
+        r["rotation"] = local_contraction(1.0, d["V"], "kSxyzt", False, d["C"], "km",
+                                          False, 0.0, None, "mSxyzt")
+    return r, steps
+
+
+def dense_path(gen, profile: bool):
+    """The dense engine at full width through the public entry points,
+    with the kernel counts set to 0 just before and read just after; then
+    every result is checked and each contraction timed.  Returns
+    (permute_4d launches, max abs error of its calls)."""
+    d = dense_data(gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    r, steps = dense_calls(d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"dense path {wall:.3f} s, kernel launches {counts} (after the permutes "
+          f"{steps[0]}, after the box copy {steps[1]})", flush=True)
+    if counts != {"stencil_matvec_soa": 0, "permute_4d": 7} or steps != [2 + 4, 7]:
+        raise AssertionError(f"dense path launches {counts} {steps}, expected 2 + 4 "
+                             "for the permutes and 1 for the box copy")
+
+    x, xc, V, C = d["x"], d["xc"], d["V"], d["C"]
+    err = 0.0
+    for o1, perm in PERMS.items():
+        err = max(err, exact(r["permute", o1], permute_4d_reference(x, perm),
+                             f"local_permute xyzt->{o1}"))
+        for got, part in zip(r["permute CArray", o1], xc):
+            err = max(err, exact(got, permute_4d_reference(part, perm),
+                                 f"local_permute CArray xyzt->{o1}"))
+    print(f"dense permute {DENSE_SHAPE} f32 xyzt->tzyx, xyzt->tyzx, tensor and CArray: "
+          "bit-exact against the plain version", flush=True)
+    err = max(err, exact(r["box"], box_copy_plain(-2.5, x, d["y"]), "box copy"))
+    print("dense box copy 64^4 from (96,0,0,100) to (100,0,0,96), add, alpha -2.5: "
+          "bit-exact against rolls + plain permute", flush=True)
+    packed = r["masked"]
+    exact(packed[:16].reshape(-1).cpu(), torch.from_numpy(d["field"].cpu().numpy()[d["even"]]),
+          "masked compaction")
+    exact(packed[16:], torch.zeros_like(packed[16:]), "masked compaction, rest")
+    print(f"dense masked copy: even sites of {tuple(packed.shape)} packed into the x < 16 "
+          "half, equal to the numpy oracle", flush=True)
+
+    out = r["bf16"]
+    ref = torch.einsum("tab,tac->tbc", d["a"].float(), d["b"].float())
+    e = float((out.float() - ref).abs().max()) / float(ref.abs().max())
+    print(f"dense contraction tab,tac->tbc T=8 1024^3 bf16: rel err vs f32 product "
+          f"{e:.3e} (<= {BF16_TOL})", flush=True)
+    if out.dtype != torch.bfloat16 or tuple(out.shape) != (8, 1024, 1024) \
+            or not e <= BF16_TOL:
+        raise AssertionError("bf16 contraction disagrees with the f32 product")
+    del ref
+    Vd = torch.complex(V.re.double(), V.im.double()).reshape(64, -1)
+    e = rel_err(r["gram"], Vd.conj() @ Vd.T)
+    print(f"dense Gram V^H V, V {tuple(V.shape)} split complex f32: rel err vs f64 "
+          f"{e:.3e} (<= {GRAM_TOL})", flush=True)
+    if tuple(r["gram"].shape) != (64, 64) or not e <= GRAM_TOL:
+        raise AssertionError("Gram matrix disagrees with the float64 product")
+    rot = r["rotation"]
+    e = rel_err(rot, (torch.complex(C.re.double(), C.im.double()).T @ Vd).reshape(rot.shape))
+    print(f"dense rotation V C -> mSxyzt, m=16: rel err vs f64 {e:.3e} "
+          f"(<= {ROTATION_TOL})", flush=True)
+    if tuple(rot.shape) != (16,) + tuple(V.shape[1:]) or not e <= ROTATION_TOL:
+        raise AssertionError("rotation disagrees with the float64 product")
+    del Vd, r, packed, out, rot
+
+    for label, o_r, args, cplx_flops in (
+            ("contraction tab,tac->tbc bf16", "tbc",
+             (d["a"], "tab", False, d["b"], "tac"), False),
+            ("Gram V^H V", "kl", (V, "kSxyzt", True, V, "lSxyzt"), True),
+            ("rotation V C -> mSxyzt", "mSxyzt", (V, "kSxyzt", False, C, "km"), True)):
+        ms, out = event_ms(lambda: local_contraction(1.0, *args, False, 0.0, None, o_r), 5)
+        flops = ContractionPlan(args[1], args[0].shape, args[4], args[3].shape, o_r,
+                                out.shape).flops(cplx_flops)
+        print(f"dense {label}: median {ms:.4f} ms over 5, {flops / ms / 1e9:.1f} TFLOP/s"
+              f"{' complex-equivalent' if cplx_flops else ''}", flush=True)
+    if profile:
+        profile_run("dense path", lambda: dense_calls(d))
+    return counts["permute_4d"], err
+
+
+def time_permute(gen):
+    """The permute kernel against the plain version at the dense path's
+    shape, in turns.  The plain version, ``x.permute(perm).contiguous()``,
+    is also the one PyTorch call computing the same function, so its time
+    serves as the library time too.  Returns {perm name: (kernel ms, plain
+    ms)}."""
+    x = torch.randn(DENSE_SHAPE, generator=gen, device="cuda")
+    nbytes = 2 * x.numel() * x.element_size()
+    out = {}
+    for o1, perm in PERMS.items():
+        ms = time_turns({"kernel": lambda: permute_4d(x, perm),
+                         "plain": lambda: permute_4d_reference(x, perm)}, reps=15)
+        out[o1] = ms["kernel"], ms["plain"]
+        print(f"permute {DENSE_SHAPE} f32 xyzt->{o1}: kernel median {ms['kernel']:.4f} ms "
+              f"({nbytes / ms['kernel'] / 1e6:.1f} GB/s), plain = library call "
+              f"median {ms['plain']:.4f} ms ({nbytes / ms['plain'] / 1e6:.1f} GB/s) over 15",
+              flush=True)
+    return out, bound(nbytes, 0)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one warm solve with torch.profiler")
+                        help="also profile one warm solve and one warm dense path "
+                             "with torch.profiler")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; this smoke run "
@@ -256,13 +567,28 @@ def main():
     gen.manual_seed(0)
     small_checks(gen)
     bench_shape(gen)
-    launches, err, ms, plain_ms = main_path(gen, args.profile)
+    launches, err, ms, plain_ms, (bound_ms, bound_by) = wilson_path(gen, args.profile)
+    if launches == 0:
+        raise AssertionError("the Wilson path launched no stencil kernel")
+    p_err = permute_checks(gen)
+    p_launches, d_err = dense_path(gen, args.profile)
+    if p_launches == 0:
+        raise AssertionError("the dense path launched no permute kernel")
+    p_ms, (p_bound_ms, p_bound_by) = time_permute(gen)
 
     print(json.dumps({"kernels": [{
         "name": "stencil_matvec_soa", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
         "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "name": "permute_4d", "route": "cuda",
+        "source": "superbblas_tpu_torch/csrc/permute.cu",
+        "replaces": "superbblas_tpu/ops/permute_pallas.py:66",
+        "launches": p_launches, "max_abs_err": max(p_err, d_err),
+        "ms": p_ms["tzyx"][0], "plain_ms": p_ms["tzyx"][1],
+        "bound_ms": p_bound_ms, "bound_by": p_bound_by,
+        "library_ms": p_ms["tzyx"][1]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
 """superbblas_tpu_torch: the PyTorch/CUDA port of superbblas_tpu.
 
-Today it holds the Wilson-Dirac normal-equation CG solve in the
+It holds the local dense engine, label-driven copy, permute, reduce and
+contraction (``labels``, ``ops``; the 4-D transpose is a hand-written
+kernel), and the Wilson-Dirac normal-equation CG solve in the
 structure-of-arrays layout: split-complex tensors (``cplx``), the SoA
 stencil operator (``bsr``), the Wilson model and its solve (``models``),
 and the stencil kernel with its plain PyTorch version (``ops``).  It
 imports torch and numpy, never jax.
 """
 
-from . import cplx, ops, bsr, models  # noqa: I001  (dependency order)
+from . import labels, cplx, ops, bsr, models  # noqa: I001  (dependency order)
+from .labels import ContractionPlan
+from .ops import local_contraction, local_copy, local_permute
 
-__all__ = ["cplx", "bsr", "models", "ops"]
+__all__ = ["labels", "cplx", "bsr", "models", "ops", "ContractionPlan",
+           "local_contraction", "local_copy", "local_permute"]

@@ -119,13 +119,14 @@ def bsr_from_stencil(
     kron_i: Optional[dict] = None,
     kron_d: Optional[dict] = None,
     layout: str = "soa",
-    device=None,
+    device="cuda",
 ) -> BSROperator:
     """Constructor for a regular stencil operator.
 
     ``blocks``: [*lat, ndir, BI, BD] (flattened block dims), a CArray of
     numpy arrays or tensors, or a complex array.  ``kron``: [ndir, KI, KD]
-    or None.  Only ``layout="soa"`` is ported."""
+    or None.  Only ``layout="soa"`` is ported.  The operator is built on
+    ``device``: the card unless the caller names the CPU."""
     if layout != "soa":
         raise NotImplementedError(
             f"layout={layout!r}: only 'soa' is ported (AoS stencil and gather "
@@ -159,7 +160,7 @@ def operator_from_numpy(blocks_re: np.ndarray, blocks_im: np.ndarray,
                         kron_re: Optional[np.ndarray],
                         kron_im: Optional[np.ndarray],
                         offsets: Sequence[Coor], dim: Sequence[int],
-                        bi, bd, ki=(), kd=(), device=None,
+                        bi, bd, ki=(), kd=(), device="cuda",
                         storage_dtype=None) -> BSROperator:
     """The port's operator from the arrays of a ``superbblas_tpu`` SoA
     operator (``blocks.re/.im`` [ndir, BI*BD, *lat], ``kron.re/.im`` or

@@ -12,13 +12,14 @@ Contractions use the 3-multiplication Gauss/Karatsuba decomposition
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
-    "CArray", "from_complex", "to_complex",
+    "CArray", "from_complex", "to_complex", "is_carray",
     "cmap", "conj", "scale", "add", "cbilinear", "cdot_general",
     "inner_real",
 ]
@@ -48,6 +49,10 @@ class CArray(NamedTuple):
 
     def to(self, *args, **kwargs) -> "CArray":
         return CArray(self.re.to(*args, **kwargs), self.im.to(*args, **kwargs))
+
+
+def is_carray(x) -> bool:
+    return isinstance(x, CArray)
 
 
 def from_complex(x) -> CArray:
@@ -88,6 +93,17 @@ def conj(c):
     return torch.conj(c)
 
 
+def _split_scalar(alpha):
+    """(re, im) of a complex scalar: a Python or numpy complex, a complex
+    0-dim tensor or a CArray; (alpha, None) for a real one."""
+    if isinstance(alpha, CArray):
+        return alpha.re, alpha.im
+    if isinstance(alpha, (complex, np.complexfloating)) or (
+            isinstance(alpha, torch.Tensor) and alpha.is_complex()):
+        return alpha.real, alpha.imag
+    return alpha, None
+
+
 def scale(alpha, c):
     """alpha * c with real or complex alpha (a Python number, a 0-dim
     tensor or a CArray of 0-dim tensors)."""
@@ -95,13 +111,8 @@ def scale(alpha, c):
         if isinstance(alpha, CArray):
             return CArray(alpha.re * c, alpha.im * c)
         return alpha * c
-    if isinstance(alpha, CArray):
-        ar, ai = alpha.re, alpha.im
-    elif isinstance(alpha, complex):
-        ar, ai = alpha.real, alpha.imag
-    else:
-        ar, ai = alpha, 0.0
-    if isinstance(ai, (int, float)) and ai == 0:
+    ar, ai = _split_scalar(alpha)
+    if ai is None or (isinstance(ai, (int, float)) and ai == 0):
         return CArray(ar * c.re, ar * c.im)
     return CArray(ar * c.re - ai * c.im, ar * c.im + ai * c.re)
 
@@ -128,14 +139,43 @@ def cbilinear(f, a, b):
     return CArray(k1 - k2, k1 + k3)
 
 
-def cdot_general(a, b, dimension_numbers):
+@contextlib.contextmanager
+def _full_f32():
+    """f32 products in full f32 on the card, the counterpart of
+    ``lax.Precision.HIGHEST``: TF32 is switched off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``) for the duration
+    and restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def cdot_general(a, b, dimension_numbers, preferred_element_type=None,
+                 precision=None):
     """``lax.dot_general`` over split-complex operands via 3 real
     contractions.  ``dimension_numbers`` = ((lhs_contract, rhs_contract),
     (lhs_batch, rhs_batch)); the output is batch dims, then lhs free,
-    then rhs free dims, as in ``lax.dot_general``."""
+    then rhs free dims, as in ``lax.dot_general``.
+
+    ``preferred_element_type``: the type the products are formed and
+    summed in, and the result's.  The Gauss sums (``b.re + b.im``, ...)
+    are formed in the operand type, as in JAX; the operands of each real
+    contraction are then converted, so bf16 operands give exact f32
+    products, f32 sums and f32 ``k1 - k2``/``k1 + k3``, rounded only where
+    the caller casts the result.  ``precision``: None or "highest", both
+    full f32 (TF32 off); other precisions come with ``flags.py``."""
+    if precision not in (None, "highest"):
+        raise ValueError(f"precision={precision!r}: only None and 'highest' are "
+                         "ported (the other precisions come with flags.py, "
+                         "ROADMAP.md Queue 1 item 12)")
     (lc, rc), (lb, rb) = dimension_numbers
 
     def dg(x, y):
+        if preferred_element_type is not None:
+            x, y = x.to(preferred_element_type), y.to(preferred_element_type)
         letters = iter("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
         xs = [next(letters) for _ in range(x.ndim)]
         ys = [next(letters) for _ in range(y.ndim)]
@@ -146,7 +186,8 @@ def cdot_general(a, b, dimension_numbers):
         out = ([xs[i] for i in lb]
                + [xs[i] for i in range(x.ndim) if i not in lc and i not in lb]
                + [ys[j] for j in range(y.ndim) if j not in rc and j not in rb])
-        return torch.einsum(f"{''.join(xs)},{''.join(ys)}->{''.join(out)}", x, y)
+        with _full_f32():
+            return torch.einsum(f"{''.join(xs)},{''.join(ys)}->{''.join(out)}", x, y)
 
     return cbilinear(dg, a, b)
 

@@ -68,7 +68,7 @@ def wilson_operator(
     links: Optional[np.ndarray] = None,
     layout: str = "soa",
     storage_dtype=None,
-    device=None,
+    device="cuda",
 ) -> BSROperator:
     """Build the Wilson operator as a split-complex Kron-BSR stencil.
 
@@ -76,7 +76,8 @@ def wilson_operator(
     picks precision: complex64 -> float32 parts, complex128 -> float64.
     Operands of ``apply_wilson`` are SoA [ncols, 12, *lat] CArrays.
     ``storage_dtype=torch.bfloat16`` stores the link blocks in bf16; the
-    spin factors keep ``dtype``'s precision."""
+    spin factors keep ``dtype``'s precision.  The operator is built on
+    ``device``: the card unless the caller names the CPU."""
     nd = len(lat_dims)
     rng = np.random.default_rng(0 if key is None else int(key))
     if links is None:

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, at first use, into
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface, at first use, into
 ``_build/<hash of the sources>/``, and loaded with ``ctypes``.  Nothing is
 built or loaded at import, so the package imports on machines without
 CUDA; on a machine with a card but no ``nvcc`` the build raises.
@@ -22,9 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu",)
+SOURCES = ("stencil_soa.cu", "permute.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 #: seconds nvcc took in this process (None: the library was already built)
 build_seconds = None
@@ -56,21 +57,35 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # build to a private name, then rename: concurrent processes never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
+        # build in a private directory, then rename: concurrent processes
+        # never load a half-written library
+        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)
+                     for src, obj in zip(SOURCES, objs)]
+            done = []
+            for proc in procs:
+                stdout, stderr = proc.communicate()
+                done.append((proc.args, proc.returncode, stdout, stderr))
+            so = os.path.join(tmp, out.name)
+            if all(rc == 0 for _, rc, _, _ in done):
+                link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                                      capture_output=True, text=True)
+                done.append((link.args, link.returncode, link.stdout, link.stderr))
+            for args, rc, stdout, stderr in done:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(args)}\n"
+                                       f"{stdout}\n{stderr}")
+            os.replace(so, out)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.sbt_stencil_soa.argtypes = [i, i, i, i, i, i, p, p, p, p, p, p, p, p,
                                     i, i, i, i, i, i, p, p]
     lib.sbt_stencil_soa.restype = i
+    lib.sbt_permute_4d.argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
+    lib.sbt_permute_4d.restype = i
     return lib

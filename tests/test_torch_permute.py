@@ -1,0 +1,77 @@
+"""superbblas_tpu_torch.ops.permute against superbblas_tpu's Pallas tiled
+transpose, run in interpret mode on the CPU (the CUDA kernel's own tests
+are in test_torch_cuda.py).  Permutes are exact: results are compared bit
+for bit."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from superbblas_tpu.ops.permute_pallas import pallas_permute
+from superbblas_tpu_torch.ops import permute as P
+
+SHAPES = [(16, 8, 8, 32), (16, 4, 8, 32), (8, 16, 24, 128)]
+PERMS = [(3, 2, 1, 0), (3, 1, 2, 0)]
+
+
+def rand(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("perm", PERMS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_matches_pallas_permute(shape, perm):
+    x = rand(shape)
+    want = np.asarray(pallas_permute(jnp.asarray(x), perm, interpret=True))
+    before = P.permute_4d.launches
+    for fn in (P.permute_4d_reference, P.maybe_permute, P.permute_4d):
+        got = fn(torch.from_numpy(x), perm)
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert P.permute_4d.launches == before   # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("perm", PERMS)
+def test_strided_view_matches_pallas_permute(perm):
+    """A box sliced out of a larger tensor (a view, as ``_extract_box``
+    gives it) permutes like the materialised box."""
+    x = rand((20, 9, 10, 40), seed=1)
+    view = torch.from_numpy(x)[2:18, 1:9, 3:7, 5:37]
+    assert not view.is_contiguous()
+    want = np.asarray(pallas_permute(jnp.asarray(x[2:18, 1:9, 3:7, 5:37]), perm,
+                                     interpret=True))
+    np.testing.assert_array_equal(P.maybe_permute(view, perm).numpy(), want)
+
+
+@pytest.mark.parametrize("shape,perm,dtype,eligible", [
+    ((16, 8, 8), (2, 1, 0), torch.float32, False),           # rank
+    ((16, 8, 8, 32), (0, 1, 2, 3), torch.float32, False),    # perm
+    ((16, 8, 8, 32), (2, 1, 3, 0), torch.float32, False),    # perm
+    ((16, 8, 8, 32), (3, 2, 1, 0), torch.float64, False),    # 8-byte data
+    ((16, 8, 8, 32), (3, 2, 1, 0), torch.bfloat16, False),   # 2-byte data
+    ((1, 8, 8, 32), (3, 2, 1, 0), torch.float32, False),     # X = 1
+    ((16, 8, 8, 1), (3, 1, 2, 0), torch.float32, False),     # T = 1
+    ((16, 0, 8, 32), (3, 2, 1, 0), torch.float32, False),    # empty
+    ((16, 8, 8, 32), (3, 2, 1, 0), torch.float32, True),
+    ((16, 8, 8, 32), (3, 1, 2, 0), torch.int32, True),
+    ((16, 9, 8, 32), (3, 2, 1, 0), torch.float32, True),     # TPU: Y % 8 != 0
+    ((4096, 8, 8, 4096), (3, 2, 1, 0), torch.float32, True),  # TPU: VMEM
+    ((2, 1, 1, 2), (3, 1, 2, 0), torch.float32, True),
+])
+def test_eligibility(shape, perm, dtype, eligible):
+    assert P.permute_eligible(shape, perm, dtype) is eligible
+
+
+@pytest.mark.parametrize("shape,perm", [((3, 4, 5), (2, 0, 1)), ((1, 8, 8, 32), (3, 2, 1, 0)),
+                                        ((2, 3, 4, 5, 6), (4, 3, 2, 1, 0))])
+def test_other_cases_use_torch_permute(shape, perm):
+    x = torch.from_numpy(rand(shape, seed=2))
+    got = P.maybe_permute(x, perm)
+    assert got.is_contiguous() and torch.equal(got, x.permute(perm))
+
+
+def test_kernel_wrapper_raises_off_the_cpu_without_a_kernel():
+    x = torch.empty((16, 8, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        P.permute_4d(x, (3, 2, 1, 0))

@@ -24,7 +24,7 @@ def ops(dtype, storage=None):
     jd, td = PRECISIONS[dtype]
     jop = JW.wilson_operator(LAT, mass=0.1, key=0, layout="soa", dtype=jd,
                              storage_dtype=None if storage is None else jnp.bfloat16)
-    top = TW.wilson_operator(LAT, mass=0.1, key=0, dtype=td,
+    top = TW.wilson_operator(LAT, mass=0.1, key=0, dtype=td, device="cpu",
                              storage_dtype=None if storage is None else torch.bfloat16)
     return jop, top
 
@@ -148,3 +148,27 @@ def test_cg_solve_matches_jax(dtype):
         jrs = JW.cg_solve(jop64, both(b64)[0], n_iters=10)[1]
     assert trs.ndim == 0 and trs.dtype == tx.re.dtype
     np.testing.assert_allclose(float(trs), float(jrs), rtol=rtol)
+
+
+def _build_without_device(entry):
+    lat = (2, 2, 2, 4)
+    if entry == "wilson_operator":
+        return TW.wilson_operator(lat, key=0)
+    blocks = np.zeros(lat + (9, 3, 3), np.float32)
+    if entry == "bsr_from_stencil":
+        return TB.bsr_from_stencil("xyztc", "xyztC", lat, {"c": 3}, {"C": 3},
+                                   TW.wilson_offsets(4), TC.CArray(blocks, blocks))
+    soa = np.zeros((9, 9) + lat, np.float32)
+    return TB.operator_from_numpy(soa, soa, None, None, TW.wilson_offsets(4), lat, 3, 3)
+
+
+@pytest.mark.parametrize("entry", ["wilson_operator", "bsr_from_stencil",
+                                   "operator_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device`` an operator is built on the card; where there is
+    none the call raises rather than building on the CPU."""
+    if torch.cuda.is_available():
+        assert _build_without_device(entry).blocks_re.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            _build_without_device(entry)
