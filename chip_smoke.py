@@ -3,17 +3,34 @@
     python3 chip_smoke.py [--profile]
 
 Builds the CUDA kernels from ``superbblas_tpu_torch/csrc`` (one nvcc per
-source, in parallel) and drives the port's two paths on the card.
+source, in parallel) and drives the port's paths on the card.
 
-Wilson path: checks the stencil kernel against its plain PyTorch version
-at small shapes and at the Wilson bench shape (lattice 8x8x16x128, 8
-columns), timing both there.  Then it drives the path once: a Wilson-Dirac
-normal-equation CG solve on a 32x32x32x64 lattice with 8 right-hand sides
-through ``wilson_operator`` and ``cg_solve``.  Before the solve it holds
-the kernel against the plain version on that operator, its adjoint and the
-right-hand sides, and times both; after it, it checks the true residual
-and the adjoint identity, and that every matvec of the solve launched the
-kernel.
+Stencil checks: the stencil kernel K1 against its plain PyTorch version at
+small shapes, and with ``packed_parity`` (both parities) on ragged half
+lattices; its X-inside (K4a) and X-streaming (K4b) schedules against the
+plain version and against K1, bit for bit, at small shapes; all three at
+the Wilson bench shape (lattice 8x8x16x128, 8 columns, f32 and bf16),
+timed in turns with the plain version there.
+
+Wilson path: one Wilson operator on a 32x32x32x64 lattice (links from
+numpy seed 0, f32) with 8 right-hand sides, built once and shared by the
+paths below.  Before the solve the script holds K1 against the plain
+version on that operator, its adjoint and the right-hand sides; then it
+drives a normal-equation CG solve through ``wilson_operator`` and
+``cg_solve`` and checks the true residual, the adjoint identity and that
+every matvec of the solve launched K1.  Schedule path: one call of each
+of K4a and K4b on the same operator and right-hand sides, held against K1
+and the plain version, then all four timed in turns.
+
+Even-odd path: the packed hopping of the operator and of its adjoint
+(``hopping_packed_soa``), K1 with ``packed_parity`` held against the plain
+version and timed in turns with it; then ``eo_solve_packed_soa`` to a
+true residual |D psi - b| / |b| <= 1e-5 (unpacked K1, norms in f64), with
+every matvec a packed launch (4 N + 4), beside the unpreconditioned
+``cg_solve`` taken to about the same residual; then ``solvers.bicgstab``
+on the packed Schur operator built from ``hopping_packed_soa``,
+``apply_hopping_packed_soa`` and ``cplx``, to a true Schur residual
+<= 2e-5.
 
 Dense path: checks the permute kernel against its plain version at small,
 ragged and strided shapes and a small box copy against a numpy oracle.
@@ -28,9 +45,9 @@ and the kernel launches of the run are counted.  Then it times the permute
 kernel against the plain version (``x.permute(perm).contiguous()``, which
 is also the one PyTorch call computing the same function).
 
-``--profile`` adds one warm solve and one warm dense path under
-``torch.profiler`` and prints the device's busy share and the ops that
-take its time.
+``--profile`` adds one warm solve, one warm even-odd solve and one warm
+dense path under ``torch.profiler`` and prints the device's busy share and
+the ops that take its time.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches on its path and its error, times and bound, and as its last line
@@ -52,21 +69,38 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from superbblas_tpu_torch import ContractionPlan, local_contraction, local_copy, local_permute
+from superbblas_tpu_torch import (ContractionPlan, cplx, local_contraction, local_copy,
+                                  local_permute, solvers)
 from superbblas_tpu_torch.cplx import CArray
-from superbblas_tpu_torch.models import (adjoint_operator, apply_wilson,
-                                         cg_solve, wilson_offsets, wilson_operator)
+from superbblas_tpu_torch.models import (adjoint_operator, apply_hopping_packed_soa,
+                                         apply_wilson, cb_pack_soa, cg_solve,
+                                         eo_solve_packed_soa, hopping_packed_soa,
+                                         wilson_offsets, wilson_operator)
 from superbblas_tpu_torch.bsr import bsr_cast_storage
 from superbblas_tpu_torch.ops import _cuda
 from superbblas_tpu_torch.ops.permute import maybe_permute, permute_4d, permute_4d_reference
 from superbblas_tpu_torch.ops.stencil import (stencil_matvec_soa,
-                                              stencil_matvec_soa_reference)
+                                              stencil_matvec_soa_reference,
+                                              stencil_matvec_soa_stream,
+                                              stencil_matvec_soa_xin)
 
 WILSON_OFFSETS = wilson_offsets(4)
+HOPPING = WILSON_OFFSETS[1:]
+DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16))
+SCHEDULES = {"xin": stencil_matvec_soa_xin, "stream": stencil_matvec_soa_stream}
 #: max |kernel - plain| allowed, relative to max |plain|: f32 rounding for
 #: f32 fields, one bf16 ulp (2^-7) for bf16 fields
 TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+MAIN_LAT, MAIN_COLS, MASS = (32, 32, 32, 64), 8, 0.1
 CG_ITERS = 25
+#: Schur CG iterations of the even-odd solve, and the unpreconditioned CG
+#: iterations that reach about the same true residual (f32, 8x8x8x16,
+#: mass 0.1, links from seed 0, on the CPU: eo 12 -> 2.8e-6, 14 -> 4.0e-7;
+#: cg 25 -> 3.5e-6, 30 -> 4.3e-7)
+EO_ITERS = 14
+CG_SAME_ITERS = 30
+BICG_TOL, BICG_MAXITER = 1e-5, 50
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s and f32
 #: FLOP/s outside the tensor cores; a card set below 700 W runs below them
 HBM_BYTES_PER_S = 3.35e12
@@ -94,11 +128,14 @@ def randn_c(shape, gen, dtype=torch.float32) -> CArray:
     return CArray(part(), part())
 
 
-def compare(blocks, kron, x, offsets, label) -> float:
-    """Kernel against the plain version on the same operands; returns the
-    max abs error."""
-    got = stencil_matvec_soa(blocks, kron, x, offsets, 3, 3)
-    want = stencil_matvec_soa_reference(blocks, kron, x, offsets, 3, 3)
+def compare(blocks, kron, x, offsets, label, fn=None, packed_parity=None) -> float:
+    """A stencil kernel (K1, with ``packed_parity`` if given, or the
+    schedule ``fn``) against the plain version on the same operands;
+    returns the max abs error."""
+    args = (blocks, kron, x, offsets, 3, 3)
+    got = (stencil_matvec_soa(*args, packed_parity=packed_parity) if fn is None
+           else fn(*args))
+    want = stencil_matvec_soa_reference(*args, packed_parity=packed_parity)
     torch.cuda.synchronize()
     if got.re.dtype != x.re.dtype or got.re.shape != want.re.shape:
         raise AssertionError(f"{label}: output {got.re.dtype} {tuple(got.re.shape)}")
@@ -131,23 +168,50 @@ def time_turns(fns, reps):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def time_both(op, x, reps):
-    """Median ms of the stencil kernel and of its plain version on one
-    matvec."""
+def time_stencils(op, x, reps):
+    """Median ms of K1, K4a, K4b and the plain version on one matvec of
+    ``op`` on ``x``, in turns."""
     args = (op.blocks, op.kron, x, op.offsets, 3, 3)
-    ms = time_turns({"kernel": lambda: stencil_matvec_soa(*args),
-                     "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
-    return ms["kernel"], ms["plain"]
+    return time_turns({"k1": lambda: stencil_matvec_soa(*args),
+                       "xin": lambda: stencil_matvec_soa_xin(*args),
+                       "stream": lambda: stencil_matvec_soa_stream(*args),
+                       "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
+
+
+def same_as_k1(blocks, kron, x, offsets, label):
+    """K4a and K4b against the plain version and against K1, bit for bit
+    (they share K1's per-site math and its order of sums); returns the max
+    abs error against the plain version."""
+    k1 = stencil_matvec_soa(blocks, kron, x, offsets, 3, 3)
+    err = 0.0
+    for name, fn in SCHEDULES.items():
+        err = max(err, compare(blocks, kron, x, offsets, f"{name} {label}", fn=fn))
+        got = fn(blocks, kron, x, offsets, 3, 3)
+        if not all(torch.equal(g, w) for g, w in zip(got, k1)):
+            raise AssertionError(f"{name} {label}: differs from K1")
+    return err
 
 
 def reset_counts():
-    stencil_matvec_soa.launches = 0
-    permute_4d.launches = 0
+    for fn in (stencil_matvec_soa, stencil_matvec_soa_xin, stencil_matvec_soa_stream,
+               permute_4d):
+        fn.launches = 0
 
 
 def read_counts():
-    return {"stencil_matvec_soa": stencil_matvec_soa.launches,
-            "permute_4d": permute_4d.launches}
+    return {fn.__name__: fn.launches for fn in (stencil_matvec_soa, stencil_matvec_soa_xin,
+                                                stencil_matvec_soa_stream, permute_4d)}
+
+
+def norm(a) -> float:
+    """|a| over both parts, in f64."""
+    return float(sum((p.double() ** 2).sum() for p in a)) ** 0.5
+
+
+def true_residual(op, x, b) -> float:
+    """|D x - b| / |b| with the unpacked K1 apply of ``op``."""
+    r = apply_wilson(op, x)
+    return norm(CArray(r.re - b.re, r.im - b.im)) / norm(b)
 
 
 def small_checks(gen):
@@ -175,8 +239,38 @@ def small_checks(gen):
         print(f"check all-ones KD={kd}: every entry == {9 * kd * 3} ok", flush=True)
 
 
+def packed_checks(gen):
+    """K1 with packed parity against the plain version: both parities,
+    ragged half lattices (X/2 of 1, 2 and 3; odd Y, Z and T), 1-3 columns,
+    the three dtype pairs, the 8 hopping directions."""
+    for half, n in (((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 5, 4, 7), 3)):
+        for st, ft in DTYPE_PAIRS:
+            for parity in (0, 1):
+                blocks = randn_c((8, 9) + half, gen, st)
+                kron = randn_c((8, 4, 4), gen)
+                x = randn_c((n, 12) + half, gen, ft)
+                compare(blocks, kron, x, HOPPING, f"packed p={parity} {half} n={n} "
+                        f"{st}/{ft}", packed_parity=parity)
+
+
+def schedule_checks(gen):
+    """K4a and K4b against the plain version and K1 at small shapes (X of
+    1, 2 and 3 among them), the three dtype pairs, with and without spin
+    factors."""
+    for lat, n in (((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 2, 5, 7), 3),
+                   ((4, 4, 8, 32), 8)):
+        for st, ft in DTYPE_PAIRS:
+            blocks = randn_c((9, 9) + lat, gen, st)
+            kron = randn_c((9, 4, 4), gen)
+            same_as_k1(blocks, kron, randn_c((n, 12) + lat, gen, ft), WILSON_OFFSETS,
+                       f"{lat} n={n} {st}/{ft}")
+            same_as_k1(blocks, None, randn_c((n, 3) + lat, gen, ft), WILSON_OFFSETS,
+                       f"no-kron {lat} n={n} {st}/{ft}")
+
+
 def bench_shape(gen):
-    """Kernel and plain version at the Wilson bench shape."""
+    """K1, K4a, K4b and the plain version at the Wilson bench shape:
+    checked, then timed in turns."""
     lat, n = (8, 8, 16, 128), 8
     op32 = wilson_operator(lat, mass=0.1, key=0, device="cuda")
     for label, op, ft in (("f32", op32, torch.float32),
@@ -184,14 +278,15 @@ def bench_shape(gen):
                            torch.bfloat16)):
         x = randn_c((n, 12) + lat, gen, ft)
         compare(op.blocks, op.kron, x, op.offsets, f"bench {lat} n={n} {label}")
-        ms = dict(zip(("kernel", "plain"), time_both(op, x, reps=25)))
+        same_as_k1(op.blocks, op.kron, x, op.offsets, f"bench {lat} n={n} {label}")
+        ms = time_stencils(op, x, reps=25)
         flops = op.flops_per_matvec(n)
         nbytes = op.memops_per_matvec(n, itemsize=2 * x.re.element_size())
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"bench {label} bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        for k in ("kernel", "plain"):
-            print(f"bench {label} {k}: median {ms[k]:.4f} ms over 25, "
-                  f"{flops / ms[k] / 1e6:.1f} GFLOP/s, {nbytes / ms[k] / 1e6:.1f} GB/s",
+        for k, v in ms.items():
+            print(f"bench {label} {k}: median {v:.4f} ms over 25, "
+                  f"{flops / v / 1e6:.1f} GFLOP/s, {nbytes / v / 1e6:.1f} GB/s",
                   flush=True)
 
 
@@ -232,28 +327,29 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def wilson_path(gen, profile: bool):
-    """The Wilson path end to end: Wilson operator, kernel against plain
-    on its operands, CG solve, checks.  Returns (launches in the solve,
-    max error, kernel ms, plain ms, (bound ms, bound by)) at this
-    shape."""
-    lat, n = (32, 32, 32, 64), 8
+def main_operator(gen):
+    """The Wilson operator of the main paths, 32x32x32x64, f32, links from
+    numpy seed 0, and 8 right-hand sides."""
     t0 = time.perf_counter()
-    op = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
-    b = randn_c((n, 12) + lat, gen)
+    op = wilson_operator(MAIN_LAT, mass=MASS, key=0, layout="soa", device="cuda")
+    b = randn_c((MAIN_COLS, 12) + MAIN_LAT, gen)
     torch.cuda.synchronize()
-    print(f"main path set-up (host links + upload) {time.perf_counter() - t0:.2f} s",
+    print(f"main operator set-up (host links + upload) {time.perf_counter() - t0:.2f} s",
           flush=True)
+    return op, b
 
+
+def wilson_path(op, b, profile: bool):
+    """The Wilson path end to end: kernel against plain on the operator's
+    operands, CG solve, checks.  Returns (launches in the solve, max
+    error)."""
+    lat, n = MAIN_LAT, MAIN_COLS
     # the kernel against the plain version on the solve's own operands:
     # D b and D^H b, independently of the solve's self-consistency
     op_h = adjoint_operator(op)
     err = max(compare(o.blocks, o.kron, b, o.offsets, f"main path {lat} n={n} {name}")
               for name, o in (("D", op), ("D^H", op_h)))
     del op_h
-    ms, plain_ms = time_both(op, b, reps=11)
-    print(f"main path {lat} n={n} matvec: kernel median {ms:.4f} ms, "
-          f"plain median {plain_ms:.4f} ms over 11", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -271,9 +367,6 @@ def wilson_path(gen, profile: bool):
     dhdx = apply_wilson(op_h, dx)
     dhb = apply_wilson(op_h, b)
     torch.cuda.synchronize()
-
-    def norm(a):
-        return float(sum((p.double() ** 2).sum() for p in a)) ** 0.5
 
     def inner(a, c):   # <a, c> = sum conj(a) c, in f64
         re = sum(float((p.double() * q.double()).sum()) for p, q in zip(a, c))
@@ -302,8 +395,139 @@ def wilson_path(gen, profile: bool):
     if profile:
         del x, dx, dhdx, dhb, op_h
         profile_run("solve", lambda: cg_solve(op, b, n_iters=CG_ITERS))
-    return launches, err, ms, plain_ms, bound(op.memops_per_matvec(n, itemsize=8),
-                                              op.flops_per_matvec(n))
+    return launches, err
+
+
+def schedule_path(op, b):
+    """K4a and K4b through their entry points once each on the main
+    operator and right-hand sides (the counts set to 0 just before and
+    read just after), held against K1 bit for bit and against the plain
+    version; then K1, K4a, K4b and the plain version timed in turns.
+    Returns ({name: launches}, {name: max error}, {name: median ms})."""
+    args = (op.blocks, op.kron, b, op.offsets, 3, 3)
+    reset_counts()
+    got = {name: fn(*args) for name, fn in SCHEDULES.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {name: counts[fn.__name__] for name, fn in SCHEDULES.items()}
+    print(f"schedule path {MAIN_LAT} n={MAIN_COLS}: launches {counts}", flush=True)
+    if launches != {"xin": 1, "stream": 1} or counts["stencil_matvec_soa"] != 0:
+        raise AssertionError(f"schedule path launches {counts}, expected one of each "
+                             "schedule")
+    k1 = stencil_matvec_soa(*args)
+    want = stencil_matvec_soa_reference(*args)
+    torch.cuda.synchronize()
+    scale = max(float(w.abs().max()) for w in want)
+    err = {}
+    for name, y in got.items():
+        err[name] = max(float((g - w).abs().max()) for g, w in zip(y, want))
+        same = all(torch.equal(g, w) for g, w in zip(y, k1))
+        print(f"check {name} main path: max|d| vs plain {err[name]:.3e} "
+              f"(rel {err[name] / scale:.3e}), equal to K1 bit for bit: {same}", flush=True)
+        if not (err[name] <= TOL[torch.float32] * scale and same):
+            raise AssertionError(f"{name} on the main operator disagrees")
+    del got, k1, want
+    ms = time_stencils(op, b, reps=11)
+    print(f"main shape {MAIN_LAT} n={MAIN_COLS} matvec medians over 11 in turns: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    return launches, err, ms
+
+
+def eo_path(op, b, profile: bool):
+    """The even-odd path end to end: packed hoppings checked and timed,
+    the packed eo solve with its checks, the unpreconditioned CG beside
+    it, BiCGStab on the packed Schur operator.  Returns (packed launches
+    in the solve, max error, {hopping: (kernel ms, plain ms)}, (bound ms,
+    bound by) of one packed hopping)."""
+    n, a = MAIN_COLS, MASS + 4.0
+    t0 = time.perf_counter()
+    op_h = adjoint_operator(op)
+    hops = {"H_eo": (hopping_packed_soa(op, 0), 0, cb_pack_soa(b, 1)),
+            "(H^H)_oe": (hopping_packed_soa(op_h, 1), 1, cb_pack_soa(b, 0))}
+    del op_h
+    torch.cuda.synchronize()
+    half = tuple(hops["H_eo"][0].dim_d)
+    print(f"eo path: packed hoppings on {half} built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    err, ms = 0.0, {}
+    for name, (hop, p, src) in hops.items():
+        err = max(err, compare(hop.blocks, hop.kron, src, hop.offsets,
+                               f"eo {name} {half} n={n}", packed_parity=p))
+        args = (hop.blocks, hop.kron, src, hop.offsets, 3, 3)
+        t = time_turns({"kernel": lambda: stencil_matvec_soa(*args, packed_parity=p),
+                        "plain": lambda: stencil_matvec_soa_reference(
+                            *args, packed_parity=p)}, reps=7)
+        ms[name] = t["kernel"], t["plain"]
+        print(f"eo {name} packed hopping: kernel median {t['kernel']:.4f} ms, plain "
+              f"median {t['plain']:.4f} ms over 7", flush=True)
+    hop = hops["H_eo"][0]
+    hop_bound = bound(hop.memops_per_matvec(n, itemsize=8), hop.flops_per_matvec(n))
+    print(f"eo packed hopping bound {hop_bound[0]:.4f} ms ({hop_bound[1]}): "
+          f"{hop.flops_per_matvec(n) / 1e9:.2f} GFLOP, "
+          f"{hop.memops_per_matvec(n, itemsize=8) / 1e9:.3f} GB", flush=True)
+    del hops, hop
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    psi, rs = eo_solve_packed_soa(op, b, a=a, n_iters=EO_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()["stencil_matvec_soa"]
+    expected = 4 * EO_ITERS + 4
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(q).all()) for q in psi)
+    res = true_residual(op, psi, b)
+    print(f"eo path {MAIN_LAT} x {n} rhs: eo_solve_packed_soa {EO_ITERS} iters "
+          f"{wall:.3f} s, peak memory {peak / 2 ** 30:.2f} GiB, |r_e|^2={float(rs):.4e}",
+          flush=True)
+    print(f"eo path checks: true rel residual |D psi - b|/|b| {res:.3e} (<= 1e-5), "
+          f"packed launches in the solve {launches} (expected {expected}), "
+          f"finite {finite}", flush=True)
+    if tuple(psi.re.shape) != tuple(b.re.shape) or not finite:
+        raise AssertionError("eo solution has the wrong shape or is not finite")
+    if not res <= 1e-5:
+        raise AssertionError(f"eo true relative residual {res:.3e} > 1e-5")
+    if launches != expected:
+        raise AssertionError(f"{launches} kernel launches in the eo solve, "
+                             f"expected {expected}")
+    del psi
+
+    t0 = time.perf_counter()
+    x, _ = cg_solve(op, b, n_iters=CG_SAME_ITERS)
+    torch.cuda.synchronize()
+    print(f"eo path finding: unpreconditioned cg_solve {CG_SAME_ITERS} iters "
+          f"{time.perf_counter() - t0:.3f} s, true rel residual "
+          f"{true_residual(op, x, b):.3e}", flush=True)
+    del x
+
+    # BiCGStab on the packed Schur operator, assembled as a user would
+    he, ho = hopping_packed_soa(op, 0), hopping_packed_soa(op, 1)
+
+    def dhat(v):
+        t = apply_hopping_packed_soa(he, apply_hopping_packed_soa(ho, v, 1), 0)
+        return cplx.add(cplx.scale(a, v), cplx.scale(-1.0 / a, t))
+
+    rhs = cplx.add(cb_pack_soa(b, 0), cplx.scale(
+        -1.0 / a, apply_hopping_packed_soa(he, cb_pack_soa(b, 1), 0)))
+    reset_counts()
+    t0 = time.perf_counter()
+    x_e, _, k = solvers.bicgstab(dhat, rhs, tol=BICG_TOL, maxiter=BICG_MAXITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b_launches = read_counts()["stencil_matvec_soa"]
+    r = dhat(x_e)
+    schur = norm(CArray(r.re - rhs.re, r.im - rhs.im)) / norm(rhs)
+    print(f"eo path bicgstab on Dhat: {k} iters {wall:.3f} s, true Schur residual "
+          f"{schur:.3e} (<= 2e-5), packed launches {b_launches} (expected {4 * k})",
+          flush=True)
+    if not (k < BICG_MAXITER and schur <= 2e-5 and b_launches == 4 * k):
+        raise AssertionError("bicgstab on the packed Schur operator did not converge "
+                             "through the kernel")
+    del he, ho, rhs, x_e, r
+    if profile:
+        profile_run("eo solve", lambda: eo_solve_packed_soa(op, b, a=a, n_iters=EO_ITERS))
+    return launches, err, ms, hop_bound
 
 
 def exact(got, want, label):
@@ -456,7 +680,8 @@ def dense_path(gen, profile: bool):
     counts = read_counts()
     print(f"dense path {wall:.3f} s, kernel launches {counts} (after the permutes "
           f"{steps[0]}, after the box copy {steps[1]})", flush=True)
-    if counts != {"stencil_matvec_soa": 0, "permute_4d": 7} or steps != [2 + 4, 7]:
+    if counts != {"stencil_matvec_soa": 0, "stencil_matvec_soa_xin": 0,
+                  "stencil_matvec_soa_stream": 0, "permute_4d": 7} or steps != [2 + 4, 7]:
         raise AssertionError(f"dense path launches {counts} {steps}, expected 2 + 4 "
                              "for the permutes and 1 for the box copy")
 
@@ -541,9 +766,10 @@ def time_permute(gen):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one warm solve and one warm dense path "
-                             "with torch.profiler")
+                        help="also profile one warm solve, one warm even-odd solve "
+                             "and one warm dense path with torch.profiler")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; this smoke run "
                  "needs an NVIDIA GPU and has no CPU fallback")
@@ -566,22 +792,46 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     small_checks(gen)
+    packed_checks(gen)
+    schedule_checks(gen)
     bench_shape(gen)
-    launches, err, ms, plain_ms, (bound_ms, bound_by) = wilson_path(gen, args.profile)
+    op, b = main_operator(gen)
+    launches, err = wilson_path(op, b, args.profile)
     if launches == 0:
         raise AssertionError("the Wilson path launched no stencil kernel")
+    s_launches, s_err, ms = schedule_path(op, b)
+    eo_launches, eo_err, eo_ms, eo_bound = eo_path(op, b, args.profile)
+    if eo_launches == 0:
+        raise AssertionError("the even-odd path launched no packed stencil kernel")
+    k1_bound = bound(op.memops_per_matvec(MAIN_COLS, itemsize=8),
+                     op.flops_per_matvec(MAIN_COLS))
+    del op, b
     p_err = permute_checks(gen)
     p_launches, d_err = dense_path(gen, args.profile)
     if p_launches == 0:
         raise AssertionError("the dense path launched no permute kernel")
     p_ms, (p_bound_ms, p_bound_by) = time_permute(gen)
 
+    print(f"chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, the build included",
+          flush=True)
+    stencil = {"route": "cuda", "library_ms": None}
     print(json.dumps({"kernels": [{
-        "name": "stencil_matvec_soa", "route": "cuda",
+        "name": "stencil_matvec_soa", **stencil,
         "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
         "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "launches": launches, "max_abs_err": err, "ms": ms["k1"], "plain_ms": ms["plain"],
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}, {
+        "name": "stencil_matvec_soa[packed_parity]", **stencil,
+        "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
+        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "launches": eo_launches, "max_abs_err": eo_err, "ms": eo_ms["H_eo"][0],
+        "plain_ms": eo_ms["H_eo"][1], "bound_ms": eo_bound[0], "bound_by": eo_bound[1]}] + [{
+        "name": fn.__name__, **stencil,
+        "source": "superbblas_tpu_torch/csrc/stencil_schedules.cu",
+        "replaces": f"superbblas_tpu/ops/stencil_pallas.py:{line}",
+        "launches": s_launches[name], "max_abs_err": s_err[name], "ms": ms[name],
+        "plain_ms": ms["plain"], "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}
+        for (name, fn), line in zip(SCHEDULES.items(), (649, 795))] + [{
         "name": "permute_4d", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/permute.cu",
         "replaces": "superbblas_tpu/ops/permute_pallas.py:66",

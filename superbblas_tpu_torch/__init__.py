@@ -5,13 +5,14 @@ contraction (``labels``, ``ops``; the 4-D transpose is a hand-written
 kernel), and the Wilson-Dirac normal-equation CG solve in the
 structure-of-arrays layout: split-complex tensors (``cplx``), the SoA
 stencil operator (``bsr``), the Wilson model and its solve (``models``),
-and the stencil kernel with its plain PyTorch version (``ops``).  It
-imports torch and numpy, never jax.
+the stencil kernel with its plain PyTorch version (``ops``), the
+even-odd packed solve (``models.eo_packed``) and the Krylov solvers
+(``solvers``).  It imports torch and numpy, never jax.
 """
 
-from . import labels, cplx, ops, bsr, models  # noqa: I001  (dependency order)
+from . import labels, cplx, ops, bsr, models, solvers  # noqa: I001  (dependency order)
 from .labels import ContractionPlan
 from .ops import local_contraction, local_copy, local_permute
 
-__all__ = ["labels", "cplx", "bsr", "models", "ops", "ContractionPlan",
+__all__ = ["labels", "cplx", "bsr", "models", "ops", "solvers", "ContractionPlan",
            "local_contraction", "local_copy", "local_permute"]

@@ -1,16 +1,20 @@
-// SoA nearest-neighbour Kron-BSR stencil matvec for Hopper (sm_90a).
+// SoA nearest-neighbour Kron-BSR stencil matvec for Hopper (sm_90a), K1.
 //
 // Replaces the Pallas TPU kernel superbblas_tpu/ops/stencil_pallas.py
-// stencil_matvec_soa (_kernel, _matvec_body).  It computes
-//
-//   y[n, a*BI+i, s] = sum_d sum_j B_d[i, j](s) * sum_b K_d[a, b] * x[n, b*BD+j, s+o_d]
-//
-// over a periodic 4-D lattice s = (X, Y, Z, T) with one-hot +-1 offsets
-// o_d, all in split complex (separate re/im planes):
+// stencil_matvec_soa (_kernel, _matvec_body).  It computes the sum of
+// stencil_soa.cuh over a periodic 4-D lattice, in split complex:
 //   x       [n, KD*BD, X, Y, Z, T]   field dtype (f32 or bf16)
 //   blocks  [ndir, BI*BD, X, Y, Z, T] storage dtype (f32 or bf16)
 //   kron    [ndir, KI, KD]           f32, runtime values (nullptr: K_d = 1)
 //   y       [n, KI*BI, X, Y, Z, T]   field dtype; accumulation in f32.
+//
+// Packed parity.  With packed_parity p in {0, 1} the operands hold one
+// checkerboard parity with X halved (site (x, y, z, t) at xh = x / 2), and
+// an X shift moves to the packed slot of the image site's neighbour: with
+// m = (p + y + z + t) mod 2, +x reads slot xh+1 (wrapped) when m = 1, else
+// xh; -x reads slot xh when m = 1, else xh-1 (wrapped).  Y, Z and T shifts
+// are unchanged.  This is the parity-select X shift of the TPU kernel
+// (stencil_pallas.py _kernel, packed_parity) and of the plain version.
 //
 // What bounds it on the H100.  By its counts, bytes: per site and column,
 // f32 Wilson (ndir=9, KI=KD=4, BI=BD=3) does 6048 flops
@@ -29,7 +33,8 @@
 //    L1 instead of device memory;
 //  * neighbours are addressed directly with periodic wrap per axis; the
 //    reuse of x between neighbouring sites is left to L1/L2 (no halo
-//    copy, no shared-memory tiling);
+//    copy, no shared-memory tiling; the schedules of stencil_schedules.cu
+//    stage the X neighbours in shared memory instead);
 //  * kron factors are staged once per block in shared memory;
 //  * bf16 operands are converted on load, results rounded on store.
 // Constant-folded gamma entries and the rank-2 half-spinor projection of
@@ -38,28 +43,9 @@
 // Plain C interface (loaded with ctypes); every call returns the
 // cudaError_t of its launch.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "stencil_soa.cuh"
 
 namespace {
-
-constexpr int kMaxDirs = 16;
-
-struct Dirs {
-    int ndir;
-    int axis[kMaxDirs];   // 0..3 for X, Y, Z, T; -1 for the centre
-    int sign[kMaxDirs];   // +1, -1, or 0 for the centre
-};
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-    return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-}
 
 template <int KI, int KD, int BI, int BD, typename ST, typename FT>
 __global__ void __launch_bounds__(256) stencil_soa_kernel(
@@ -70,15 +56,10 @@ __global__ void __launch_bounds__(256) stencil_soa_kernel(
     int n, int X, int Y, int Z, int T, const __grid_constant__ Dirs dirs) {
     constexpr int F = KD * BD;    // input features
     constexpr int KO = KI * BI;   // output features
-    constexpr int KK = KI * KD;
 
     extern __shared__ float skron[];   // [2, ndir, KI, KD]
-    const int nk = dirs.ndir * KK;
-    for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < nk;
-         i += blockDim.x * blockDim.y) {
-        skron[i] = k_re ? k_re[i] : 1.0f;
-        skron[nk + i] = k_im ? k_im[i] : 0.0f;
-    }
+    const int nk = dirs.ndir * KI * KD;
+    stage_kron(skron, k_re, k_im, nk);
     __syncthreads();
 
     const int64_t V = (int64_t)X * Y * Z * T;
@@ -90,161 +71,77 @@ __global__ void __launch_bounds__(256) stencil_soa_kernel(
     const int cz = (int)((s / T) % Z);
     const int cy = (int)((s / ((int64_t)T * Z)) % Y);
     const int cx = (int)(s / ((int64_t)T * Z * Y));
-
     const FT* xr = x_re + (int64_t)col * F * V;
     const FT* xi = x_im + (int64_t)col * F * V;
 
-    float acc_re[KO], acc_im[KO];
-#pragma unroll
-    for (int o = 0; o < KO; ++o) acc_re[o] = acc_im[o] = 0.0f;
-
-#pragma unroll 1
-    for (int d = 0; d < dirs.ndir; ++d) {
-        // neighbour site s + o_d on the torus
+    // neighbour site s + o_d on the torus, read from device memory
+    auto fetch = [&](int d, float (&v_re)[F], float (&v_im)[F]) {
         int64_t nb = s;
         const int ax = dirs.axis[d];
         const int sg = dirs.sign[d];
-        if (sg != 0) {
+        bool move = sg != 0;
+        if (move && ax == 0 && dirs.packed >= 0) {
+            const bool odd = ((dirs.packed + cy + cz + ct) & 1) != 0;
+            move = sg > 0 ? odd : !odd;
+        }
+        if (move) {
             const int c = ax == 0 ? cx : ax == 1 ? cy : ax == 2 ? cz : ct;
             const int L = ax == 0 ? X : ax == 1 ? Y : ax == 2 ? Z : T;
             const int64_t st = ax == 0 ? (int64_t)Y * Z * T
                              : ax == 1 ? (int64_t)Z * T
                              : ax == 2 ? (int64_t)T : 1;
-            if (sg > 0) nb += (c == L - 1) ? -(int64_t)(L - 1) * st : st;
-            else        nb += (c == 0) ? (int64_t)(L - 1) * st : -st;
+            nb = shift_site(s, c, L, st, sg);
         }
+        load_site<F>(xr, xi, V, nb, v_re, v_im);
+    };
 
-        float xv_re[F], xv_im[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-            xv_re[f] = load_f(xr + f * V + nb);
-            xv_im[f] = load_f(xi + f * V + nb);
-        }
-
-        // spin factor first: z[a][j] = sum_b K_d[a, b] x[b*BD + j]
-        const float* kr = skron + d * KK;
-        const float* ki = skron + nk + d * KK;
-        float z_re[KI][BD], z_im[KI][BD];
-#pragma unroll
-        for (int a = 0; a < KI; ++a) {
-#pragma unroll
-            for (int j = 0; j < BD; ++j) {
-                float zr = 0.0f, zi = 0.0f;
-#pragma unroll
-                for (int b = 0; b < KD; ++b) {
-                    const float cr = kr[a * KD + b], cim = ki[a * KD + b];
-                    const float vr = xv_re[b * BD + j], vi = xv_im[b * BD + j];
-                    zr += cr * vr - cim * vi;
-                    zi += cr * vi + cim * vr;
-                }
-                z_re[a][j] = zr;
-                z_im[a][j] = zi;
-            }
-        }
-
-        // then the colour block of this site: acc[a*BI+i] += B_d[i, j] z[a][j]
-        const int64_t boff = (int64_t)d * BI * BD * V + s;
-#pragma unroll
-        for (int i = 0; i < BI; ++i) {
-#pragma unroll
-            for (int j = 0; j < BD; ++j) {
-                const float br = load_f(b_re + boff + (i * BD + j) * V);
-                const float bim = load_f(b_im + boff + (i * BD + j) * V);
-#pragma unroll
-                for (int a = 0; a < KI; ++a) {
-                    acc_re[a * BI + i] += br * z_re[a][j] - bim * z_im[a][j];
-                    acc_im[a * BI + i] += br * z_im[a][j] + bim * z_re[a][j];
-                }
-            }
-        }
-    }
-
-    FT* yr = y_re + (int64_t)col * KO * V + s;
-    FT* yi = y_im + (int64_t)col * KO * V + s;
-#pragma unroll
-    for (int o = 0; o < KO; ++o) {
-        store_f(yr + o * V, acc_re[o]);
-        store_f(yi + o * V, acc_im[o]);
-    }
+    float acc_re[KO], acc_im[KO];
+    site_matvec<KI, KD, BI, BD, ST>(b_re, b_im, V, s, skron, skron + nk, dirs.ndir, fetch,
+                                    acc_re, acc_im);
+    store_site<KO>(y_re, y_im, col, V, s, acc_re, acc_im);
 }
 
 template <int KI, int KD, int BI, int BD, typename ST, typename FT>
-cudaError_t launch(const void* b_re, const void* b_im, const float* k_re,
-                   const float* k_im, const void* x_re, const void* x_im,
-                   void* y_re, void* y_im, int n, int X, int Y, int Z, int T,
-                   const Dirs& dirs, cudaStream_t stream) {
-    // columns of a block share its sites (link reuse in L1); 256 threads
-    const int cols = n < 8 ? n : 8;
-    int sites = (256 / cols) / 32 * 32;
-    if (sites < 32) sites = 32;
-    const int64_t V = (int64_t)X * Y * Z * T;
-    const dim3 block(sites, cols);
-    const dim3 grid((unsigned)((V + sites - 1) / sites),
-                    (unsigned)((n + cols - 1) / cols));
-    const size_t smem = 2 * sizeof(float) * dirs.ndir * KI * KD;
-    stencil_soa_kernel<KI, KD, BI, BD, ST, FT><<<grid, block, smem, stream>>>(
-        static_cast<const ST*>(b_re), static_cast<const ST*>(b_im), k_re, k_im,
-        static_cast<const FT*>(x_re), static_cast<const FT*>(x_im),
-        static_cast<FT*>(y_re), static_cast<FT*>(y_im), n, X, Y, Z, T, dirs);
-    return cudaGetLastError();
-}
-
-template <int KI, int KD, int BI, int BD>
-cudaError_t dispatch_types(int storage_bf16, int field_bf16, const void* b_re,
-                           const void* b_im, const float* k_re,
-                           const float* k_im, const void* x_re,
-                           const void* x_im, void* y_re, void* y_im, int n,
-                           int X, int Y, int Z, int T, const Dirs& dirs,
-                           cudaStream_t stream) {
-#define SBT_LAUNCH(ST, FT)                                                   \
-    return launch<KI, KD, BI, BD, ST, FT>(b_re, b_im, k_re, k_im, x_re,    \
-                                           x_im, y_re, y_im, n, X, Y, Z, T,  \
-                                           dirs, stream)
-    if (!storage_bf16 && !field_bf16) SBT_LAUNCH(float, float);
-    if (storage_bf16 && !field_bf16) SBT_LAUNCH(__nv_bfloat16, float);
-    if (storage_bf16 && field_bf16) SBT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-#undef SBT_LAUNCH
-    return cudaErrorInvalidValue;
-}
+struct LaunchK1 {
+    static cudaError_t run(const Operands& a, const Dirs& dirs, cudaStream_t stream) {
+        // columns of a block share its sites (link reuse in L1); 256 threads
+        const int cols = a.n < 8 ? a.n : 8;
+        int sites = (256 / cols) / 32 * 32;
+        if (sites < 32) sites = 32;
+        const int64_t V = (int64_t)a.X * a.Y * a.Z * a.T;
+        const dim3 block(sites, cols);
+        const dim3 grid((unsigned)((V + sites - 1) / sites),
+                        (unsigned)((a.n + cols - 1) / cols));
+        const size_t smem = 2 * sizeof(float) * dirs.ndir * KI * KD;
+        stencil_soa_kernel<KI, KD, BI, BD, ST, FT><<<grid, block, smem, stream>>>(
+            static_cast<const ST*>(a.b_re), static_cast<const ST*>(a.b_im), a.k_re, a.k_im,
+            static_cast<const FT*>(a.x_re), static_cast<const FT*>(a.x_im),
+            static_cast<FT*>(a.y_re), static_cast<FT*>(a.y_im), a.n, a.X, a.Y, a.Z, a.T,
+            dirs);
+        return cudaGetLastError();
+    }
+};
 
 }  // namespace
 
 extern "C" {
 
-// offsets: host array [ndir, 4] of one-hot +-1 (or all-zero) offsets.
+// offsets: host array [ndir, 4] of one-hot +-1 (or all-zero) offsets;
+// packed_parity: 0 or 1 for checkerboard-packed operands, -1 for none.
 int sbt_stencil_soa(int ki, int kd, int bi, int bd, int storage_bf16,
                     int field_bf16, const void* b_re, const void* b_im,
                     const void* k_re, const void* k_im, const void* x_re,
                     const void* x_im, void* y_re, void* y_im, int n, int X,
                     int Y, int Z, int T, int ndir, const int* offsets,
-                    void* stream) {
-    if (ndir < 1 || ndir > kMaxDirs) return cudaErrorInvalidValue;
+                    int packed_parity, void* stream) {
     Dirs dirs{};
-    dirs.ndir = ndir;
-    for (int d = 0; d < ndir; ++d) {
-        dirs.axis[d] = -1;
-        dirs.sign[d] = 0;
-        for (int a = 0; a < 4; ++a) {
-            const int o = offsets[4 * d + a];
-            if (o == 0) continue;
-            if ((o != 1 && o != -1) || dirs.sign[d] != 0)
-                return cudaErrorInvalidValue;
-            dirs.axis[d] = a;
-            dirs.sign[d] = o;
-        }
-    }
-    const float* kr = static_cast<const float*>(k_re);
-    const float* kim = static_cast<const float*>(k_im);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (ki == 4 && kd == 4 && bi == 3 && bd == 3)
-        return dispatch_types<4, 4, 3, 3>(storage_bf16, field_bf16, b_re, b_im,
-                                          kr, kim, x_re, x_im, y_re, y_im, n,
-                                          X, Y, Z, T, dirs, st);
-    if (ki == 1 && kd == 1 && bi == 3 && bd == 3)
-        return dispatch_types<1, 1, 3, 3>(storage_bf16, field_bf16, b_re, b_im,
-                                          kr, kim, x_re, x_im, y_re, y_im, n,
-                                          X, Y, Z, T, dirs, st);
-    return cudaErrorInvalidValue;
+    const cudaError_t err = parse_dirs(ndir, offsets, packed_parity, &dirs);
+    if (err != cudaSuccess) return err;
+    const Operands a{b_re, b_im, static_cast<const float*>(k_re),
+                     static_cast<const float*>(k_im), x_re, x_im, y_re, y_im,
+                     n, X, Y, Z, T};
+    return dispatch<LaunchK1>(ki, kd, bi, bd, storage_bf16, field_bf16, a, dirs,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,0 +1,142 @@
+"""Packed checkerboard (even-odd) layout in the SoA stencil: half-lattice
+hopping applies and the even-odd preconditioned solve (counterpart of the
+SoA part of ``superbblas_tpu/models/eo_packed.py``).
+
+Each parity is stored as a packed half-lattice array, X halved: site
+(x, y, z, t) goes to (x // 2, y, z, t).  The hopping term (the centre
+direction dropped) is applied directly between packings by the stencil
+kernel with ``packed_parity``: a direction along X reads the unshifted or
+the shifted packed slot, chosen by the parity of the image site; every
+other direction is a plain shift.  Every matvec of the Schur solve is one
+such half-lattice apply.  Requires one-hot +-1 offsets and an even X.
+
+The AoS part (``cb_pack``, ``hopping_packed``, ``eo_solve_packed``) needs
+the AoS stencil mode and is still to port (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import cplx
+from ..bsr import BSROperator, apply_stencil_soa
+from ..cplx import CArray
+from .even_odd import schur_cg
+from .wilson import adjoint_operator
+
+__all__ = ["cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
+           "apply_hopping_packed_soa", "eo_solve_packed_soa"]
+
+
+def _check_one_hot(offsets):
+    for off in offsets:
+        nz = [o for o in off if o]
+        if nz and (len(nz) != 1 or abs(nz[0]) != 1):
+            raise ValueError(
+                f"packed checkerboarding requires one-hot +-1 stencil "
+                f"offsets, got {off}")
+
+
+def _rest_par_np(rest):
+    coords = np.meshgrid(*[np.arange(d) for d in rest], indexing="ij")
+    return (sum(coords) % 2) if coords else np.zeros((), np.int64)
+
+
+def _rest_par(rest, device) -> torch.Tensor:
+    """(y + z + t) % 2, shaped [1, 1, 1, *rest], on ``device``."""
+    rp = _rest_par_np(rest).reshape((1, 1, 1) + tuple(rest))
+    return torch.from_numpy(np.ascontiguousarray(rp)).to(device)
+
+
+def cb_pack_soa(a: CArray, parity: int) -> CArray:
+    """SoA layout [n|ndir, F, X, *rest]: keep the sites with
+    (x + sum(rest)) % 2 == parity, halving X (array axis 2).  The parts
+    keep their dtype."""
+    def pk(v):
+        rp = _rest_par(v.shape[3:], v.device)
+        ev, od = v[:, :, 0::2], v[:, :, 1::2]
+        return torch.where((parity + rp) % 2 == 1, od, ev)
+    return cplx.cmap(pk, a)
+
+
+def cb_unpack_soa(a_even: CArray, a_odd: CArray) -> CArray:
+    """Inverse of :func:`cb_pack_soa` for both parities: the full
+    [n|ndir, F, 2 X/2, *rest]."""
+    def up(e, o):
+        rest = tuple(e.shape[3:])
+        rp = _rest_par(rest, e.device)
+        ev = torch.where(rp == 1, o, e)
+        od = torch.where(rp == 0, o, e)
+        out = torch.stack([ev, od], dim=3)
+        return out.reshape(tuple(e.shape[:2]) + (2 * e.shape[2],) + rest)
+    return CArray(up(a_even.re, a_odd.re), up(a_even.im, a_odd.im))
+
+
+def hopping_packed_soa(op: BSROperator, to_parity: int) -> BSROperator:
+    """The SoA hopping operator (centre dropped) packed onto ``to_parity``
+    image sites, on the half lattice; its matvec is the stencil kernel
+    with ``packed_parity=to_parity``.  Blocks keep their storage dtype."""
+    if op.mode != "stencil_soa":
+        raise ValueError("needs an SoA-layout stencil operator")
+    if op.dim_d[0] % 2:
+        raise ValueError("X extent must be even")
+    _check_one_hot(op.offsets)
+    keep = [k for k, off in enumerate(op.offsets) if any(off)]
+    kidx = torch.tensor(keep, device=op.blocks_re.device)
+    blocks = cb_pack_soa(cplx.cmap(lambda v: v[kidx], op.blocks), to_parity)
+    kron = op.kron
+    if kron is not None:
+        kron = cplx.cmap(lambda v: v[kidx], kron)
+    dim = (op.dim_d[0] // 2,) + tuple(op.dim_d[1:])
+    return op.replace(blocks=blocks, kron=kron,
+                      offsets=tuple(op.offsets[k] for k in keep), dim=dim)
+
+
+def apply_hopping_packed_soa(hop: BSROperator, x_from: CArray,
+                             to_parity: int) -> CArray:
+    """y_to = H x_from between SoA packings (``x_from`` holds the opposite
+    parity): the stencil kernel for CUDA operands, its plain version for
+    CPU ones."""
+    return apply_stencil_soa(hop, x_from, packed_parity=to_parity)
+
+
+def eo_solve_packed_soa(op: BSROperator, b_soa: CArray, a: float,
+                        n_iters: int = 50):
+    """Even-odd preconditioned solve of D psi = b on packed half lattices.
+
+    ``op``: SoA-layout operator whose centre direction is ``a`` times the
+    identity (``a`` = mass + 4 r for Wilson); ``b_soa``: [n, KD*BD, X,
+    *rest].  CG on the normal equations of the Schur complement
+    Dhat = a - (1/a) H_eo H_oe for ``n_iters`` iterations; each Dhat or
+    Dhat^H is two packed hopping applies, 4 n_iters + 4 in all.  Returns
+    (psi in the SoA layout, |r|^2 of the Schur CG)."""
+    if op.mode != "stencil_soa":
+        raise ValueError("needs an SoA-layout operator")
+    b_e = cb_pack_soa(b_soa, 0)
+    b_o = cb_pack_soa(b_soa, 1)
+
+    hop_e = hopping_packed_soa(op, 0)
+    hop_o = hopping_packed_soa(op, 1)
+    op_h = adjoint_operator(op)
+    hop_e_h = hopping_packed_soa(op_h, 0)
+    hop_o_h = hopping_packed_soa(op_h, 1)
+    del op_h
+
+    def Dhat(v_e):
+        t_o = apply_hopping_packed_soa(hop_o, v_e, 1)
+        t_e = apply_hopping_packed_soa(hop_e, t_o, 0)
+        return cplx.add(cplx.scale(a, v_e), cplx.scale(-1.0 / a, t_e))
+
+    def Dhat_h(v_e):
+        t_o = apply_hopping_packed_soa(hop_o_h, v_e, 1)
+        t_e = apply_hopping_packed_soa(hop_e_h, t_o, 0)
+        return cplx.add(cplx.scale(a, v_e), cplx.scale(-1.0 / a, t_e))
+
+    rhs = cplx.add(b_e, cplx.scale(
+        -1.0 / a, apply_hopping_packed_soa(hop_e, b_o, 0)))
+
+    psi_e, rs = schur_cg(Dhat, Dhat_h, rhs, n_iters)
+    psi_o = cplx.scale(1.0 / a, cplx.add(
+        b_o, cplx.scale(-1.0, apply_hopping_packed_soa(hop_o, psi_e, 1))))
+    return cb_unpack_soa(psi_e, psi_o), rs

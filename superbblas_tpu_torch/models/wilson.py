@@ -154,9 +154,24 @@ def apply_wilson_dagger(op: BSROperator, x: CArray) -> CArray:
     return apply_wilson(adjoint_operator(op), x)
 
 
-def _axpy(alpha, x: CArray, y: CArray) -> CArray:
-    """y + alpha * x for a real 0-dim tensor alpha."""
-    return CArray(y.re + alpha * x.re, y.im + alpha * x.im)
+def _inner(a, b):
+    """Re <a, b> = sum(a.re*b.re + a.im*b.im), or sum(conj(a) b).real for
+    plain tensors, as a 0-dim tensor on the operands' device."""
+    if cplx.is_carray(a):
+        return cplx.inner_real(a, b)
+    return torch.sum(torch.conj(a) * b).real
+
+
+def _zeros_like(x):
+    return cplx.cmap(torch.zeros_like, x) if cplx.is_carray(x) else torch.zeros_like(x)
+
+
+def _axpy(alpha, x, y):
+    """y + alpha * x for a real 0-dim tensor alpha; CArrays or plain
+    tensors."""
+    if cplx.is_carray(x):
+        return CArray(y.re + alpha * x.re, y.im + alpha * x.im)
+    return y + alpha.to(x.dtype) * x
 
 
 def cg_step(op: BSROperator, state, op_h: Optional[BSROperator] = None):

@@ -23,7 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu", "permute.cu")
+SOURCES = ("stencil_soa.cu", "stencil_schedules.cu", "permute.cu")
+#: headers the sources include (part of the build's hash)
+HEADERS = ("stencil_soa.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -43,7 +45,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -83,9 +85,13 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.sbt_stencil_soa.argtypes = [i, i, i, i, i, i, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, i, p, p]
-    lib.sbt_stencil_soa.restype = i
+    # (ki, kd, bi, bd, storage_bf16, field_bf16, b, kron, x, y re/im pointers,
+    #  n, X, Y, Z, T, ndir, offsets) + each kernel's own trailing ints + stream
+    head = [i] * 6 + [p] * 8 + [i] * 6 + [p]
+    for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_xin", [i, i, i]),
+                        ("sbt_stencil_soa_stream", [])):
+        getattr(lib, name).argtypes = head + extra + [p]
+        getattr(lib, name).restype = i
     lib.sbt_permute_4d.argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
     lib.sbt_permute_4d.restype = i
     return lib

@@ -9,6 +9,9 @@
 ``stencil_matvec_soa`` sends CPU tensors to the plain PyTorch version
 ``stencil_matvec_soa_reference`` and CUDA tensors to the hand-written
 kernel ``csrc/stencil_soa.cu``; a case the kernel does not take raises.
+``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream`` compute the
+same function with other schedules of the X neighbours
+(``csrc/stencil_schedules.cu``); no caller dispatches them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from .. import cplx
 from ..cplx import CArray
 
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference",
+           "stencil_matvec_soa_xin", "stencil_matvec_soa_stream",
            "soa_eligible", "aos_to_soa", "soa_to_aos"]
 
 #: (KI, KD, BI, BD) shapes instantiated in the kernel
@@ -31,8 +35,10 @@ KERNEL_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
 KERNEL_DTYPES = ((torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32),
                  (torch.bfloat16, torch.bfloat16))
-#: most directions the kernel takes (csrc/stencil_soa.cu kMaxDirs)
+#: most directions the kernel takes (csrc/stencil_soa.cuh kMaxDirs)
 MAX_DIRS = 16
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_BYTES = 232448
 
 _TODO = "still to port: ROADMAP.md Queue 2, K1 remaining cases"
 
@@ -133,8 +139,9 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                       packed_parity: Optional[int] = None) -> Tuple[int, int]:
     """Raise unless the CUDA kernel takes these operands (device aside);
     returns (KI, KD)."""
-    if packed_parity is not None:
-        raise NotImplementedError(f"packed_parity in the CUDA stencil kernel ({_TODO})")
+    if packed_parity not in (None, 0, 1):
+        raise ValueError(f"packed_parity={packed_parity!r}: a checkerboard parity is "
+                         "None, 0 or 1")
     ndir = blocks.shape[0]
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     if (KI, KD, bi, bd) not in KERNEL_SHAPES:
@@ -167,7 +174,27 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
     return KI, KD
 
 
-def _launch(blocks, kron, x, offsets, bi, bd, KI, KD) -> CArray:
+def xin_tile(n: int, X: int, F: int, itemsize: int, nk: int) -> Tuple[int, int, int]:
+    """(S, C, XG) of the X-inside kernel: a tile of S (y, z, t) sites x C
+    columns whose X lines (X x F features x 2 parts of ``itemsize`` bytes)
+    sit in shared memory beside ``nk`` kron entries, and XG thread groups
+    over X, at most 256 threads.  Raises ValueError where no tile fits, as
+    the TPU wrapper does where no (nc, Yc) fits its VMEM."""
+    per_pair = X * F * 2 * itemsize
+    room = SMEM_BYTES - 4 * ((2 * nk + 3) // 4 * 4)
+    pairs = min(256, room // per_pair)
+    if pairs < 1:
+        raise ValueError(
+            f"no tile of the X-inside stencil kernel fits in shared memory: one X "
+            f"line of {X} sites x {F} features takes {per_pair} B, {room} B are free")
+    C = max(1, min(n, 8, pairs // 32))
+    S = pairs // C
+    if S >= 32:
+        S = S // 32 * 32
+    return S, C, max(1, min(X, 256 // (S * C)))
+
+
+def _launch(entry: str, blocks, kron, x, offsets, bi, bd, KI, KD, *extra) -> CArray:
     from . import _cuda
 
     dev = x.device
@@ -182,38 +209,85 @@ def _launch(blocks, kron, x, offsets, bi, bd, KI, KD) -> CArray:
                torch.empty((n, KI * bi) + lat, dtype=x.dtype, device=dev))
     flat = [int(v) for off in offsets for v in off]
     offs = (ctypes.c_int * len(flat))(*flat)
-    lib = _cuda.library()
     with torch.cuda.device(dev):
-        err = lib.sbt_stencil_soa(
+        err = getattr(_cuda.library(), entry)(
             KI, KD, bi, bd, int(blocks.dtype == torch.bfloat16),
             int(x.dtype == torch.bfloat16),
             blocks.re.data_ptr(), blocks.im.data_ptr(),
             None if kron is None else kron.re.data_ptr(),
             None if kron is None else kron.im.data_ptr(),
             x.re.data_ptr(), x.im.data_ptr(), y.re.data_ptr(), y.im.data_ptr(),
-            n, *lat, len(offsets), offs, torch.cuda.current_stream(dev).cuda_stream)
+            n, *lat, len(offsets), offs, *extra,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"stencil_soa kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     return y
+
+
+def _on_cpu(blocks: CArray, x: CArray, name: str) -> bool:
+    """True for CPU operands (the plain version's case), False for CUDA
+    ones; raises for any other device."""
+    if x.re.device.type == "cpu" and blocks.re.device.type == "cpu":
+        return True
+    if x.re.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.re.device}")
+    return False
 
 
 def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
                        offsets: Sequence[Tuple[int, ...]], bi: int, bd: int,
                        packed_parity: Optional[int] = None) -> CArray:
-    """y[n, KI*BI, X, Y, Z, T] = SoA stencil matvec.
+    """y[n, KI*BI, X, Y, Z, T] = SoA stencil matvec; with ``packed_parity``
+    (0 or 1) the operands hold one checkerboard parity with X halved.
 
     CPU operands run the plain version.  CUDA operands run the kernel
     (``stencil_matvec_soa.launches`` counts its launches), or raise when
     the kernel does not take the case."""
-    if x.re.device.type == "cpu" and blocks.re.device.type == "cpu":
+    if _on_cpu(blocks, x, "stencil_matvec_soa"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                             packed_parity=packed_parity)
-    if x.re.device.type != "cuda":
-        raise ValueError(f"stencil_matvec_soa: no kernel for device {x.re.device}")
     KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
-    y = _launch(blocks, kron, x, offsets, bi, bd, KI, KD)
+    y = _launch("sbt_stencil_soa", blocks, kron, x, offsets, bi, bd, KI, KD,
+                -1 if packed_parity is None else int(packed_parity))
     stencil_matvec_soa.launches += 1
     return y
 
 
+def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
+                           offsets: Sequence[Tuple[int, ...]], bi: int,
+                           bd: int) -> CArray:
+    """X-inside schedule of :func:`stencil_matvec_soa` (same contract, no
+    packed parity): each block holds its tile's whole X lines in shared
+    memory.  Raises ValueError where no tile fits (``xin_tile``), on
+    every device.  CPU operands run the plain version; CUDA operands the
+    kernel (``stencil_matvec_soa_xin.launches``) or raise."""
+    KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
+    tile = xin_tile(x.shape[0], x.shape[2], KD * bd, x.re.element_size(),
+                    blocks.shape[0] * KI * KD)
+    if _on_cpu(blocks, x, "stencil_matvec_soa_xin"):
+        return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
+    check_kernel_case(blocks, kron, x, offsets, bi, bd)
+    y = _launch("sbt_stencil_soa_xin", blocks, kron, x, offsets, bi, bd, KI, KD, *tile)
+    stencil_matvec_soa_xin.launches += 1
+    return y
+
+
+def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
+                              offsets: Sequence[Tuple[int, ...]], bi: int,
+                              bd: int) -> CArray:
+    """X-streaming schedule of :func:`stencil_matvec_soa` (same contract,
+    no packed parity): each block walks X with a ring of X planes of its
+    tile in shared memory.  CPU operands run the plain version; CUDA
+    operands the kernel (``stencil_matvec_soa_stream.launches``) or
+    raise."""
+    if _on_cpu(blocks, x, "stencil_matvec_soa_stream"):
+        return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
+    KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd)
+    y = _launch("sbt_stencil_soa_stream", blocks, kron, x, offsets, bi, bd, KI, KD)
+    stencil_matvec_soa_stream.launches += 1
+    return y
+
+
 stencil_matvec_soa.launches = 0
+stencil_matvec_soa_xin.launches = 0
+stencil_matvec_soa_stream.launches = 0

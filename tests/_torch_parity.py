@@ -4,6 +4,7 @@ packages, outputs compared as float64 numpy arrays."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from superbblas_tpu import cplx as jcplx
@@ -14,6 +15,21 @@ from superbblas_tpu_torch.models.wilson import wilson_offsets
 TOL = {np.float64: (1e-12, 1e-12), np.float32: (1e-5, 1e-5)}
 
 WILSON_OFFSETS = wilson_offsets(4)
+
+
+@pytest.fixture
+def torch_one_thread():
+    """Runs the test's torch work on one thread, then restores the count.
+    A solve on a small lattice is thousands of small torch ops; while test
+    processes share the cores, intra-op threads wait at every op's barrier
+    for threads that are not running, which makes such a test an order of
+    magnitude slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def crand_np(shape, seed, dtype=np.float64):

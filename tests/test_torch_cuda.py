@@ -1,7 +1,10 @@
-"""The CUDA kernels on the card: the cases each refuses, the CG solve
-through the stencil kernel against the same solve on the CPU, and the
-permute kernel against its plain version, alone and inside ``local_copy``.
-The kernels at the main path's shapes are checked by ``chip_smoke.py``.
+"""The CUDA kernels on the card: the cases each refuses; the stencil
+kernel with packed parity and its X-inside and X-streaming schedules
+against the plain version (and the schedules against the kernel, bit for
+bit); the CG and even-odd solves through the stencil kernel against the
+same solves on the CPU; and the permute kernel against its plain version,
+alone and inside ``local_copy``.  The kernels at the main path's shapes
+are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is not
@@ -16,11 +19,19 @@ import torch
 
 from superbblas_tpu_torch import local_copy
 from superbblas_tpu_torch.cplx import CArray
+from superbblas_tpu_torch.models import eo_packed as E
 from superbblas_tpu_torch.models import wilson as W
 from superbblas_tpu_torch.ops import permute as P
 from superbblas_tpu_torch.ops import stencil as S
 
 OFFSETS = W.wilson_offsets(4)
+WRAPPERS = {"k1": S.stencil_matvec_soa, "xin": S.stencil_matvec_soa_xin,
+            "stream": S.stencil_matvec_soa_stream}
+DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+          (torch.bfloat16, torch.bfloat16)]
+#: max |kernel - plain| allowed, relative to max |plain|: f32 rounding for
+#: f32 fields, one bf16 ulp (2^-7) for bf16 fields
+TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 
 
 @pytest.fixture
@@ -40,13 +51,93 @@ def crand(shape, seed, device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
-    blocks = crand((9, 9, 2, 2, 4, 8), 0, cuda_device, torch.float32)
-    x = crand((1, 3, 2, 2, 4, 8), 1, cuda_device, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.stencil_matvec_soa(blocks, None, x, OFFSETS, 3, 3, packed_parity=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.stencil_matvec_soa(blocks.to(torch.float64), None, x.to(torch.float64),
-                             OFFSETS, 3, 3)
+    """f64 operands and 4x4 blocks are not instantiated in any of the three
+    stencil kernels; a parity other than 0 and 1 is refused."""
+    lat = (2, 2, 4, 8)
+    blocks = crand((9, 9) + lat, 0, cuda_device, torch.float32)
+    x = crand((1, 3) + lat, 1, cuda_device, torch.float32)
+    b16 = crand((9, 16) + lat, 2, cuda_device, torch.float32)
+    x16 = crand((1, 4) + lat, 3, cuda_device, torch.float32)
+    for fn in WRAPPERS.values():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(blocks.to(torch.float64), None, x.to(torch.float64), OFFSETS, 3, 3)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(b16, None, x16, OFFSETS, 4, 4)
+    with pytest.raises(ValueError, match="parity"):
+        S.stencil_matvec_soa(blocks, None, x, OFFSETS, 3, 3, packed_parity=2)
+
+
+def _close(got, want, label):
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.float().abs().max()) for w in want)
+    assert got.re.dtype == want.re.dtype and got.re.shape == want.re.shape, label
+    assert err <= TOL[got.re.dtype] * scale, (label, err, scale)
+
+
+def _operands(lat, n, kron, st, ft, seed, ndir=9):
+    blocks = crand((ndir, 9) + lat, seed, "cuda", st)
+    k = crand((ndir, 4, 4), seed + 1, "cuda", torch.float32) if kron else None
+    x = crand((n, 12 if kron else 3) + lat, seed + 2, "cuda", ft)
+    return blocks, k, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", DTYPES)
+@pytest.mark.parametrize("parity", [0, 1])
+def test_packed_kernel_matches_plain_version(cuda_device, parity, st, ft):
+    """The packed X shift on ragged half lattices (X/2 of 1, 2 and 3; odd
+    Y, Z and T), 1-3 columns, the 8 hopping directions, with and without
+    spin factors."""
+    before = S.stencil_matvec_soa.launches
+    cases = [((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 5, 4, 7), 3)]
+    for i, (half, n) in enumerate(cases):
+        for kron in (True, False):
+            blocks, k, x = _operands(half, n, kron, st, ft, 10 * i, ndir=8)
+            args = (blocks, k, x, OFFSETS[1:], 3, 3)
+            _close(S.stencil_matvec_soa(*args, packed_parity=parity),
+                   S.stencil_matvec_soa_reference(*args, packed_parity=parity),
+                   f"packed {half} n={n} kron={kron}")
+    assert S.stencil_matvec_soa.launches == before + 2 * len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", DTYPES)
+@pytest.mark.parametrize("schedule", ["xin", "stream"])
+def test_schedules_match_plain_version_and_kernel(cuda_device, schedule, st, ft):
+    """K4a and K4b against the plain version, and against K1 bit for bit
+    (they share K1's per-site math and its order of sums), with X of 1, 2
+    and 3 among the lattices."""
+    wrapper = WRAPPERS[schedule]
+    before = wrapper.launches
+    cases = [((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 2, 5, 7), 3), ((4, 4, 8, 32), 8)]
+    for i, (lat, n) in enumerate(cases):
+        for kron in (True, False):
+            blocks, k, x = _operands(lat, n, kron, st, ft, 10 * i)
+            args = (blocks, k, x, OFFSETS, 3, 3)
+            got = wrapper(*args)
+            _close(got, S.stencil_matvec_soa_reference(*args), f"{schedule} {lat} n={n}")
+            k1 = S.stencil_matvec_soa(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, k1)), (schedule, lat, n)
+    assert wrapper.launches == before + 2 * len(cases)
+
+
+@pytest.mark.cuda
+def test_eo_solve_on_card_matches_cpu(cuda_device):
+    """The even-odd packed solve through the kernel against the same solve
+    on the CPU (plain version): 4 N + 4 packed launches; rtol 1e-4, as
+    CG amplifies summation-order differences."""
+    lat, mass, iters = (4, 2, 4, 8), 0.1, 10
+    op = W.wilson_operator(lat, mass=mass, key=0, device="cpu")
+    b = crand((2, 12) + lat, 3, "cpu", torch.float32)
+    x_cpu, rs_cpu = E.eo_solve_packed_soa(op, b, a=mass + 4.0, n_iters=iters)
+    before = S.stencil_matvec_soa.launches
+    x_gpu, rs_gpu = E.eo_solve_packed_soa(op.to(cuda_device), b.to(cuda_device),
+                                          a=mass + 4.0, n_iters=iters)
+    assert S.stencil_matvec_soa.launches == before + 4 * iters + 4
+    scale = float(x_cpu.re.abs().max())
+    for g, c in zip(x_gpu, x_cpu):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * scale
+    assert abs(float(rs_gpu) - float(rs_cpu)) <= 1e-4 * float(rs_cpu)
 
 
 @pytest.mark.cuda

@@ -115,7 +115,9 @@ def test_kernel_rejects_what_it_does_not_take(case):
     elif case == "block_4x4":
         kw.update(bi=4, bd=4)
     elif case == "packed_parity":
-        kw["packed_parity"] = 0
+        # parities 0 and 1 run in the kernel; anything else is no parity
+        kw["packed_parity"] = 2
+        err = ValueError
     elif case == "f64":
         kw["blocks"] = tb.to(torch.float64)
         kw["x"] = tx.to(torch.float64)
