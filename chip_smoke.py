@@ -45,9 +45,43 @@ and the kernel launches of the run are counted.  Then it times the permute
 kernel against the plain version (``x.permute(perm).contiguous()``, which
 is also the one PyTorch call computing the same function).
 
-``--profile`` adds one warm solve, one warm even-odd solve and one warm
-dense path under ``torch.profiler`` and prints the device's busy share and
-the ops that take its time.
+Batched-GEMM checks: the kernels K3 (``batched_small_gemm``) and E1
+(``batched_gemm_rowpack``) against their plain version and a float64
+product at the JAX package's test shapes, E1's probe shape, ragged shapes
+and the V-cycle's shapes; then each timed in turns with the plain version
+and ``torch.bmm`` (TF32 off): K3 at (8192, 32, 32, 128), E1 at (4096, 32,
+288, 32), both at the V-cycle's two coarse levels, and E1 beside K3 at
+K3's shapes.
+
+Coarse path: ``coarse_operator`` on 8x8x8x16 (a 32^3x64 lattice blocked
+by 4^4) with 32x32 blocks, f32, numpy seed 0, Hermitian positive definite
+at mass 9 (Lanczos extremes printed and checked); ``apply_coarse`` on 32
+right-hand sides held against a plain PyTorch apply, then
+``solvers.cg(cols=True)`` to 1e-6 with its true residual and 3 E1
+launches an apply.
+
+MG-FGCR path (``experiments/mg_wallclock.py``'s case): the 8^4 Wilson
+operator at mass -1.9 (SoA, f32, links from seed 3), the chiral
+prolongator (K = 4), the Galerkin coarse matrix and its LU
+(``mg_preconditioner_d``, 4 GCR smoothing steps) inside
+``solvers.fgcr(restart=8, cols=True)`` on 8 right-hand sides from numpy
+seed 11, to 1e-5, beside CGNE (``solvers.cg`` on D^H D) to 1e-5: set-up by
+stage, iterations, D-applies, wall, true residuals, agreement, and a K1
+launch for every fine apply.
+
+V-cycle path: the same lattice at mass 0.2, ``build_hierarchy(levels=3,
+K=4)`` (fine Wilson level on K1, a 4^4 coarse level with 81 offsets on E1,
+a 2^4 one with 16 offsets on K3) and ``vcycle_preconditioner(
+cheby_degree=4)``: one cycle's contraction factor on a random error, then
+FGCR on D^H D with the cycle beside CG, with the launches of the three
+kernels.  The operands of one apply of each coarse level, taken from the
+apply itself, go through K3 and E1 again, held against the plain version
+and a float64 product.
+
+``--profile`` adds one warm solve, one warm even-odd solve, one warm
+dense path, one warm coarse CG and one warm MG-FGCR solve under
+``torch.profiler`` and prints the device's busy share and the ops that
+take its time.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches on its path and its error, times and bound, and as its last line
@@ -58,6 +92,7 @@ the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import statistics
@@ -69,15 +104,19 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from superbblas_tpu_torch import (ContractionPlan, cplx, local_contraction, local_copy,
+from superbblas_tpu_torch import (ContractionPlan, bsr, cplx, local_contraction, local_copy,
                                   local_permute, solvers)
 from superbblas_tpu_torch.cplx import CArray
-from superbblas_tpu_torch.models import (adjoint_operator, apply_hopping_packed_soa,
-                                         apply_wilson, cb_pack_soa, cg_solve,
+from superbblas_tpu_torch.models import (adjoint_operator, apply_coarse,
+                                         apply_hopping_packed_soa, apply_wilson,
+                                         cb_pack_soa, cg_solve, coarse_operator,
                                          eo_solve_packed_soa, hopping_packed_soa,
-                                         wilson_offsets, wilson_operator)
+                                         multigrid, wilson_offsets, wilson_operator)
 from superbblas_tpu_torch.bsr import bsr_cast_storage
 from superbblas_tpu_torch.ops import _cuda
+from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_gemm_rowpack,
+                                                   batched_small_gemm,
+                                                   batched_small_gemm_reference)
 from superbblas_tpu_torch.ops.permute import maybe_permute, permute_4d, permute_4d_reference
 from superbblas_tpu_torch.ops.stencil import (stencil_matvec_soa,
                                               stencil_matvec_soa_reference,
@@ -120,6 +159,39 @@ GRAM_TOL = 2e-4
 #: rotation V C against float64, relative to max |out|: sums of 64 terms,
 #: at most 64 * 2^-24 = 3.8e-6 of the sum of |terms| (under 2x max |out|)
 ROTATION_TOL = 1e-5
+#: the V-cycle path's products: its 2^4 level (16 offsets x K = 4, so J =
+#: 64: K3) and its 4^4 level (81 offsets, J = 324: E1), 8 columns in the
+#: solve, 4 and 1 in the set-up
+VC_K3_SHAPE, VC_E1_SHAPE = (16, 4, 64, 8), (256, 4, 324, 8)
+#: batched-GEMM checks (V, I, J, N): the JAX package's test shapes, E1's
+#: probe shape, a ragged shape, the V-cycle's; K3 takes those with I, J <= 64
+GEMM_CHECK_SHAPES = ((40, 12, 12, 32), (7, 24, 24, 16), (16, 12, 8, 5), (8, 32, 32, 128),
+                     (4096, 32, 288, 32), (7, 4, 324, 3), VC_K3_SHAPE, (16, 4, 64, 4),
+                     (16, 4, 64, 1), VC_E1_SHAPE, (256, 4, 324, 4), (256, 4, 324, 1))
+K3_TIME_SHAPE, E1_TIME_SHAPE = (8192, 32, 32, 128), (4096, 32, 288, 32)
+#: timed shapes: each kernel's own (its entry of the kernels line) and the
+#: V-cycle's; where K3 can run, E1 is timed beside it
+GEMM_TIME_SHAPES = (("k3", K3_TIME_SHAPE), ("e1", E1_TIME_SHAPE), ("k3", VC_K3_SHAPE),
+                    ("e1", VC_E1_SHAPE))
+#: coarse path: 8x8x8x16 sites (32^3x64 blocked by 4^4), 32x32 blocks, 9
+#: directions.  At mass 0 the spectrum spans about [-8.25, 8.23] (Lanczos,
+#: 4^4 and 4^3x8 lattices, f64, on the CPU), so mass 9 keeps it in about
+#: [0.7, 17.3]: positive definite, condition about 25, and CG reaches 1e-6
+#: in about sqrt(25)/2 * ln(2e6) = 36 iterations
+COARSE_LAT, COARSE_NC, COARSE_COLS, COARSE_MASS = (8, 8, 8, 16), 32, 32, 9.0
+COARSE_TOL, COARSE_MAXITER = 1e-6, 200
+#: MG-FGCR and V-cycle paths (experiments/mg_wallclock.py's case)
+MG_LAT, MG_MASS, MG_COLS, MG_TOL, VC_MASS = (8, 8, 8, 8), -1.9, 8, 1e-5, 0.2
+#: true relative residuals checked after a solve to 1e-5: an f32 recurrence
+#: residual and the true one drift apart by a few 1e-6 (CGNE's true normal
+#: residual 8.4e-6 and 8.6e-6 at 1e-5 on 4^4 and 4^3x8, f32, on the CPU)
+SOLVE_RES_TOL = 2e-5
+#: relative difference allowed between two solves' answers: MG-FGCR and
+#: CGNE differed by 5.0e-4 and 7.2e-4 at mass -1.9 on 4^4 and 4^3x8 (f32,
+#: the CPU), CGNE's own error (its D-residual, 5e-5, is 15-40x MG-FGCR's);
+#: a margin of 10.  The V-cycle (mass 0.2, better conditioned) against CG:
+#: 1.4e-5 on 8x8x4x4
+MG_AGREE, VC_AGREE = 1e-2, 1e-3
 
 
 def randn_c(shape, gen, dtype=torch.float32) -> CArray:
@@ -192,15 +264,17 @@ def same_as_k1(blocks, kron, x, offsets, label):
     return err
 
 
+COUNTED = (stencil_matvec_soa, stencil_matvec_soa_xin, stencil_matvec_soa_stream,
+           permute_4d, batched_small_gemm, batched_gemm_rowpack)
+
+
 def reset_counts():
-    for fn in (stencil_matvec_soa, stencil_matvec_soa_xin, stencil_matvec_soa_stream,
-               permute_4d):
+    for fn in COUNTED:
         fn.launches = 0
 
 
 def read_counts():
-    return {fn.__name__: fn.launches for fn in (stencil_matvec_soa, stencil_matvec_soa_xin,
-                                                stencil_matvec_soa_stream, permute_4d)}
+    return {fn.__name__: fn.launches for fn in COUNTED}
 
 
 def norm(a) -> float:
@@ -681,7 +755,8 @@ def dense_path(gen, profile: bool):
     print(f"dense path {wall:.3f} s, kernel launches {counts} (after the permutes "
           f"{steps[0]}, after the box copy {steps[1]})", flush=True)
     if counts != {"stencil_matvec_soa": 0, "stencil_matvec_soa_xin": 0,
-                  "stencil_matvec_soa_stream": 0, "permute_4d": 7} or steps != [2 + 4, 7]:
+                  "stencil_matvec_soa_stream": 0, "permute_4d": 7, "batched_small_gemm": 0,
+                  "batched_gemm_rowpack": 0} or steps != [2 + 4, 7]:
         raise AssertionError(f"dense path launches {counts} {steps}, expected 2 + 4 "
                              "for the permutes and 1 for the box copy")
 
@@ -763,11 +838,339 @@ def time_permute(gen):
     return out, bound(nbytes, 0)
 
 
+def summed_bound(b, x, factor=1.0):
+    """An f32 error bound of a batched product, max over its outputs:
+    ``factor`` * J * 2^-24 * sum_j |b_ij| |x_jn| (recursive summation of J
+    rounded products, one rounding per multiply-add), from the magnitudes
+    in f64."""
+    mags = torch.einsum("vij,vjn->vin", b.abs().double(), x.abs().double())
+    return factor * b.shape[-1] * 2.0 ** -24 * float(mags.max())
+
+
+#: the wrapper that counts each kernel's launches
+GEMM_KERNELS = {"k3": batched_small_gemm, "e1": batched_gemm_rowpack}
+
+
+def check_gemm(key, fn, b, x, label) -> float:
+    """``fn(b, x)``, which must launch kernel ``key`` once, against the
+    plain version and a float64 product: within the summation bound of
+    the f64 product, and within twice it of the plain version.  Returns
+    the max abs error against the plain version."""
+    V, I, J = b.shape
+    N = x.shape[2]
+    exact = torch.einsum("vij,vjn->vin", b.double(), x.double())
+    tol = summed_bound(b, x)
+    plain = batched_small_gemm_reference(b, x)
+    before = GEMM_KERNELS[key].launches
+    y = fn(b, x)
+    torch.cuda.synchronize()
+    e64 = float((y.double() - exact).abs().max())
+    ep = float((y - plain).abs().max())
+    ok = (y.dtype == b.dtype and tuple(y.shape) == (V, I, N)
+          and GEMM_KERNELS[key].launches == before + 1 and e64 <= tol and ep <= 2 * tol)
+    print(f"check {key} {label} {(V, I, J, N)}: max|d| vs f64 {e64:.3e}, vs plain {ep:.3e} "
+          f"(bound {tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{key} {label} {(V, I, J, N)} disagrees or did not launch")
+    return ep
+
+
+def gemm_checks(gen):
+    """K3 and E1 against their plain version and a float64 product at the
+    check shapes (K3 at those with I, J <= 64).  Returns {kernel: max abs
+    error against the plain version}."""
+    errs = {"k3": 0.0, "e1": 0.0}
+    for V, I, J, N in GEMM_CHECK_SHAPES:
+        b = torch.randn((V, I, J), generator=gen, device="cuda") / J ** 0.5
+        x = torch.randn((V, J, N), generator=gen, device="cuda")
+        for key, fn in GEMM_KERNELS.items():
+            if key == "k3" and max(I, J) > 64:
+                continue
+            errs[key] = max(errs[key], check_gemm(key, fn, b, x, "random"))
+    return errs
+
+
+@contextlib.contextmanager
+def captured_gemms():
+    """Records the operands (b, x) of every batched product the AoS
+    stencil apply (``bsr._apply_stencil``, no-kron) makes while active,
+    and runs each as it would have."""
+    calls, inner = [], bsr.batched_small_gemm
+
+    def recording(b, x):
+        calls.append((b, x))
+        return inner(b, x)
+
+    bsr.batched_small_gemm = recording
+    try:
+        yield calls
+    finally:
+        bsr.batched_small_gemm = inner
+
+
+def time_gemms(gen):
+    """K3 and E1 at the timed shapes, in turns with the plain version and
+    torch.bmm (TF32 off), and E1 beside K3 where K3 runs.  Returns
+    {(kernel, shape): ({name: median ms}, (bound ms, bound by))}."""
+    out = {}
+    for key, (V, I, J, N) in GEMM_TIME_SHAPES:
+        b = torch.randn((V, I, J), generator=gen, device="cuda") / J ** 0.5
+        x = torch.randn((V, J, N), generator=gen, device="cuda")
+        fns = {"kernel": lambda: GEMM_KERNELS[key](b, x)}
+        if key == "k3":
+            fns["e1"] = lambda: batched_gemm_rowpack(b, x)
+        fns.update(plain=lambda: batched_small_gemm_reference(b, x),
+                   bmm=lambda: torch.bmm(b, x))
+        ms = time_turns(fns, reps=25)
+        nbytes, flops = 4 * V * (I * J + J * N + I * N), 2 * V * I * J * N
+        bd = bound(nbytes, flops)
+        out[key, (V, I, J, N)] = ms, bd
+        e1 = f"E1 {ms['e1']:.4f} ms, " if "e1" in ms else ""
+        print(f"{key} {(V, I, J, N)} f32: kernel {ms['kernel']:.4f} ms, {e1}plain "
+              f"{ms['plain']:.4f} ms, torch.bmm {ms['bmm']:.4f} ms (medians of 25 in turns); "
+              f"bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.4f} GFLOP); kernel {flops / ms['kernel'] / 1e9:.2f} TFLOP/s, "
+              f"{nbytes / ms['kernel'] / 1e9:.3f} TB/s", flush=True)
+    return out
+
+
+def coarse_apply_plain(op, x, cdt):
+    """The coarse apply in plain PyTorch, complex ``cdt``: sum over the
+    directions k of blocks[s, k] @ x[s + offset_k] by one einsum over the
+    stacked shifted operands."""
+    xc = torch.complex(x.re, x.im).to(cdt)
+    xs = torch.stack([torch.roll(xc, shifts=tuple(-o for o in off), dims=(0, 1, 2, 3))
+                      for off in op.offsets], dim=4)
+    bc = torch.complex(op.blocks_re, op.blocks_im).to(cdt)
+    return torch.einsum("...kij,...kjn->...in", bc, xs)
+
+
+def rel_res_cols(apply, x, b) -> float:
+    """max over the columns of |A x - b| / |b|, in f64."""
+    r = apply(x)
+    num = sum(((p.double() - q.double()) ** 2).sum(dim=tuple(range(p.ndim - 1)))
+              for p, q in zip(r, b))
+    den = sum((q.double() ** 2).sum(dim=tuple(range(q.ndim - 1))) for q in b)
+    return float((num / den).sqrt().max())
+
+
+def coarse_path(gen, profile: bool):
+    """The coarse operator at a realistic coarse lattice: built, checked to
+    be positive definite, its apply held against the plain version on the
+    card, then CG to 1e-6 on 32 right-hand sides.  Returns (E1 launches in
+    the solve, max error of the apply, {name: median ms of one apply})."""
+    t0 = time.perf_counter()
+    op = coarse_operator(COARSE_LAT, block_size=COARSE_NC, mass=COARSE_MASS, key=0,
+                         device="cuda")
+    x = randn_c(COARSE_LAT + (COARSE_NC, COARSE_COLS), gen)
+    torch.cuda.synchronize()
+    print(f"coarse path: operator {COARSE_LAT} nc={COARSE_NC} ndir={op.ndir} mass "
+          f"{COARSE_MASS} built in {time.perf_counter() - t0:.2f} s (host numpy + upload)",
+          flush=True)
+
+    def A(v):
+        return apply_coarse(op, v)
+
+    lo, hi = solvers.ritz_extremes(*solvers.lanczos(
+        A, CArray(x.re[..., :1], x.im[..., :1]), m=60))
+    print(f"coarse path: Lanczos extremes [{lo:.4f}, {hi:.4f}] (60 steps), condition "
+          f"{hi / lo:.2f}", flush=True)
+    if not lo > 0:
+        raise AssertionError("the coarse operator is not positive definite")
+
+    y = A(x)
+    y32 = coarse_apply_plain(op, x, torch.complex64)
+    y64 = coarse_apply_plain(op, x, torch.complex128)
+    torch.cuda.synchronize()
+    # 288 products an output; the Gauss form sums parts before multiplying
+    # and subtracts two products for the real part: a factor 4 on the bound
+    mags = torch.einsum("...kij,...kjn->...in", torch.complex(op.blocks_re, op.blocks_im).abs()
+                        .double(), torch.stack(
+                            [torch.roll(torch.complex(x.re, x.im).abs().double(),
+                                        shifts=tuple(-o for o in off), dims=(0, 1, 2, 3))
+                             for off in op.offsets], dim=4))
+    tol = 4 * op.ndir * COARSE_NC * 2.0 ** -24 * float(mags.max())
+    err = max(float((y.re - y32.real).abs().max()), float((y.im - y32.imag).abs().max()))
+    e64 = max(float((y.re.double() - y64.real).abs().max()),
+              float((y.im.double() - y64.imag).abs().max()))
+    print(f"check coarse apply {COARSE_LAT} x {COARSE_COLS}: max|d| vs plain {err:.3e}, vs "
+          f"f64 {e64:.3e} (bound {tol:.3e})", flush=True)
+    if not (e64 <= tol and err <= 2 * tol):
+        raise AssertionError("the coarse apply disagrees with the plain version")
+    ms = time_turns({"apply": lambda: A(x),
+                     "plain": lambda: coarse_apply_plain(op, x, torch.complex64)}, reps=11)
+    print(f"coarse apply x {COARSE_COLS}: median {ms['apply']:.4f} ms (3 E1 launches), plain "
+          f"{ms['plain']:.4f} ms, over 11 in turns", flush=True)
+    del y, y32, y64, mags
+
+    reset_counts()
+    t0 = time.perf_counter()
+    xs, _, k = solvers.cg(A, x, tol=COARSE_TOL, maxiter=COARSE_MAXITER, cols=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    res = rel_res_cols(A, xs, x)
+    finite = all(bool(torch.isfinite(p).all()) for p in xs)
+    launches = counts["batched_gemm_rowpack"]
+    print(f"coarse path: cg {k} iterations to {COARSE_TOL} on {COARSE_COLS} rhs, {wall:.3f} s, "
+          f"true rel residual (worst column) {res:.3e}, launches {counts} "
+          f"(E1 expected {3 * k})", flush=True)
+    if not (k < COARSE_MAXITER and finite and res <= 10 * COARSE_TOL and launches == 3 * k):
+        raise AssertionError("coarse CG did not converge through E1")
+    if profile:
+        profile_run("coarse cg", lambda: solvers.cg(A, x, tol=COARSE_TOL,
+                                                    maxiter=COARSE_MAXITER, cols=True))
+    return launches, err, ms
+
+
+def mg_rhs(lat, ncols):
+    """Right-hand sides of experiments/mg_wallclock.py: numpy seed 11, real
+    parts then imaginary parts, f32, on the card."""
+    rng = np.random.default_rng(11)
+    shape = lat + (4, 3, ncols)
+    return CArray(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+                    for _ in range(2)))
+
+
+def rel_diff(a, b) -> float:
+    return norm(CArray(a.re - b.re, a.im - b.im)) / norm(b)
+
+
+def mg_path(profile: bool):
+    """MG-FGCR on the unsquared 8^4 Wilson operator at mass -1.9 beside
+    CGNE, as experiments/mg_wallclock.py runs it."""
+    op = wilson_operator(MG_LAT, mass=MG_MASS, key=3, layout="soa", device="cuda")
+    b = mg_rhs(MG_LAT, MG_COLS)
+    stages = {}
+    t0 = time.perf_counter()
+    P = multigrid.build_prolongator_chiral(op, K=4, setup_iters=8)
+    torch.cuda.synchronize()
+    stages["prolongator"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A_c = multigrid.coarse_matrix(op, P, normal=False)
+    torch.cuda.synchronize()
+    stages["Galerkin"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M = multigrid.mg_preconditioner_d(op, P, A_c=A_c, smooth_steps=4)
+    torch.cuda.synchronize()
+    stages["LU"] = time.perf_counter() - t0
+    print(f"mg path {MG_LAT} mass {MG_MASS}: set-up {sum(stages.values()):.3f} s (chiral "
+          f"prolongator 2K=8 {stages['prolongator']:.3f} s, Galerkin M={A_c.shape[0]} "
+          f"{stages['Galerkin']:.3f} s, LU {stages['LU']:.3f} s)", flush=True)
+
+    def D(u):
+        return multigrid._level_apply(op, u, normal=False)
+
+    op_h = adjoint_operator(op)
+
+    def A(u):
+        return multigrid._level_apply(op, u, True, op_h)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    xm, _, itm = solvers.fgcr(D, b, M=M, tol=MG_TOL, maxiter=800, restart=8, cols=True)
+    torch.cuda.synchronize()
+    t_mg = time.perf_counter() - t0
+    mg_counts = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    rhs = multigrid._level_apply(op_h, b, normal=False)
+    xc, _, itc = solvers.cg(A, rhs, tol=MG_TOL, maxiter=5000, cols=True)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    cg_counts = read_counts()
+    res_mg = rel_res_cols(D, xm, b)
+    res_cg = rel_res_cols(A, xc, rhs)
+    diff = rel_diff(xm, xc)
+    print(f"mg path MG-FGCR: {itm} iterations, {11 * itm} D-applies, {t_mg:.3f} s, true "
+          f"|D x - b|/|b| {res_mg:.3e}, K1 launches {mg_counts['stencil_matvec_soa']} "
+          f"(expected {11 * itm})", flush=True)
+    print(f"mg path CGNE: {itc} iterations, {2 * itc + 1} D-applies, {t_cg:.3f} s, true "
+          f"normal residual {res_cg:.3e}, K1 launches {cg_counts['stencil_matvec_soa']} "
+          f"(expected {2 * itc + 1}); D-apply ratio {(2 * itc + 1) / (11 * itm):.2f}, wall "
+          f"ratio {t_cg / t_mg:.2f}, answers differ by {diff:.3e} (<= {MG_AGREE})", flush=True)
+    if not (res_mg <= SOLVE_RES_TOL and res_cg <= SOLVE_RES_TOL and diff <= MG_AGREE):
+        raise AssertionError("MG-FGCR and CGNE did not both converge to one answer")
+    if mg_counts["stencil_matvec_soa"] != 11 * itm \
+            or cg_counts["stencil_matvec_soa"] != 2 * itc + 1:
+        raise AssertionError("a fine apply of the MG path did not launch K1")
+    if profile:
+        profile_run("mg-fgcr solve", lambda: solvers.fgcr(D, b, M=M, tol=MG_TOL, maxiter=800,
+                                                          restart=8, cols=True))
+    return mg_counts["stencil_matvec_soa"] + cg_counts["stencil_matvec_soa"]
+
+
+def vcycle_path(gen):
+    """The three-level V-cycle on the 8^4 Wilson operator at mass 0.2: one
+    cycle's contraction factor, then FGCR on D^H D with the cycle beside
+    CG; the operands of one apply of each coarse level held through K3 and
+    E1 against the plain version.  Returns (the launches of the path's
+    set-up and solve by kernel, {kernel: max abs error on those
+    operands})."""
+    op = wilson_operator(MG_LAT, mass=VC_MASS, key=3, layout="soa", device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    h = multigrid.build_hierarchy(op, levels=3, K=4, setup_iters=8)
+    V = multigrid.vcycle_preconditioner(h, cheby_degree=4)
+    torch.cuda.synchronize()
+    setup_counts = read_counts()
+    print(f"vcycle path {MG_LAT} mass {VC_MASS}: set-up {time.perf_counter() - t0:.3f} s, "
+          "levels " + ", ".join(f"{lv[0].mode} {lv[0].dim_d} ndir {lv[0].ndir} J "
+                                f"{lv[0].ndir * int(np.prod(lv[0].bd))}" for lv in h)
+          + f"; launches {setup_counts}", flush=True)
+    # level 1 (4^4, J = 324) runs E1 and level 2 (2^4, J = 64) K3: each
+    # apply makes the three Gauss products
+    path_err = {}
+    for level, key in ((1, "e1"), (2, "k3")):
+        op_l = h[level][0]
+        u = randn_c(tuple(op_l.dim_d) + multigrid._blk_shape(op_l) + (MG_COLS,), gen)
+        with captured_gemms() as calls:
+            multigrid._level_apply(op_l, u, normal=False)
+        routes = [batched_gemm_route(b.shape[1], b.shape[2], b.dtype) for b, _ in calls]
+        if routes != [{"e1": "rowpack", "k3": "small"}[key]] * 3:
+            raise AssertionError(f"level {level}'s apply took routes {routes}")
+        path_err[key] = max(check_gemm(key, batched_small_gemm, b, x, f"vcycle level {level}")
+                            for b, x in calls)
+    op_h = adjoint_operator(op)
+
+    def A(u):
+        return multigrid._level_apply(op, u, True, op_h)
+
+    e = randn_c(MG_LAT + (4, 3), gen)
+    corr = V(A(e))
+    rho = norm(CArray(e.re - corr.re, e.im - corr.im)) / norm(e)
+    b = mg_rhs(MG_LAT, MG_COLS)
+    rhs = multigrid._level_apply(op_h, b, normal=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    xv, _, itv = solvers.fgcr(A, rhs, M=V, tol=MG_TOL, maxiter=400, restart=8, cols=True)
+    torch.cuda.synchronize()
+    t_v = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    xc, _, itc = solvers.cg(A, rhs, tol=MG_TOL, maxiter=5000, cols=True)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    res_v, res_cg, diff = rel_res_cols(A, xv, rhs), rel_res_cols(A, xc, rhs), rel_diff(xv, xc)
+    print(f"vcycle path: contraction factor of one V-cycle on a random error {rho:.4f}; "
+          f"FGCR with the cycle {itv} iterations {t_v:.3f} s, true residual {res_v:.3e}; CG "
+          f"{itc} iterations {t_cg:.3f} s, true residual {res_cg:.3e}; answers differ by "
+          f"{diff:.3e} (<= {VC_AGREE}); launches in the FGCR solve {counts}", flush=True)
+    if not (rho < 1 and res_v <= SOLVE_RES_TOL and res_cg <= SOLVE_RES_TOL
+            and diff <= VC_AGREE):
+        raise AssertionError("the V-cycle path did not converge to CG's answer")
+    if min(counts["stencil_matvec_soa"], counts["batched_gemm_rowpack"],
+           counts["batched_small_gemm"]) == 0:
+        raise AssertionError(f"a level's kernel was not launched: {counts}")
+    return {k: setup_counts[k] + counts[k] for k in counts}, path_err
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one warm solve, one warm even-odd solve "
-                             "and one warm dense path with torch.profiler")
+                        help="also profile one warm solve, one warm even-odd solve, one "
+                             "warm dense path, one warm coarse CG and one warm MG-FGCR "
+                             "solve with torch.profiler")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -794,6 +1197,13 @@ def main():
     small_checks(gen)
     packed_checks(gen)
     schedule_checks(gen)
+    gemm_err = gemm_checks(gen)
+    gemm_ms = time_gemms(gen)
+    c_launches, c_err, _ = coarse_path(gen, args.profile)
+    mg_launches = mg_path(args.profile)
+    vc_launches, vc_err = vcycle_path(gen)
+    if min(c_launches, mg_launches) == 0:
+        raise AssertionError("the coarse or MG path launched none of its kernels")
     bench_shape(gen)
     op, b = main_operator(gen)
     launches, err = wilson_path(op, b, args.profile)
@@ -838,7 +1248,19 @@ def main():
         "launches": p_launches, "max_abs_err": max(p_err, d_err),
         "ms": p_ms["tzyx"][0], "plain_ms": p_ms["tzyx"][1],
         "bound_ms": p_bound_ms, "bound_by": p_bound_by,
-        "library_ms": p_ms["tzyx"][1]}]}))
+        "library_ms": p_ms["tzyx"][1]}] + [{
+        "name": fn.__name__, "route": "cuda",
+        "source": "superbblas_tpu_torch/csrc/batched_gemm.cu", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": times["kernel"],
+        "plain_ms": times["plain"], "bound_ms": bd[0], "bound_by": bd[1],
+        "library_ms": times["bmm"]}
+        for fn, replaces, launches, err, (times, bd) in (
+            (batched_small_gemm, "superbblas_tpu/ops/batched_gemm_pallas.py:99",
+             vc_launches["batched_small_gemm"], max(gemm_err["k3"], vc_err["k3"]),
+             gemm_ms["k3", K3_TIME_SHAPE]),
+            (batched_gemm_rowpack, "experiments/bgemm_rowpack_probe.py:32",
+             c_launches + vc_launches["batched_gemm_rowpack"],
+             max(gemm_err["e1"], c_err, vc_err["e1"]), gemm_ms["e1", E1_TIME_SHAPE]))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

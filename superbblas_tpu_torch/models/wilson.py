@@ -1,14 +1,16 @@
 """Wilson-Dirac lattice operator and its normal-equation CG solve
-(counterpart of ``superbblas_tpu/models/wilson.py``, SoA layout).
+(counterpart of ``superbblas_tpu/models/wilson.py``).
 
     D x (s) = (m + 4 r) x(s)
               - 1/2 sum_mu [ (r - gamma_mu) (x) U_mu(s)      x(s + mu)
                            + (r + gamma_mu) (x) U_mu(s-mu)^H x(s - mu) ]
 
-is built as a Kronecker-factored SoA stencil operator: spin factors
-shared across sites, per-site colour links.  Links and gammas are made on
-the host in numpy, with the same code as the JAX package, so one seed
-gives bit-identical operators in both.
+is built as a Kronecker-factored stencil operator: spin factors shared
+across sites, per-site colour links, in the SoA layout (the stencil
+kernel's, the default here) or the AoS one (label order, applied through
+``bsr_krylov``).  Links and gammas are made on the host in numpy, with the
+same code as the JAX package, so one seed gives bit-identical operators
+in both.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 
 from .. import cplx
-from ..bsr import BSROperator, apply_stencil_soa, bsr_cast_storage, bsr_from_stencil
+from ..bsr import (BSROperator, apply_stencil_soa, bsr_cast_storage, bsr_from_stencil,
+                   bsr_krylov)
 from ..cplx import CArray
 from ..labels import volume
 
@@ -29,6 +32,12 @@ __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets", "wilson_opera
 
 NS = 4  # spin components
 NC = 3  # colours
+
+
+def _seed_from_key(key) -> int:
+    """numpy seed of a model constructor's ``key``: 0 for None, else the
+    integer (JAX PRNG keys are the JAX package's alone)."""
+    return 0 if key is None else int(key)
 
 
 def gamma_matrices() -> np.ndarray:
@@ -74,12 +83,14 @@ def wilson_operator(
 
     ``key`` seeds numpy's generator for the links (None: 0).  ``dtype``
     picks precision: complex64 -> float32 parts, complex128 -> float64.
-    Operands of ``apply_wilson`` are SoA [ncols, 12, *lat] CArrays.
+    ``layout="soa"`` (the default here; the JAX package's is "aos") runs
+    the stencil kernel on SoA operands [ncols, 12, *lat]; ``layout="aos"``
+    takes [*lat, NS, NC, ncols] fields through ``bsr_krylov``.
     ``storage_dtype=torch.bfloat16`` stores the link blocks in bf16; the
     spin factors keep ``dtype``'s precision.  The operator is built on
     ``device``: the card unless the caller names the CPU."""
     nd = len(lat_dims)
-    rng = np.random.default_rng(0 if key is None else int(key))
+    rng = np.random.default_rng(_seed_from_key(key))
     if links is None:
         links = random_su3_links(rng, lat_dims)  # [mu, *lat, c, c] complex128
     g = gamma_matrices()
@@ -116,9 +127,12 @@ def wilson_operator(
     return op
 
 
-def apply_wilson(op: BSROperator, x: CArray) -> CArray:
-    """y = D x on SoA operands [ncols, NS*NC, *lat]."""
-    return apply_stencil_soa(op, x)
+def apply_wilson(op: BSROperator, x):
+    """y = D x.  SoA operators take [ncols, NS*NC, *lat] CArrays; AoS
+    operators take [*lat, NS, NC, ncols] (CArray or complex)."""
+    if op.mode == "stencil_soa":
+        return apply_stencil_soa(op, x)
+    return bsr_krylov(1.0, op, x, "xyzt"[:len(op.dim_d)] + "SCn")
 
 
 def adjoint_operator(op: BSROperator) -> BSROperator:
@@ -126,8 +140,9 @@ def adjoint_operator(op: BSROperator) -> BSROperator:
     has offset -o_k and block A_k(s - o_k)^H.  Built anew on every call;
     callers that apply it repeatedly keep the result."""
     bi, bd = volume(op.bi), volume(op.bd)
+    nd = len(op.dim_d)
 
-    def adj(a):
+    def adj_soa(a):
         ndir, FB = a.shape[0], a.shape[1]
         lat = tuple(a.shape[2:])
         a = a.reshape((ndir, bi, bd) + lat).transpose(1, 2)   # transpose block
@@ -140,13 +155,27 @@ def adjoint_operator(op: BSROperator) -> BSROperator:
             rows.append(blk)
         return torch.stack(rows, 0).reshape((ndir, FB) + lat)
 
+    def adj_aos(a):
+        a = a.transpose(-1, -2)                               # transpose block
+        rows = []
+        for k in range(op.ndir):
+            blk = a[(slice(None),) * nd + (k,)]
+            for ax, off in enumerate(op.offsets[k]):
+                if off % op.dim_i[ax] != 0:
+                    blk = torch.roll(blk, off, dims=ax)
+            rows.append(blk)
+        return torch.stack(rows, dim=nd)
+
+    adj = adj_soa if op.mode == "stencil_soa" else adj_aos
+    blocks = adj(op.blocks_re) if op.blocks_im is None else \
+        CArray(adj(op.blocks_re), -adj(op.blocks_im))
     kron = op.kron
     if kron is not None:
-        kron = CArray(kron.re.transpose(-1, -2).contiguous(),
-                      -kron.im.transpose(-1, -2).contiguous())
-    return op.replace(
-        blocks=CArray(adj(op.blocks_re), -adj(op.blocks_im)), kron=kron,
-        offsets=tuple(tuple(-o for o in off) for off in op.offsets))
+        kron = kron.transpose(-1, -2).contiguous() if not cplx.is_carray(kron) else \
+            CArray(kron.re.transpose(-1, -2).contiguous(),
+                   -kron.im.transpose(-1, -2).contiguous())
+    return op.replace(blocks=blocks, kron=kron,
+                      offsets=tuple(tuple(-o for o in off) for off in op.offsets))
 
 
 def apply_wilson_dagger(op: BSROperator, x: CArray) -> CArray:

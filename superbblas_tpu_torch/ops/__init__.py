@@ -1,7 +1,10 @@
-"""Kernels with their plain PyTorch versions, and the local tensor engine
-(copy, permute, reduce, contraction) built on them."""
+"""Kernels with their plain PyTorch versions (stencil, permute, batched
+small GEMM), and the local tensor engine (copy, permute, reduce,
+contraction) built on them."""
 
-from . import contract, copy, permute, reduce, stencil
+from . import batched_gemm, contract, copy, permute, reduce, stencil
+from .batched_gemm import (batched_gemm_route, batched_gemm_rowpack, batched_small_gemm,
+                           batched_small_gemm_reference)
 from .contract import local_contraction
 from .copy import local_copy, local_permute
 from .permute import maybe_permute, permute_4d, permute_4d_reference, permute_eligible
@@ -10,7 +13,9 @@ from .stencil import (aos_to_soa, soa_eligible, soa_to_aos, stencil_matvec_soa,
                       stencil_matvec_soa_reference, stencil_matvec_soa_stream,
                       stencil_matvec_soa_xin)
 
-__all__ = ["contract", "copy", "permute", "reduce", "stencil",
+__all__ = ["batched_gemm", "contract", "copy", "permute", "reduce", "stencil",
+           "batched_small_gemm", "batched_gemm_rowpack", "batched_small_gemm_reference",
+           "batched_gemm_route",
            "local_contraction", "local_copy", "local_permute",
            "label_sum", "select", "scal",
            "permute_4d", "permute_4d_reference", "permute_eligible", "maybe_permute",

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu", "stencil_schedules.cu", "permute.cu")
+SOURCES = ("stencil_soa.cu", "stencil_schedules.cu", "permute.cu", "batched_gemm.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("stencil_soa.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,4 +94,8 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.sbt_permute_4d.argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
     lib.sbt_permute_4d.restype = i
+    # (f64, V, I, J, N) + the tile of ops/batched_gemm.py + b, x, y, stream
+    for name, tile in (("sbt_batched_gemm_small", 3), ("sbt_batched_gemm_rowpack", 5)):
+        getattr(lib, name).argtypes = [i, i64, i, i, i] + [i] * tile + [p] * 4
+        getattr(lib, name).restype = i
     return lib

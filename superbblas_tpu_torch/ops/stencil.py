@@ -118,11 +118,13 @@ def stencil_matvec_soa_reference(blocks: CArray, kron: Optional[CArray],
 
 
 def aos_to_soa(x: CArray, nlat: int) -> CArray:
-    """[*lat, KD, BD, n] -> [n, KD*BD, *lat]."""
+    """[*lat, KD, BD, n] -> [n, KD*BD, *lat], contiguous (as the kernels
+    take it)."""
     def t(a):
         nd = a.ndim
         a = a.permute((nd - 1, nd - 3, nd - 2) + tuple(range(nlat)))
-        return a.reshape((a.shape[0], a.shape[1] * a.shape[2]) + tuple(a.shape[3:]))
+        return a.reshape((a.shape[0], a.shape[1] * a.shape[2])
+                         + tuple(a.shape[3:])).contiguous()
     return cplx.cmap(t, x)
 
 

@@ -2,6 +2,8 @@
 superbblas_tpu: inputs made with numpy from a seed, handed to both
 packages, outputs compared as float64 numpy arrays."""
 
+import gc
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,17 @@ def torch_one_thread():
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def collect_garbage():
+    """Collects cyclic garbage after the test.  The JAX package's solves
+    and multigrid cycles leave JAX arrays in reference cycles (closures
+    that refer to themselves); they would otherwise stay live until a
+    later collection, inside whatever test runs next in the process
+    (tests/test_utils.py's leak check reads the live arrays)."""
+    yield
+    gc.collect()
 
 
 def crand_np(shape, seed, dtype=np.float64):

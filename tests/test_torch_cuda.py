@@ -2,8 +2,10 @@
 kernel with packed parity and its X-inside and X-streaming schedules
 against the plain version (and the schedules against the kernel, bit for
 bit); the CG and even-odd solves through the stencil kernel against the
-same solves on the CPU; and the permute kernel against its plain version,
-alone and inside ``local_copy``.  The kernels at the main path's shapes
+same solves on the CPU; the permute kernel against its plain version,
+alone and inside ``local_copy``; the batched-GEMM kernels K3 and E1
+against their plain version and a float64 product, and ``apply_coarse``
+on the card against the CPU port.  The kernels at the main path's shapes
 are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -19,8 +21,10 @@ import torch
 
 from superbblas_tpu_torch import local_copy
 from superbblas_tpu_torch.cplx import CArray
+from superbblas_tpu_torch.models import coarse as C
 from superbblas_tpu_torch.models import eo_packed as E
 from superbblas_tpu_torch.models import wilson as W
+from superbblas_tpu_torch.ops import batched_gemm as G
 from superbblas_tpu_torch.ops import permute as P
 from superbblas_tpu_torch.ops import stencil as S
 
@@ -195,3 +199,84 @@ def test_local_copy_on_card_matches_cpu(cuda_device):
     got = local_copy(-2.5, x.to(cuda_device), "xyzt", y.to(cuda_device), "tzyx", **kw)
     assert P.permute_4d.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+#: batched-GEMM shapes (V, I, J, N): the JAX package's test shapes, ragged
+#: ones, E1's probe shape and the V-cycle's coarse levels (8 columns in
+#: the solve, 4 and 1 in its set-up)
+GEMM_SHAPES = [(40, 12, 12, 32), (7, 24, 24, 16), (16, 12, 8, 5), (8, 32, 32, 128),
+               (7, 4, 324, 3), (5, 70, 33, 40), (4096, 32, 288, 32), (256, 4, 324, 8),
+               (256, 4, 324, 4), (256, 4, 324, 1), (16, 4, 64, 8), (16, 4, 64, 4),
+               (16, 4, 64, 1), (8192, 32, 32, 128)]
+
+
+def _gemm_operands(V, I, J, N, dtype, device):
+    rng = np.random.default_rng(V + I + J + N)
+    b = torch.from_numpy(rng.standard_normal((V, I, J)) / np.sqrt(J)).to(device, dtype)
+    x = torch.from_numpy(rng.standard_normal((V, J, N))).to(device, dtype)
+    return b, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["small", "rowpack"])
+def test_batched_gemm_kernels_match_plain_version(cuda_device, kernel, dtype):
+    """K3 (shapes with I, J <= 64) and E1 (every shape) against the plain
+    version and a float64 product: each output sums J products of unit
+    size, so f32 errs by at most about J * 2^-24 of the sum of |terms|;
+    the bound 1e-5 * sqrt(J) relative to max |y| holds with margin for
+    these normal operands (f64: 1e-12)."""
+    wrapper = G.batched_small_gemm if kernel == "small" else G.batched_gemm_rowpack
+    shapes = [s for s in GEMM_SHAPES if kernel == "rowpack" or max(s[1], s[2]) <= 64]
+    before = wrapper.launches
+    for V, I, J, N in shapes:
+        b, x = _gemm_operands(V, I, J, N, dtype, cuda_device)
+        got = wrapper(b, x)
+        torch.cuda.synchronize()
+        want64 = torch.einsum("vij,vjn->vin", b.double(), x.double())
+        tol = (1e-5 if dtype == torch.float32 else 1e-12) * np.sqrt(J) \
+            * float(want64.abs().max())
+        assert got.dtype == dtype and got.shape == (V, I, N)
+        assert float((got.double() - want64).abs().max()) <= tol, (V, I, J, N)
+        plain = G.batched_small_gemm_reference(b, x)
+        assert float((got.double() - plain.double()).abs().max()) <= tol, (V, I, J, N)
+    assert wrapper.launches == before + len(shapes)
+
+
+@pytest.mark.cuda
+def test_batched_gemm_routes_and_refusals(cuda_device):
+    """batched_small_gemm launches K3 for I, J <= 64 and E1 otherwise; an
+    empty V or N launches (and counts) nothing; bf16, mixed dtypes and
+    non-contiguous operands are refused."""
+    small, rowpack = G.batched_small_gemm.launches, G.batched_gemm_rowpack.launches
+    G.batched_small_gemm(*_gemm_operands(16, 4, 64, 8, torch.float32, cuda_device))
+    G.batched_small_gemm(*_gemm_operands(16, 4, 65, 8, torch.float32, cuda_device))
+    for V, J, N in ((0, 64, 8), (16, 64, 0), (0, 65, 8), (16, 65, 0)):
+        y = G.batched_small_gemm(*_gemm_operands(V, 4, J, N, torch.float32, cuda_device))
+        assert y.shape == (V, 4, N) and y.device.type == "cuda"
+    assert G.batched_small_gemm.launches == small + 1
+    assert G.batched_gemm_rowpack.launches == rowpack + 1
+    b, x = _gemm_operands(6, 8, 8, 4, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="float32 and float64"):
+        G.batched_small_gemm(b.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="one dtype"):
+        G.batched_small_gemm(b, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        G.batched_small_gemm(b.transpose(1, 2), x)
+
+
+@pytest.mark.cuda
+def test_apply_coarse_on_card_matches_cpu(cuda_device):
+    """apply_coarse through E1 (J = 9 * 16 = 144) on the card against the
+    same apply on the CPU (plain version): 3 launches (the Gauss
+    products); rtol 1e-5 of max |y| at f32."""
+    lat, nc = (4, 4, 2, 4), 16
+    op = C.coarse_operator(lat, block_size=nc, mass=0.5, key=1, device="cpu")
+    x = crand(lat + (nc, 5), 2, "cpu", torch.float32)
+    want = C.apply_coarse(op, x)
+    before = G.batched_gemm_rowpack.launches
+    got = C.apply_coarse(op.to(cuda_device), x.to(cuda_device))
+    assert G.batched_gemm_rowpack.launches == before + 3
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale

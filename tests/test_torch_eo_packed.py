@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import (WILSON_OFFSETS, assert_parity, both, crand_np, to_np,
-                           torch_one_thread)  # noqa: F401  (fixture)
+                           torch_one_thread, collect_garbage)  # noqa: F401  (fixtures)
 from superbblas_tpu import cplx as JC
 from superbblas_tpu.models import eo_packed as JE
 from superbblas_tpu.models import even_odd as JO
@@ -24,7 +24,7 @@ from superbblas_tpu_torch.models import even_odd as TO
 from superbblas_tpu_torch.models import wilson as TW
 from superbblas_tpu_torch.ops import stencil as TS
 
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
+pytestmark = pytest.mark.usefixtures("torch_one_thread", "collect_garbage")
 
 # the JAX package builds SoA operators only where T % 128 == 0 and Z % 8 == 0
 LAT = (4, 2, 8, 128)

@@ -18,7 +18,9 @@ def _run(args, cwd=ROOT):
 def test_import_does_not_load_jax():
     code = ("import sys, superbblas_tpu_torch, superbblas_tpu_torch.ops._cuda, "
             "superbblas_tpu_torch.models.wilson, superbblas_tpu_torch.models.eo_packed, "
-            "superbblas_tpu_torch.models.even_odd, superbblas_tpu_torch.solvers; "
+            "superbblas_tpu_torch.models.even_odd, superbblas_tpu_torch.solvers, "
+            "superbblas_tpu_torch.bsr, superbblas_tpu_torch.ops.batched_gemm, "
+            "superbblas_tpu_torch.models.coarse, superbblas_tpu_torch.models.multigrid; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'superbblas_tpu')); "
             "assert not bad, bad")

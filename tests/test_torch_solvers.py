@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from _torch_parity import (assert_parity, both, crand_np, to_np,
-                           torch_one_thread)  # noqa: F401  (fixture)
+                           torch_one_thread, collect_garbage)  # noqa: F401  (fixtures)
 from superbblas_tpu import cplx as JC
 from superbblas_tpu import solvers as JS
 from superbblas_tpu.models import wilson as JW
@@ -22,7 +22,7 @@ from superbblas_tpu_torch import cplx as TC
 from superbblas_tpu_torch import solvers as TS
 from superbblas_tpu_torch.models import wilson as TW
 
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
+pytestmark = pytest.mark.usefixtures("torch_one_thread", "collect_garbage")
 
 FIELD = (4, 4, 6)
 NV = 96

@@ -9,14 +9,14 @@ import pytest
 import torch
 
 from _torch_parity import (assert_parity, both, crand_np, to_np,
-                           torch_one_thread)  # noqa: F401  (fixture)
+                           torch_one_thread, collect_garbage)  # noqa: F401  (fixtures)
 from superbblas_tpu.bsr import bsr_cast_storage as jax_cast_storage
 from superbblas_tpu.models import wilson as JW
 from superbblas_tpu_torch import bsr as TB
 from superbblas_tpu_torch import cplx as TC
 from superbblas_tpu_torch.models import wilson as TW
 
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
+pytestmark = pytest.mark.usefixtures("torch_one_thread", "collect_garbage")
 
 LAT = (2, 4, 8, 128)
 PRECISIONS = {np.float64: (jnp.complex128, torch.complex128),
