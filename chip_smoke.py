@@ -78,10 +78,37 @@ kernels.  The operands of one apply of each coarse level, taken from the
 apply itself, go through K3 and E1 again, held against the plain version
 and a float64 product.
 
+K1-shape path: K1 at the clover term's templated (1,1,12,12) and on its
+runtime-shape route at (2,2,3,3), (1,1,2,2) and (2,1,4,2), each against
+the plain version on full and packed parity (three dtype pairs), the
+runtime route against the templated one bit for bit at (4,4,3,3) and
+(1,1,3,3); then each shape driven once at 16^3x32 x 8 and timed beside
+its bound.  Families' AoS check: every family's AoS apply (twisted mass,
+staggered and the clover term on K3, Shamir and Moebius on E1) against
+its SoA apply at 4x4x8x8, Ls 4.
+
+Family paths (f32, SoA, CGNE to 1e-5 on the normal residual, each solve
+checked by its true normal and unsquared residuals and by one K1 launch
+of each of its shapes an apply): clover at 24x24x24x48 x 8 rhs (mass 0.1,
+c_sw 1.0, key 0; A^H = gamma5 A gamma5; its (1,1,12,12) term checked and
+timed); Moebius at 16x16x16x32 x Ls 16 x 4 rhs (M5 1.4, m_f 0.3, b5 1.5,
+c5 0.5; A^H = (Gamma5 R5) D_left (Gamma5 R5), the adjoint identity
+first; K1 at the 64 kernel columns checked and timed); and, on the
+Wilson path's lattice and links, twisted mass (mu 0.05, cg_solve, 25
+iterations) and staggered (adjoint_operator; K1 (1,1,3,3) checked and
+timed).
+
+E2 and E3: the bf16 roll-plus-add in both variants (f32 bit-exact, bf16x2
+within one bf16 ulp, elements that differ counted) at [256, 32, 256] and
+[4096, 32, 256], timed beside the plain version, torch.roll + add and
+the bytes bound; the transpose tile sweep at each tile, exact against
+``x.permute(3,2,1,0).contiguous()`` at 64^4 f32 and timed beside it and
+K2.
+
 ``--profile`` adds one warm solve, one warm even-odd solve, one warm
-dense path, one warm coarse CG and one warm MG-FGCR solve under
-``torch.profiler`` and prints the device's busy share and the ops that
-take its time.
+dense path, one warm coarse CG, one warm MG-FGCR solve and one warm
+clover and Moebius CGNE under ``torch.profiler`` and prints the device's
+busy share and the ops that take its time.
 
 Prints the card's name and power limit, a JSON line with each kernel's
 launches on its path and its error, times and bound, and as its last line
@@ -107,19 +134,26 @@ from torch.profiler import record_function
 from superbblas_tpu_torch import (ContractionPlan, bsr, cplx, local_contraction, local_copy,
                                   local_permute, solvers)
 from superbblas_tpu_torch.cplx import CArray
-from superbblas_tpu_torch.models import (adjoint_operator, apply_coarse,
-                                         apply_hopping_packed_soa, apply_wilson,
-                                         cb_pack_soa, cg_solve, coarse_operator,
+from superbblas_tpu_torch.models import (adjoint_operator, apply_clover, apply_coarse,
+                                         apply_domain_wall, apply_hopping_packed_soa,
+                                         apply_staggered, apply_wilson, cb_pack_soa,
+                                         cg_solve, coarse_operator, domain_wall_operator,
                                          eo_solve_packed_soa, hopping_packed_soa,
-                                         multigrid, wilson_offsets, wilson_operator)
-from superbblas_tpu_torch.bsr import bsr_cast_storage
+                                         mobius_operator, multigrid, random_su3_links,
+                                         staggered_operator, twisted_mass_operator,
+                                         wilson_clover_operator, wilson_offsets,
+                                         wilson_operator)
+from superbblas_tpu_torch.bsr import BSROperator, bsr_cast_storage
 from superbblas_tpu_torch.ops import _cuda
 from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_gemm_rowpack,
                                                    batched_small_gemm,
                                                    batched_small_gemm_reference)
-from superbblas_tpu_torch.ops.permute import maybe_permute, permute_4d, permute_4d_reference
-from superbblas_tpu_torch.ops.stencil import (stencil_matvec_soa,
+from superbblas_tpu_torch.ops.permute import (TILES, maybe_permute, permute_4d,
+                                              permute_4d_reference, permute_4d_tiled)
+from superbblas_tpu_torch.ops.roll_add import VARIANTS, roll_add, roll_add_reference
+from superbblas_tpu_torch.ops.stencil import (soa_to_aos, stencil_matvec_soa,
                                               stencil_matvec_soa_reference,
+                                              stencil_matvec_soa_rt,
                                               stencil_matvec_soa_stream,
                                               stencil_matvec_soa_xin)
 
@@ -200,11 +234,12 @@ def randn_c(shape, gen, dtype=torch.float32) -> CArray:
     return CArray(part(), part())
 
 
-def compare(blocks, kron, x, offsets, label, fn=None, packed_parity=None) -> float:
+def compare(blocks, kron, x, offsets, label, fn=None, packed_parity=None, bi=3,
+            bd=3) -> float:
     """A stencil kernel (K1, with ``packed_parity`` if given, or the
-    schedule ``fn``) against the plain version on the same operands;
-    returns the max abs error."""
-    args = (blocks, kron, x, offsets, 3, 3)
+    schedule ``fn``) against the plain version on the same operands, with
+    ``bi`` x ``bd`` blocks; returns the max abs error."""
+    args = (blocks, kron, x, offsets, bi, bd)
     got = (stencil_matvec_soa(*args, packed_parity=packed_parity) if fn is None
            else fn(*args))
     want = stencil_matvec_soa_reference(*args, packed_parity=packed_parity)
@@ -264,13 +299,16 @@ def same_as_k1(blocks, kron, x, offsets, label):
     return err
 
 
-COUNTED = (stencil_matvec_soa, stencil_matvec_soa_xin, stencil_matvec_soa_stream,
-           permute_4d, batched_small_gemm, batched_gemm_rowpack)
+COUNTED = (stencil_matvec_soa, stencil_matvec_soa_rt, stencil_matvec_soa_xin,
+           stencil_matvec_soa_stream, permute_4d, permute_4d_tiled, batched_small_gemm,
+           batched_gemm_rowpack, roll_add)
 
 
 def reset_counts():
     for fn in COUNTED:
         fn.launches = 0
+    for fn in (stencil_matvec_soa, stencil_matvec_soa_rt):
+        fn.by_shape.clear()
 
 
 def read_counts():
@@ -280,6 +318,14 @@ def read_counts():
 def norm(a) -> float:
     """|a| over both parts, in f64."""
     return float(sum((p.double() ** 2).sum() for p in a)) ** 0.5
+
+
+def cinner(a, c) -> complex:
+    """<a, c> = sum conj(a) c over split-complex CArrays, in f64."""
+    re = sum(float((p.double() * q.double()).sum()) for p, q in zip(a, c))
+    im = float((a.re.double() * c.im.double()).sum()
+               - (a.im.double() * c.re.double()).sum())
+    return complex(re, im)
 
 
 def true_residual(op, x, b) -> float:
@@ -403,14 +449,17 @@ def bound(nbytes, flops):
 
 def main_operator(gen):
     """The Wilson operator of the main paths, 32x32x32x64, f32, links from
-    numpy seed 0, and 8 right-hand sides."""
+    numpy seed 0 (kept: the staggered and twisted-mass paths are built on
+    them), and 8 right-hand sides."""
     t0 = time.perf_counter()
-    op = wilson_operator(MAIN_LAT, mass=MASS, key=0, layout="soa", device="cuda")
+    links = random_su3_links(np.random.default_rng(0), MAIN_LAT)
+    t1 = time.perf_counter()
+    op = wilson_operator(MAIN_LAT, mass=MASS, links=links, layout="soa", device="cuda")
     b = randn_c((MAIN_COLS, 12) + MAIN_LAT, gen)
     torch.cuda.synchronize()
-    print(f"main operator set-up (host links + upload) {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    return op, b
+    print(f"main operator set-up {time.perf_counter() - t0:.2f} s (host links "
+          f"{t1 - t0:.2f} s, blocks + upload {time.perf_counter() - t1:.2f} s)", flush=True)
+    return op, b, links
 
 
 def wilson_path(op, b, profile: bool):
@@ -442,15 +491,9 @@ def wilson_path(op, b, profile: bool):
     dhb = apply_wilson(op_h, b)
     torch.cuda.synchronize()
 
-    def inner(a, c):   # <a, c> = sum conj(a) c, in f64
-        re = sum(float((p.double() * q.double()).sum()) for p, q in zip(a, c))
-        im = float((a.re.double() * c.im.double()).sum()
-                   - (a.im.double() * c.re.double()).sum())
-        return complex(re, im)
-
     finite = all(bool(torch.isfinite(p).all()) for p in (*x, *dhdx))
     res = norm(CArray(dhdx.re - dhb.re, dhdx.im - dhb.im)) / norm(dhb)
-    adj = abs(inner(b, dx) - inner(dhb, x))
+    adj = abs(cinner(b, dx) - cinner(dhb, x))
     adj_bound = 1e-5 * norm(b) * norm(dx)
     print(f"main path {lat} x {n} rhs: cg_solve {CG_ITERS} iters {wall:.3f} s, "
           f"peak memory {peak / 2 ** 30:.2f} GiB, |r|^2={float(rs):.4e}", flush=True)
@@ -754,9 +797,7 @@ def dense_path(gen, profile: bool):
     counts = read_counts()
     print(f"dense path {wall:.3f} s, kernel launches {counts} (after the permutes "
           f"{steps[0]}, after the box copy {steps[1]})", flush=True)
-    if counts != {"stencil_matvec_soa": 0, "stencil_matvec_soa_xin": 0,
-                  "stencil_matvec_soa_stream": 0, "permute_4d": 7, "batched_small_gemm": 0,
-                  "batched_gemm_rowpack": 0} or steps != [2 + 4, 7]:
+    if counts != {k: 7 if k == "permute_4d" else 0 for k in counts} or steps != [2 + 4, 7]:
         raise AssertionError(f"dense path launches {counts} {steps}, expected 2 + 4 "
                              "for the permutes and 1 for the box copy")
 
@@ -1165,12 +1206,491 @@ def vcycle_path(gen):
     return {k: setup_counts[k] + counts[k] for k in counts}, path_err
 
 
+#: the operator families' paths, at users' per-card volumes (PERF.md
+#: section 1), f32, SoA: clover 24^3x48 x 8 rhs, Moebius 16^3x32 x Ls 16 x
+#: 4 rhs (64 kernel columns), staggered and twisted mass on the main
+#: lattice and links
+CLOVER_LAT, CLOVER_MASS, CLOVER_CSW = (24, 24, 24, 48), 0.1, 1.0
+MOEBIUS_LAT, MOEBIUS_LS, MOEBIUS_COLS = (16, 16, 16, 32), 16, 4
+MOEBIUS = dict(M5=1.4, m_f=0.3, b5=1.5, c5=0.5)
+STAGGERED_MASS, TM_MU = 0.1, 0.05
+#: CGNE tolerance on the normal residual, and iteration caps above the CPU
+#: rehearsals (f32, links from seed 0, 8 or 4 rhs, tol 1e-5): clover 8^4
+#: 28 iterations, Moebius 4^4 x Ls 8 67, staggered 8^3x16 134
+FAMILY_TOL = 1e-5
+CLOVER_MAXITER, MOEBIUS_MAXITER, STAGGERED_MAXITER = 500, 1500, 2000
+#: the unsquared true residual |A x - b| / |b| after CGNE to 1e-5: |A^H r|
+#: >= s_min |r|, so it may exceed the normal residual by the condition
+#: number; the rehearsals gave 9.8e-6 (clover), 2.0e-5 (Moebius), 2.7e-5
+#: (staggered)
+UNSQUARED_TOL = 1e-3
+#: gamma5 = diag(1, 1, -1, -1) in the chiral basis, over the 12 SoA
+#: features (spin-major, colour repeated)
+G5_SIGNS = (1.0,) * 6 + (-1.0,) * 6
+#: K1's runtime-shape route at the JAX package's test shapes and an
+#: asymmetric one; the clover term's templated shape; the lattice and
+#: columns they are timed at
+K1_RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2))
+CLOVER_SHAPE = (1, 1, 12, 12)
+#: K1's key for its checks at the Moebius column count
+MOEBIUS_SHAPE = "moebius columns"
+K1_TIME_LAT, K1_TIME_COLS = (16, 16, 16, 32), 8
+#: the families' AoS check: lattice, Ls, columns; max |AoS - SoA| allowed,
+#: relative to max |SoA|: f32 sums of up to 324 terms in other orders
+AOS_LAT, AOS_LS, AOS_COLS, AOS_TOL = (4, 4, 8, 8), 4, 2, 1e-5
+#: E2 shapes: the probe's and one that resolves on the card; E3's: the
+#: probe's 64^4 f32
+E2_SHAPES = ((256, 32, 256), (4096, 32, 256))
+E3_SHAPE = (64, 64, 64, 64)
+
+
+def g5(v: CArray, feature_axis: int) -> CArray:
+    """gamma5 on the 12 spin-colour features of a SoA field."""
+    signs = torch.tensor(G5_SIGNS, device=v.re.device, dtype=v.re.dtype)
+    shape = [1] * v.re.ndim
+    shape[feature_axis] = 12
+    signs = signs.reshape(shape)
+    return CArray(signs * v.re, signs * v.im)
+
+
+def stencil_bound(blocks, kron, x, offsets, bi, bd):
+    """(ms, by) of one SoA matvec, from the BSROperator models of its bytes
+    (blocks once, x read, y written) and operations."""
+    ki, kd = (1, 1) if kron is None else tuple(kron.re.shape[1:])
+    op = BSROperator(blocks, kron, offsets, tuple(x.re.shape[2:]), (bi,), (bd,),
+                     (ki,) if kron is not None else (), (kd,) if kron is not None else ())
+    n = x.re.shape[0]
+    return bound(op.memops_per_matvec(n, itemsize=2 * x.re.element_size()),
+                 op.flops_per_matvec(n))
+
+
+def time_stencil(blocks, kron, x, offsets, bi, bd, reps, label):
+    """K1 (the route of its shape) and the plain version on one matvec, in
+    turns, beside the bound.  Returns ({"kernel", "plain"}: median ms,
+    (bound ms, by))."""
+    args = (blocks, kron, x, offsets, bi, bd)
+    ms = time_turns({"kernel": lambda: stencil_matvec_soa(*args),
+                     "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
+    bd_ = stencil_bound(*args)
+    print(f"time {label}: kernel median {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms "
+          f"over {reps} in turns; bound {bd_[0]:.4f} ms ({bd_[1]})", flush=True)
+    return ms, bd_
+
+
+def shape_operands(shape, lat, n, ndir, gen, st=torch.float32, ft=torch.float32):
+    ki, kd, bi, bd = shape
+    blocks = randn_c((ndir, bi * bd) + lat, gen, st)
+    kron = randn_c((ndir, ki, kd), gen) if (ki, kd) != (1, 1) else None
+    return blocks, kron, randn_c((n, kd * bd) + lat, gen, ft)
+
+
+def k1_shape_path(gen):
+    """K1 at the clover term's shape and on its runtime-shape route: each
+    against the plain version at small shapes on full and packed parity
+    (three dtype pairs), and at the Moebius column count (f32); the
+    runtime-shape route against the templated
+    one, bit for bit, at the templated Wilson and staggered shapes; then
+    each shape driven once through ``stencil_matvec_soa`` at K1_TIME_LAT x
+    K1_TIME_COLS (the counts set to 0 just before and read just after),
+    checked there and timed in turns with the plain version.  Returns
+    {shape: (launches, max error, ms, bound)} and the max error at the
+    Moebius column count."""
+    err = {}
+    for shape in (CLOVER_SHAPE,) + K1_RT_SHAPES:
+        err[shape] = 0.0
+        for lat, n, offsets, parity in (((3, 5, 6, 10), 3, WILSON_OFFSETS, None),
+                                        ((2, 4, 8, 32), 9, WILSON_OFFSETS[:1], None),
+                                        ((2, 4, 3, 8), 2, HOPPING, 0),
+                                        ((3, 5, 4, 7), 1, HOPPING, 1)):
+            for st, ft in DTYPE_PAIRS:
+                blocks, kron, x = shape_operands(shape, lat, n, len(offsets), gen, st, ft)
+                err[shape] = max(err[shape], compare(
+                    blocks, kron, x, offsets, f"K1 {shape} {lat} n={n} p={parity} {st}/{ft}",
+                    packed_parity=parity, bi=shape[2], bd=shape[3]))
+    for lat, parity in (((3, 5, 6, 10), None), ((2, 4, 3, 8), 0), ((3, 5, 4, 7), 1)):
+        offsets = WILSON_OFFSETS if parity is None else HOPPING
+        blocks, kron, x = shape_operands((4, 4, 3, 3), lat, MOEBIUS_COLS * MOEBIUS_LS,
+                                         len(offsets), gen)
+        err[MOEBIUS_SHAPE] = max(err.get(MOEBIUS_SHAPE, 0.0), compare(
+            blocks, kron, x, offsets, f"K1 (4,4,3,3) {lat} n={MOEBIUS_COLS * MOEBIUS_LS} "
+            f"p={parity}", packed_parity=parity))
+    for shape in ((4, 4, 3, 3), (1, 1, 3, 3)):
+        for parity in (None, 1):
+            offsets = WILSON_OFFSETS if parity is None else HOPPING
+            blocks, kron, x = shape_operands(shape, (3, 5, 6, 10), 3, len(offsets), gen)
+            args = (blocks, kron, x, offsets, 3, 3)
+            k1 = stencil_matvec_soa(*args, packed_parity=parity)
+            rt = stencil_matvec_soa_rt(*args, packed_parity=parity)
+            if not all(torch.equal(g, w) for g, w in zip(k1, rt)):
+                raise AssertionError(f"runtime-shape route {shape} p={parity} differs from "
+                                     "the templated route")
+    print("check K1 runtime-shape route at (4,4,3,3) and (1,1,3,3), full and packed: equal "
+          "to the templated route bit for bit", flush=True)
+
+    path = {shape: shape_operands(shape, K1_TIME_LAT, K1_TIME_COLS,
+                                  1 if shape == CLOVER_SHAPE else 9, gen)
+            for shape in (CLOVER_SHAPE,) + K1_RT_SHAPES}
+    offsets = {shape: WILSON_OFFSETS[:1] if shape == CLOVER_SHAPE else WILSON_OFFSETS
+               for shape in path}
+    reset_counts()
+    for shape, (blocks, kron, x) in path.items():
+        stencil_matvec_soa(blocks, kron, x, offsets[shape], shape[2], shape[3])
+    torch.cuda.synchronize()
+    routes = (dict(stencil_matvec_soa.by_shape), dict(stencil_matvec_soa_rt.by_shape))
+    print(f"K1 shape path {K1_TIME_LAT} n={K1_TIME_COLS}: launches by shape, templated "
+          f"{routes[0]}, runtime {routes[1]}", flush=True)
+    if routes != ({CLOVER_SHAPE: 1}, {shape: 1 for shape in K1_RT_SHAPES}):
+        raise AssertionError("a K1 shape did not launch its route once")
+    out = {}
+    for shape, (blocks, kron, x) in path.items():
+        e = compare(blocks, kron, x, offsets[shape], f"K1 {shape} {K1_TIME_LAT} "
+                    f"n={K1_TIME_COLS}", bi=shape[2], bd=shape[3])
+        ms, bd_ = time_stencil(blocks, kron, x, offsets[shape], shape[2], shape[3], 7,
+                               f"K1 {shape} {K1_TIME_LAT} n={K1_TIME_COLS}")
+        out[shape] = 1, max(err[shape], e), ms, bd_
+    return out, err[MOEBIUS_SHAPE]
+
+
+def family_solve(label, A, Ah, b, maxiter):
+    """CGNE (``solvers.cgne``) to FAMILY_TOL, the counts set to 0 just
+    before and read just after; then its true residuals in f64: the normal
+    one against SOLVE_RES_TOL, the unsquared one against UNSQUARED_TOL.
+    Returns (iterations, {route: launches by shape})."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    x, _, it = solvers.cgne(A, Ah, b, tol=FAMILY_TOL, maxiter=maxiter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    shapes = {"templated": dict(stencil_matvec_soa.by_shape),
+              "runtime": dict(stencil_matvec_soa_rt.by_shape)}
+    peak = torch.cuda.max_memory_allocated()
+    ax = A(x)
+    r = CArray(ax.re - b.re, ax.im - b.im)
+    res = norm(r) / norm(b)
+    normal = norm(Ah(r)) / norm(Ah(b))
+    finite = all(bool(torch.isfinite(p).all()) for p in x)
+    print(f"{label}: cgne {it} iterations to {FAMILY_TOL}, {wall:.3f} s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; true normal residual {normal:.3e} (<= {SOLVE_RES_TOL}), "
+          f"true |A x - b|/|b| {res:.3e} (<= {UNSQUARED_TOL}); launches {counts}, by shape "
+          f"{shapes}", flush=True)
+    if tuple(x.re.shape) != tuple(b.re.shape) or not finite:
+        raise AssertionError(f"{label}: the solution has the wrong shape or is not finite")
+    if not (it < maxiter and normal <= SOLVE_RES_TOL and res <= UNSQUARED_TOL):
+        raise AssertionError(f"{label}: the solve did not converge")
+    if counts["stencil_matvec_soa_rt"] or counts["batched_small_gemm"] \
+            or counts["batched_gemm_rowpack"]:
+        raise AssertionError(f"{label}: a kernel off the SoA path was launched")
+    return it, shapes
+
+
+def clover_path(gen, profile: bool):
+    """The Wilson-clover solve: the operator at CLOVER_LAT (links from
+    numpy seed 0, field strength and blocks formed on the card), the
+    clover term's K1 (1, 1, 12, 12) held against the plain version on its
+    operands and timed, then CGNE with A^H = gamma5 A gamma5 to 1e-5 on 8
+    rhs, every apply one K1 launch of each shape.  Returns (the clover
+    term's launches in the solve, its max error, ms, bound)."""
+    t0 = time.perf_counter()
+    op = wilson_clover_operator(CLOVER_LAT, mass=CLOVER_MASS, c_sw=CLOVER_CSW, key=0,
+                                layout="soa", device="cuda")
+    b = randn_c((MAIN_COLS, 12) + CLOVER_LAT, gen)
+    torch.cuda.synchronize()
+    print(f"clover path {CLOVER_LAT} mass {CLOVER_MASS} c_sw {CLOVER_CSW}: set-up "
+          f"{time.perf_counter() - t0:.2f} s (host links and Wilson blocks, field strength "
+          f"and clover blocks on the card)", flush=True)
+    cl = op.clover
+    err = compare(cl.blocks, None, b, cl.offsets, f"K1 {CLOVER_SHAPE} clover term "
+                  f"{CLOVER_LAT} n={MAIN_COLS}", bi=12, bd=12)
+    ms, bd_ = time_stencil(cl.blocks, None, b, cl.offsets, 12, 12, 5,
+                           f"K1 {CLOVER_SHAPE} clover term {CLOVER_LAT} n={MAIN_COLS}")
+
+    def A(v):
+        return apply_clover(op, v)
+
+    def Ah(v):
+        return g5(A(g5(v, 1)), 1)
+
+    it, shapes = family_solve(f"clover path {CLOVER_LAT} x {MAIN_COLS} rhs", A, Ah, b,
+                              CLOVER_MAXITER)
+    applies = 1 + 2 * it
+    if shapes["templated"] != {(4, 4, 3, 3): applies, CLOVER_SHAPE: applies}:
+        raise AssertionError(f"clover path launches {shapes}, expected {applies} of each "
+                             "shape")
+    if profile:
+        profile_run("clover cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
+                                                        maxiter=CLOVER_MAXITER))
+    return applies, err, ms, bd_
+
+
+def moebius_path(gen, profile: bool):
+    """The Moebius solve at MOEBIUS_LAT x Ls MOEBIUS_LS x 4 rhs: both
+    projector sides (links from numpy seed 0), the adjoint identity <u, A
+    v> = <A^H u, v> with A^H = (Gamma5 R5) D_left (Gamma5 R5), K1 at the
+    64 kernel columns held against the plain version and timed, then CGNE
+    to 1e-5, every apply one K1 launch.  Returns (launches in the solve,
+    max error, ms, bound)."""
+    t0 = time.perf_counter()
+    links = random_su3_links(np.random.default_rng(0), MOEBIUS_LAT)
+    kw = dict(Ls=MOEBIUS_LS, links=links, dtype=torch.complex64, layout="soa",
+              device="cuda", **MOEBIUS)
+    Dr = mobius_operator(MOEBIUS_LAT, **kw)
+    Dl = mobius_operator(MOEBIUS_LAT, projector_side="left", **kw)
+    del links
+    shape = (MOEBIUS_COLS, MOEBIUS_LS, 12) + MOEBIUS_LAT
+    b, u = randn_c(shape, gen), randn_c(shape, gen)
+    torch.cuda.synchronize()
+    print(f"moebius path {MOEBIUS_LAT} Ls {MOEBIUS_LS} {MOEBIUS}: set-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def A(v):
+        return apply_domain_wall(Dr, v)
+
+    def R5g5(v):
+        return g5(CArray(v.re.flip(1), v.im.flip(1)), 2)
+
+    def Ah(v):
+        return R5g5(apply_domain_wall(Dl, R5g5(v)))
+
+    ab = A(b)
+    lhs, rhs = cinner(u, ab), cinner(Ah(u), b)
+    adj_bound = 1e-5 * norm(u) * norm(ab)
+    print(f"moebius path adjoint identity: <u, A b> = {lhs:.6e}, <A^H u, b> = {rhs:.6e}, "
+          f"|difference| {abs(lhs - rhs):.3e} (<= {adj_bound:.3e})", flush=True)
+    if not abs(lhs - rhs) <= adj_bound:
+        raise AssertionError("the Moebius adjoint pair fails the adjoint identity")
+    del ab
+    w, ncols = Dr.wilson, MOEBIUS_COLS * MOEBIUS_LS
+    xf = CArray(b.re.reshape((ncols, 12) + MOEBIUS_LAT), b.im.reshape((ncols, 12) + MOEBIUS_LAT))
+    err = compare(w.blocks, w.kron, xf, w.offsets, f"K1 (4,4,3,3) {MOEBIUS_LAT} {ncols} "
+                  "columns (Moebius)")
+    ms, bd_ = time_stencil(w.blocks, w.kron, xf, w.offsets, 3, 3, 5,
+                           f"K1 (4,4,3,3) {MOEBIUS_LAT} {ncols} columns (Moebius)")
+    del xf, u
+    it, shapes = family_solve(f"moebius path {MOEBIUS_LAT} Ls {MOEBIUS_LS} x {MOEBIUS_COLS} "
+                              "rhs", A, Ah, b, MOEBIUS_MAXITER)
+    applies = 1 + 2 * it
+    if shapes["templated"] != {(4, 4, 3, 3): applies}:
+        raise AssertionError(f"moebius path launches {shapes}, expected {applies}")
+    if profile:
+        profile_run("moebius cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
+                                                         maxiter=MOEBIUS_MAXITER))
+    return applies, err, ms, bd_
+
+
+def staggered_path(links, gen):
+    """The staggered solve on the main lattice and links, 8 rhs: K1 (1, 1,
+    3, 3) held against the plain version on D and D^H and timed, then CGNE
+    with ``adjoint_operator`` to 1e-5, every apply one K1 launch.  Returns
+    (launches in the solve, max error, ms, bound)."""
+    t0 = time.perf_counter()
+    op = staggered_operator(MAIN_LAT, mass=STAGGERED_MASS, links=links, layout="soa",
+                            device="cuda")
+    op_h = adjoint_operator(op)
+    b = randn_c((MAIN_COLS, 3) + MAIN_LAT, gen)
+    torch.cuda.synchronize()
+    print(f"staggered path {MAIN_LAT} mass {STAGGERED_MASS}: set-up "
+          f"{time.perf_counter() - t0:.2f} s (host blocks from the main links)", flush=True)
+    err = max(compare(o.blocks, None, b, o.offsets, f"K1 (1,1,3,3) staggered {name} "
+                      f"{MAIN_LAT} n={MAIN_COLS}") for name, o in (("D", op), ("D^H", op_h)))
+    ms, bd_ = time_stencil(op.blocks, None, b, op.offsets, 3, 3, 5,
+                           f"K1 (1,1,3,3) staggered {MAIN_LAT} n={MAIN_COLS}")
+    it, shapes = family_solve(f"staggered path {MAIN_LAT} x {MAIN_COLS} rhs",
+                              lambda v: apply_staggered(op, v),
+                              lambda v: apply_staggered(op_h, v), b, STAGGERED_MAXITER)
+    applies = 1 + 2 * it
+    if shapes["templated"] != {(1, 1, 3, 3): applies}:
+        raise AssertionError(f"staggered path launches {shapes}, expected {applies}")
+    return applies, err, ms, bd_
+
+
+def twisted_mass_path(links, b):
+    """The twisted-mass solve on the main lattice, links and right-hand
+    sides: ``cg_solve`` for CG_ITERS iterations through K1 with the complex
+    centre factor, to a true normal residual <= 1e-5.  Returns the K1
+    launches of the solve."""
+    t0 = time.perf_counter()
+    op = twisted_mass_operator(MAIN_LAT, mass=MASS, mu=TM_MU, links=links, layout="soa",
+                               device="cuda")
+    torch.cuda.synchronize()
+    print(f"twisted-mass path {MAIN_LAT} mass {MASS} mu {TM_MU}: set-up "
+          f"{time.perf_counter() - t0:.2f} s; centre spin factor imaginary part max "
+          f"{float(op.kron.im[0].abs().max()):.3f}", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    x, rs = cg_solve(op, b, n_iters=CG_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()["stencil_matvec_soa"]
+    op_h = adjoint_operator(op)
+    dhb = apply_wilson(op_h, b)
+    dx = apply_wilson(op, x)
+    r = apply_wilson(op_h, CArray(dx.re - b.re, dx.im - b.im))
+    res = norm(r) / norm(dhb)
+    print(f"twisted-mass path {MAIN_LAT} x {MAIN_COLS} rhs: cg_solve {CG_ITERS} iters "
+          f"{wall:.3f} s, true normal residual {res:.3e} (<= 1e-5), true |D x - b|/|b| "
+          f"{norm(CArray(dx.re - b.re, dx.im - b.im)) / norm(b):.3e}, launches {launches} "
+          f"(expected {1 + 2 * CG_ITERS})", flush=True)
+    if not (res <= 1e-5 and launches == 1 + 2 * CG_ITERS
+            and all(bool(torch.isfinite(p).all()) for p in x)):
+        raise AssertionError("the twisted-mass solve did not converge through K1")
+    return launches
+
+
+def dwf_to_aos(v: CArray) -> CArray:
+    """[n, Ls, 12, *lat] -> [Ls, *lat, 4, 3, n]."""
+    n, ls = v.re.shape[:2]
+    lat = tuple(v.re.shape[3:])
+    return CArray(*(p.reshape((n, ls, 4, 3) + lat).permute(1, 4, 5, 6, 7, 2, 3, 0)
+                    .contiguous() for p in v))
+
+
+def families_aos_check(gen):
+    """Every family's AoS apply against its SoA apply on the card, at
+    AOS_LAT (Ls AOS_LS), from the same links (numpy seed 0): the AoS
+    applies launch K3 (staggered J = 27, the clover term J = 12) and E1
+    (Shamir J = 132, Moebius J = 324), three Gauss products an apply; the
+    twisted-mass AoS apply is a spin-factor einsum.  Returns ({kernel:
+    launches}, max abs error)."""
+    links = random_su3_links(np.random.default_rng(0), AOS_LAT)
+    lat, n, ls = AOS_LAT, AOS_COLS, AOS_LS
+    kw = dict(links=links, dtype=torch.complex64, device="cuda")
+    dwf = dict(Ls=ls, M5=1.8, m_f=0.1)
+    cases = (
+        ("twisted mass", twisted_mass_operator, dict(mass=0.1, mu=0.05), apply_wilson, 4, 0),
+        ("staggered", staggered_operator, dict(mass=0.1), apply_staggered, 1, "k3"),
+        ("clover", wilson_clover_operator, dict(mass=0.1, c_sw=1.0), apply_clover, 4, "k3"),
+        ("shamir", domain_wall_operator, dwf, apply_domain_wall, None, "e1"),
+        ("moebius right", mobius_operator, dict(b5=1.5, c5=0.5, **dwf), apply_domain_wall,
+         None, "e1"),
+        ("moebius left", mobius_operator, dict(b5=1.5, c5=0.5, projector_side="left", **dwf),
+         apply_domain_wall, None, "e1"))
+    launches, err = {"k3": 0, "e1": 0}, 0.0
+    for name, build, params, apply, spin, kernel in cases:
+        op_s = build(lat, layout="soa", **kw, **params)
+        op_a = build(lat, layout="aos", **kw, **params)
+        if spin is None:
+            x = randn_c((n, ls, 12) + lat, gen)
+            to_aos = dwf_to_aos
+        else:
+            x = randn_c((n, 3 * spin) + lat, gen)
+
+            def to_aos(v, spin=spin):
+                a = soa_to_aos(v, 4, spin, 3)
+                return CArray(*(p.reshape(lat + ((3,) if spin == 1 else (spin, 3)) + (n,))
+                                .contiguous() for p in a))
+        want = to_aos(apply(op_s, x))
+        reset_counts()
+        got = apply(op_a, to_aos(x))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        expect = {"k3": 0, "e1": 0}
+        if kernel:
+            expect[kernel] = 3
+        seen = {"k3": counts["batched_small_gemm"], "e1": counts["batched_gemm_rowpack"]}
+        ndir = op_a.ndir if isinstance(op_a, BSROperator) else \
+            f"{op_a.hop.ndir} + {op_a.clover.ndir}"
+        print(f"check {name} AoS apply {lat} n={n} against SoA: max|d| {e:.3e} rel "
+              f"{e / scale:.3e} (<= {AOS_TOL}), ndir {ndir}, launches {seen}", flush=True)
+        if not (e <= AOS_TOL * scale and seen == expect):
+            raise AssertionError(f"{name}: the AoS apply disagrees with the SoA apply or "
+                                 f"launched {seen}, expected {expect}")
+        for k in launches:
+            launches[k] += seen[k]
+        err = max(err, e)
+    return launches, err
+
+
+def e2_path(gen):
+    """E2, the bf16 roll-plus-add, in both variants through ``roll_add``:
+    each once at the probe's shape with the counts set to 0 just before and
+    read just after; f32 bit-exact against the plain version, bf16x2
+    within one bf16 ulp (elements that differ counted); then each timed at
+    E2_SHAPES in turns with the plain version and torch.roll + add in
+    bf16, beside the bytes bound.  Returns {variant: (launches, max abs
+    error, {shape: {name: ms}}, {shape: bound})}."""
+    xs = {shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()
+          for shape in E2_SHAPES}
+    x = xs[E2_SHAPES[0]]
+    reset_counts()
+    got = {v: roll_add(x, v) for v in VARIANTS}
+    torch.cuda.synchronize()
+    launches = read_counts()["roll_add"]
+    if launches != len(VARIANTS):
+        raise AssertionError(f"E2 path launches {launches}, expected {len(VARIANTS)}")
+    out = {}
+    for v in VARIANTS:
+        errs = 0.0
+        for shape, xx in xs.items():
+            y = roll_add(xx, v)
+            want = roll_add_reference(xx)
+            d = (y.float() - want.float()).abs()
+            ulp = 2.0 ** -7 * torch.clamp_min(want.float().abs(), 2.0 ** -126)
+            ndiff = int((y != want).sum())
+            ok = bool((d <= ulp).all()) and (v != "f32" or ndiff == 0)
+            print(f"check E2 {v} {shape}: {ndiff} of {xx.numel()} elements differ from the "
+                  f"plain version, max|d| {float(d.max()):.3e} "
+                  f"{'(bit-exact required)' if v == 'f32' else '(<= 1 bf16 ulp)'} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"E2 {v} disagrees with the plain version")
+            errs = max(errs, float(d.max()))
+        out[v] = [launches // len(VARIANTS), errs, {}, {}]
+    del got
+    for shape, xx in xs.items():
+        fns = {v: (lambda v=v: roll_add(xx, v)) for v in VARIANTS}
+        fns.update(plain=lambda: roll_add_reference(xx),
+                   roll_bf16=lambda: torch.roll(xx, 1, dims=-1) + xx)
+        ms = time_turns(fns, reps=25)
+        bd_ = bound(2 * xx.numel() * xx.element_size(), xx.numel())
+        print(f"time E2 {shape} bf16: " + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
+              + f" (medians of 25 in turns); bound {bd_[0]:.4f} ms ({bd_[1]})", flush=True)
+        for v in VARIANTS:
+            out[v][2][shape] = {"kernel": ms[v], "plain": ms["plain"],
+                                "roll_bf16": ms["roll_bf16"]}
+            out[v][3][shape] = bd_
+    return out
+
+
+def e3_path(gen):
+    """E3, the transpose tile sweep, at E3_SHAPE f32 perm (3,2,1,0): each
+    tile once with the counts set to 0 just before and read just after,
+    each exact against ``x.permute(3,2,1,0).contiguous()``; then each
+    timed in turns with that call and K2, beside the bytes bound.
+    Returns {tile: (launches, max abs error, ms)}, the call's ms and the
+    bound."""
+    x = torch.randn(E3_SHAPE, generator=gen, device="cuda")
+    perm = PERMS["tzyx"]
+    want = permute_4d_reference(x, perm)
+    reset_counts()
+    got = {tile: permute_4d_tiled(x, perm, tile) for tile in TILES}
+    torch.cuda.synchronize()
+    launches = read_counts()["permute_4d_tiled"]
+    if launches != len(TILES):
+        raise AssertionError(f"E3 path launches {launches}, expected {len(TILES)}")
+    err = {tile: exact(y, want, f"E3 tile {tile}") for tile, y in got.items()}
+    print(f"check E3 {E3_SHAPE} f32 tzyx: every tile {TILES} bit-exact", flush=True)
+    del got, want
+    fns = {tile: (lambda tile=tile: permute_4d_tiled(x, perm, tile)) for tile in TILES}
+    fns.update(k2=lambda: permute_4d(x, perm), call=lambda: permute_4d_reference(x, perm))
+    ms = time_turns(fns, reps=15)
+    nbytes = 2 * x.numel() * x.element_size()
+    bd_ = bound(nbytes, 0)
+    print(f"time E3 {E3_SHAPE} f32 tzyx (medians of 15 in turns): "
+          + ", ".join(f"{k} {t:.4f} ms ({nbytes / t / 1e6:.1f} GB/s)" for k, t in ms.items())
+          + f"; bound {bd_[0]:.4f} ms ({bd_[1]})", flush=True)
+    return {tile: (1, err[tile], ms[tile]) for tile in TILES}, ms["call"], bd_
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one warm solve, one warm even-odd solve, one "
-                             "warm dense path, one warm coarse CG and one warm MG-FGCR "
-                             "solve with torch.profiler")
+                             "warm dense path, one warm coarse CG, one warm MG-FGCR solve "
+                             "and one warm clover and Moebius CGNE with torch.profiler")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1205,7 +1725,12 @@ def main():
     if min(c_launches, mg_launches) == 0:
         raise AssertionError("the coarse or MG path launched none of its kernels")
     bench_shape(gen)
-    op, b = main_operator(gen)
+    k1_shapes, moebius_cols_err = k1_shape_path(gen)
+    aos_launches, aos_err = families_aos_check(gen)
+    clover = clover_path(gen, args.profile)
+    moebius = moebius_path(gen, args.profile)
+    moebius = (moebius[0], max(moebius[1], moebius_cols_err)) + moebius[2:]
+    op, b, links = main_operator(gen)
     launches, err = wilson_path(op, b, args.profile)
     if launches == 0:
         raise AssertionError("the Wilson path launched no stencil kernel")
@@ -1215,12 +1740,20 @@ def main():
         raise AssertionError("the even-odd path launched no packed stencil kernel")
     k1_bound = bound(op.memops_per_matvec(MAIN_COLS, itemsize=8),
                      op.flops_per_matvec(MAIN_COLS))
-    del op, b
+    del op
+    tm_launches = twisted_mass_path(links, b)
+    del b
+    staggered = staggered_path(links, gen)
+    del links
+    if min(clover[0], moebius[0], staggered[0], tm_launches) == 0:
+        raise AssertionError("a family's path launched no stencil kernel")
     p_err = permute_checks(gen)
     p_launches, d_err = dense_path(gen, args.profile)
     if p_launches == 0:
         raise AssertionError("the dense path launched no permute kernel")
     p_ms, (p_bound_ms, p_bound_by) = time_permute(gen)
+    e2 = e2_path(gen)
+    e3, e3_call_ms, e3_bound = e3_path(gen)
 
     print(f"chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)
@@ -1236,6 +1769,16 @@ def main():
         "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
         "launches": eo_launches, "max_abs_err": eo_err, "ms": eo_ms["H_eo"][0],
         "plain_ms": eo_ms["H_eo"][1], "bound_ms": eo_bound[0], "bound_by": eo_bound[1]}] + [{
+        "name": name, **stencil, "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
+        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "launches": n_launch, "max_abs_err": e, "ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": bd_[0], "bound_by": bd_[1]}
+        for name, (n_launch, e, t, bd_) in (
+            ("stencil_matvec_soa[1,1,12,12 clover term]", clover),
+            ("stencil_matvec_soa[4,4,3,3 Moebius, 64 columns]", moebius),
+            ("stencil_matvec_soa[1,1,3,3 staggered]", staggered),
+            *((f"stencil_matvec_soa_rt[{','.join(map(str, shape))}]", k1_shapes[shape])
+              for shape in K1_RT_SHAPES))] + [{
         "name": fn.__name__, **stencil,
         "source": "superbblas_tpu_torch/csrc/stencil_schedules.cu",
         "replaces": f"superbblas_tpu/ops/stencil_pallas.py:{line}",
@@ -1256,11 +1799,25 @@ def main():
         "library_ms": times["bmm"]}
         for fn, replaces, launches, err, (times, bd) in (
             (batched_small_gemm, "superbblas_tpu/ops/batched_gemm_pallas.py:99",
-             vc_launches["batched_small_gemm"], max(gemm_err["k3"], vc_err["k3"]),
-             gemm_ms["k3", K3_TIME_SHAPE]),
+             vc_launches["batched_small_gemm"] + aos_launches["k3"],
+             max(gemm_err["k3"], vc_err["k3"], aos_err), gemm_ms["k3", K3_TIME_SHAPE]),
             (batched_gemm_rowpack, "experiments/bgemm_rowpack_probe.py:32",
-             c_launches + vc_launches["batched_gemm_rowpack"],
-             max(gemm_err["e1"], c_err, vc_err["e1"]), gemm_ms["e1", E1_TIME_SHAPE]))]}))
+             c_launches + vc_launches["batched_gemm_rowpack"] + aos_launches["e1"],
+             max(gemm_err["e1"], c_err, vc_err["e1"], aos_err),
+             gemm_ms["e1", E1_TIME_SHAPE]))] + [{
+        "name": f"roll_add[{v}]", "route": "cuda",
+        "source": "superbblas_tpu_torch/csrc/roll_add.cu",
+        "replaces": "experiments/stencil_bf16_roll_probe.py:88",
+        "launches": e2[v][0], "max_abs_err": e2[v][1],
+        "ms": e2[v][2][E2_SHAPES[1]]["kernel"], "plain_ms": e2[v][2][E2_SHAPES[1]]["plain"],
+        "bound_ms": e2[v][3][E2_SHAPES[1]][0], "bound_by": e2[v][3][E2_SHAPES[1]][1],
+        "library_ms": None} for v in VARIANTS] + [{
+        "name": f"permute_4d_tiled[{','.join(map(str, tile))}]", "route": "cuda",
+        "source": "superbblas_tpu_torch/csrc/permute.cu",
+        "replaces": "experiments/permute_pallas.py:45",
+        "launches": e3[tile][0], "max_abs_err": e3[tile][1], "ms": e3[tile][2],
+        "plain_ms": e3_call_ms, "bound_ms": e3_bound[0], "bound_by": e3_bound[1],
+        "library_ms": e3_call_ms} for tile in TILES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

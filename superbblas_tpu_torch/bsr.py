@@ -212,7 +212,8 @@ def bsr_from_stencil(
     if kron is not None:
         kron = _to_device(kron, device)
     if layout == "soa":
-        if not soa_eligible(offsets, dim_lat):
+        if not soa_eligible(offsets, dim_lat, bi_v, bd_v, volume((kron_i or {}).values()),
+                            volume((kron_d or {}).values())):
             raise ValueError("stencil not eligible for the SoA layout")
         perm = (nlat, nlat + 1, nlat + 2) + tuple(range(nlat))
         blocks = cplx.cmap(

@@ -8,6 +8,12 @@
 //   kron    [ndir, KI, KD]           f32, runtime values (nullptr: K_d = 1)
 //   y       [n, KI*BI, X, Y, Z, T]   field dtype; accumulation in f32.
 //
+// Two routes take every shape the TPU kernel takes (KI*KD*BI*BD <= 256):
+// the templated kernel, with the sums unrolled for (4, 4, 3, 3) (Wilson,
+// twisted mass, domain wall), (1, 1, 3, 3) (staggered) and (1, 1, 12, 12)
+// (the clover term: 12 inputs, 12 outputs, 144 block loads a site), and
+// the runtime-shape kernel stencil_soa_rt_kernel for every other shape.
+//
 // Packed parity.  With packed_parity p in {0, 1} the operands hold one
 // checkerboard parity with X halved (site (x, y, z, t) at xh = x / 2), and
 // an X shift moves to the packed slot of the image site's neighbour: with
@@ -76,23 +82,8 @@ __global__ void __launch_bounds__(256) stencil_soa_kernel(
 
     // neighbour site s + o_d on the torus, read from device memory
     auto fetch = [&](int d, float (&v_re)[F], float (&v_im)[F]) {
-        int64_t nb = s;
-        const int ax = dirs.axis[d];
-        const int sg = dirs.sign[d];
-        bool move = sg != 0;
-        if (move && ax == 0 && dirs.packed >= 0) {
-            const bool odd = ((dirs.packed + cy + cz + ct) & 1) != 0;
-            move = sg > 0 ? odd : !odd;
-        }
-        if (move) {
-            const int c = ax == 0 ? cx : ax == 1 ? cy : ax == 2 ? cz : ct;
-            const int L = ax == 0 ? X : ax == 1 ? Y : ax == 2 ? Z : T;
-            const int64_t st = ax == 0 ? (int64_t)Y * Z * T
-                             : ax == 1 ? (int64_t)Z * T
-                             : ax == 2 ? (int64_t)T : 1;
-            nb = shift_site(s, c, L, st, sg);
-        }
-        load_site<F>(xr, xi, V, nb, v_re, v_im);
+        load_site<F>(xr, xi, V, neighbour(dirs, d, s, cx, cy, cz, ct, X, Y, Z, T), v_re,
+                     v_im);
     };
 
     float acc_re[KO], acc_im[KO];
@@ -122,12 +113,97 @@ struct LaunchK1 {
     }
 };
 
+// The runtime-shape route: any (KI, KD, BI, BD) with KI*KD*BI*BD <= 256.
+// One thread per (site, column, output feature o = a*BI + i), looping over
+// d, j and b at run time: y[., o, s] = sum_d sum_j B_d[i, j](s) *
+// sum_b K_d[a, b] x[., b*BD + j, s + o_d].  The products and sums are the
+// fmaf of site_matvec in its order, so at a templated shape this route
+// gives the templated route's bits.  Row a of every K_d sits in shared
+// memory; x and the blocks are read from device memory, their reuse
+// across the outputs of a site left to L1/L2.
+template <typename ST, typename FT>
+__global__ void __launch_bounds__(256) stencil_soa_rt_kernel(
+    const ST* __restrict__ b_re, const ST* __restrict__ b_im,
+    const float* __restrict__ k_re, const float* __restrict__ k_im,
+    const FT* __restrict__ x_re, const FT* __restrict__ x_im,
+    FT* __restrict__ y_re, FT* __restrict__ y_im, int KI, int KD, int BI, int BD,
+    int X, int Y, int Z, int T, const __grid_constant__ Dirs dirs) {
+    const int o = blockIdx.y;   // output feature a*BI + i
+    const int a = o / BI, i = o - a * BI;
+    const int col = blockIdx.z;
+
+    extern __shared__ float skron[];   // [2, ndir, KD]: row a of each K_d
+    const int nk = dirs.ndir * KD;
+    for (int t = threadIdx.x; t < nk; t += blockDim.x) {
+        const int d = t / KD, b = t - d * KD;
+        skron[t] = k_re ? k_re[(d * KI + a) * KD + b] : 1.0f;
+        skron[nk + t] = k_im ? k_im[(d * KI + a) * KD + b] : 0.0f;
+    }
+    __syncthreads();
+
+    const int64_t V = (int64_t)X * Y * Z * T;
+    const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (s >= V) return;
+    const int ct = (int)(s % T);
+    const int cz = (int)((s / T) % Z);
+    const int cy = (int)((s / ((int64_t)T * Z)) % Y);
+    const int cx = (int)(s / ((int64_t)T * Z * Y));
+    const int F = KD * BD;
+    const FT* xr = x_re + (int64_t)col * F * V;
+    const FT* xi = x_im + (int64_t)col * F * V;
+
+    float ar = 0.0f, ai = 0.0f;
+    for (int d = 0; d < dirs.ndir; ++d) {
+        const int64_t nb = neighbour(dirs, d, s, cx, cy, cz, ct, X, Y, Z, T);
+        const float* kr = skron + d * KD;
+        const float* kim = skron + nk + d * KD;
+        const int64_t boff = ((int64_t)d * BI * BD + (int64_t)i * BD) * V + s;
+        for (int j = 0; j < BD; ++j) {
+            float zr = 0.0f, zi = 0.0f;
+            for (int b = 0; b < KD; ++b) {
+                const float cr = kr[b], cim = kim[b];
+                const float vr = load_f(xr + (b * BD + j) * V + nb);
+                const float vi = load_f(xi + (b * BD + j) * V + nb);
+                zr = fmaf(cr, vr, zr);
+                zr = fmaf(-cim, vi, zr);
+                zi = fmaf(cr, vi, zi);
+                zi = fmaf(cim, vr, zi);
+            }
+            const float br = load_f(b_re + boff + j * V);
+            const float bim = load_f(b_im + boff + j * V);
+            ar = fmaf(br, zr, ar);
+            ar = fmaf(-bim, zi, ar);
+            ai = fmaf(br, zi, ai);
+            ai = fmaf(bim, zr, ai);
+        }
+    }
+    const int64_t out = ((int64_t)col * KI * BI + o) * V + s;
+    store_f(y_re + out, ar);
+    store_f(y_im + out, ai);
+}
+
+template <typename ST, typename FT>
+cudaError_t launch_rt(const Operands& a, const Dirs& dirs, int KI, int KD, int BI, int BD,
+                      cudaStream_t stream) {
+    const int64_t V = (int64_t)a.X * a.Y * a.Z * a.T;
+    const dim3 grid((unsigned)((V + 255) / 256), (unsigned)(KI * BI), (unsigned)a.n);
+    const size_t smem = 2 * sizeof(float) * dirs.ndir * KD;
+    stencil_soa_rt_kernel<ST, FT><<<grid, 256, smem, stream>>>(
+        static_cast<const ST*>(a.b_re), static_cast<const ST*>(a.b_im), a.k_re, a.k_im,
+        static_cast<const FT*>(a.x_re), static_cast<const FT*>(a.x_im),
+        static_cast<FT*>(a.y_re), static_cast<FT*>(a.y_im), KI, KD, BI, BD, a.X, a.Y, a.Z,
+        a.T, dirs);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // offsets: host array [ndir, 4] of one-hot +-1 (or all-zero) offsets;
 // packed_parity: 0 or 1 for checkerboard-packed operands, -1 for none.
+// The templated route: (KI, KD, BI, BD) in (4, 4, 3, 3), (1, 1, 3, 3),
+// (1, 1, 12, 12).
 int sbt_stencil_soa(int ki, int kd, int bi, int bd, int storage_bf16,
                     int field_bf16, const void* b_re, const void* b_im,
                     const void* k_re, const void* k_im, const void* x_re,
@@ -140,8 +216,36 @@ int sbt_stencil_soa(int ki, int kd, int bi, int bd, int storage_bf16,
     const Operands a{b_re, b_im, static_cast<const float*>(k_re),
                      static_cast<const float*>(k_im), x_re, x_im, y_re, y_im,
                      n, X, Y, Z, T};
-    return dispatch<LaunchK1>(ki, kd, bi, bd, storage_bf16, field_bf16, a, dirs,
-                              static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (ki == 1 && kd == 1 && bi == 12 && bd == 12)
+        return dispatch_types<LaunchK1, 1, 1, 12, 12>(storage_bf16, field_bf16, a, dirs, st);
+    return dispatch<LaunchK1>(ki, kd, bi, bd, storage_bf16, field_bf16, a, dirs, st);
+}
+
+// The runtime-shape route: any shape with ki*kd*bi*bd <= 256, n <= 65535.
+int sbt_stencil_soa_rt(int ki, int kd, int bi, int bd, int storage_bf16,
+                       int field_bf16, const void* b_re, const void* b_im,
+                       const void* k_re, const void* k_im, const void* x_re,
+                       const void* x_im, void* y_re, void* y_im, int n, int X,
+                       int Y, int Z, int T, int ndir, const int* offsets,
+                       int packed_parity, void* stream) {
+    if (ki < 1 || kd < 1 || bi < 1 || bd < 1 || ki * kd * bi * bd > 256 || n < 1 ||
+        n > 65535)
+        return cudaErrorInvalidValue;
+    Dirs dirs{};
+    const cudaError_t err = parse_dirs(ndir, offsets, packed_parity, &dirs);
+    if (err != cudaSuccess) return err;
+    const Operands a{b_re, b_im, static_cast<const float*>(k_re),
+                     static_cast<const float*>(k_im), x_re, x_im, y_re, y_im,
+                     n, X, Y, Z, T};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (!storage_bf16 && !field_bf16)
+        return launch_rt<float, float>(a, dirs, ki, kd, bi, bd, st);
+    if (storage_bf16 && !field_bf16)
+        return launch_rt<__nv_bfloat16, float>(a, dirs, ki, kd, bi, bd, st);
+    if (storage_bf16 && field_bf16)
+        return launch_rt<__nv_bfloat16, __nv_bfloat16>(a, dirs, ki, kd, bi, bd, st);
+    return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// Shared per-site math of the SoA stencil kernels (stencil_soa.cu: K1,
-// stencil_schedules.cu: the X-inside and X-streaming schedules).
+// Shared per-site math of the SoA stencil kernels (stencil_soa.cu: K1 on
+// its templated and runtime-shape routes, stencil_schedules.cu: the
+// X-inside and X-streaming schedules).
 //
 // All three compute, over a periodic 4-D lattice s = (X, Y, Z, T) with
 // one-hot +-1 offsets o_d, in split complex (separate re/im planes),
@@ -93,6 +94,29 @@ __device__ __forceinline__ int64_t shift_site(int64_t s, int c, int L, int64_t s
     return s + ((c == 0) ? (int64_t)(L - 1) * st : -st);
 }
 
+// flat index of the neighbour of site s = (cx, cy, cz, ct) in direction d
+// on the torus; with a packed parity an X step moves only on the sites
+// whose image parity m = (packed + cy + cz + ct) mod 2 asks for it (+x when
+// m = 1, -x when m = 0)
+__device__ __forceinline__ int64_t neighbour(const Dirs& dirs, int d, int64_t s, int cx,
+                                             int cy, int cz, int ct, int X, int Y, int Z,
+                                             int T) {
+    const int ax = dirs.axis[d];
+    const int sg = dirs.sign[d];
+    bool move = sg != 0;
+    if (move && ax == 0 && dirs.packed >= 0) {
+        const bool odd = ((dirs.packed + cy + cz + ct) & 1) != 0;
+        move = sg > 0 ? odd : !odd;
+    }
+    if (!move) return s;
+    const int c = ax == 0 ? cx : ax == 1 ? cy : ax == 2 ? cz : ct;
+    const int L = ax == 0 ? X : ax == 1 ? Y : ax == 2 ? Z : T;
+    const int64_t st = ax == 0 ? (int64_t)Y * Z * T
+                     : ax == 1 ? (int64_t)Z * T
+                     : ax == 2 ? (int64_t)T : 1;
+    return shift_site(s, c, L, st, sg);
+}
+
 // index within one X plane (Y*Z*T sites, T fastest) of the neighbour of
 // plane site p = (cy*Z + cz)*T + ct along axis ax in 1..3
 __device__ __forceinline__ int64_t shift_plane(int64_t p, int ax, int sg, int cy, int cz,
@@ -179,22 +203,30 @@ __device__ __forceinline__ void site_matvec(const ST* __restrict__ b_re,
     }
 }
 
-// (KI, KD, BI, BD) and (storage, field) type instantiations shared by the
-// kernels' C entry points: calls LAUNCH<KI, KD, BI, BD, ST, FT>(args...)
+// the (storage, field) type instantiations of one (KI, KD, BI, BD)
+// shape: calls Launch<KI, KD, BI, BD, ST, FT>::run(args...)
+template <template <int, int, int, int, typename, typename> class Launch, int KI, int KD,
+          int BI, int BD, typename... A>
+cudaError_t dispatch_types(int storage_bf16, int field_bf16, A... args) {
+    if (!storage_bf16 && !field_bf16)
+        return Launch<KI, KD, BI, BD, float, float>::run(args...);
+    if (storage_bf16 && !field_bf16)
+        return Launch<KI, KD, BI, BD, __nv_bfloat16, float>::run(args...);
+    if (storage_bf16 && field_bf16)
+        return Launch<KI, KD, BI, BD, __nv_bfloat16, __nv_bfloat16>::run(args...);
+    return cudaErrorInvalidValue;
+}
+
+// the (KI, KD, BI, BD) shapes every stencil kernel is instantiated at
+// (K1 adds (1, 1, 12, 12) in stencil_soa.cu), each with the three type
+// pairs
 template <template <int, int, int, int, typename, typename> class Launch, typename... A>
 cudaError_t dispatch(int ki, int kd, int bi, int bd, int storage_bf16, int field_bf16,
                      A... args) {
-#define SBT_TYPES(KI, KD, BI, BD)                                                    \
-    if (!storage_bf16 && !field_bf16)                                                \
-        return Launch<KI, KD, BI, BD, float, float>::run(args...);                   \
-    if (storage_bf16 && !field_bf16)                                                 \
-        return Launch<KI, KD, BI, BD, __nv_bfloat16, float>::run(args...);           \
-    if (storage_bf16 && field_bf16)                                                  \
-        return Launch<KI, KD, BI, BD, __nv_bfloat16, __nv_bfloat16>::run(args...);   \
-    return cudaErrorInvalidValue
-    if (ki == 4 && kd == 4 && bi == 3 && bd == 3) { SBT_TYPES(4, 4, 3, 3); }
-    if (ki == 1 && kd == 1 && bi == 3 && bd == 3) { SBT_TYPES(1, 1, 3, 3); }
-#undef SBT_TYPES
+    if (ki == 4 && kd == 4 && bi == 3 && bd == 3)
+        return dispatch_types<Launch, 4, 4, 3, 3>(storage_bf16, field_bf16, args...);
+    if (ki == 1 && kd == 1 && bi == 3 && bd == 3)
+        return dispatch_types<Launch, 1, 1, 3, 3>(storage_bf16, field_bf16, args...);
     return cudaErrorInvalidValue;
 }
 

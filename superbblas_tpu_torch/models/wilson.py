@@ -9,8 +9,9 @@ is built as a Kronecker-factored stencil operator: spin factors shared
 across sites, per-site colour links, in the SoA layout (the stencil
 kernel's, the default here) or the AoS one (label order, applied through
 ``bsr_krylov``).  Links and gammas are made on the host in numpy, with the
-same code as the JAX package, so one seed gives bit-identical operators
-in both.
+same code as the JAX package; the blocks are formed from them on the
+operator's device with the same exact operations, so one seed gives
+bit-identical operators in both.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..labels import volume
 
 __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets", "wilson_operator",
            "apply_wilson", "adjoint_operator", "apply_wilson_dagger",
-           "cg_step", "cg_solve"]
+           "cg_step", "cg_solve", "twisted_mass_operator"]
 
 NS = 4  # spin components
 NC = 3  # colours
@@ -50,6 +51,12 @@ def gamma_matrices() -> np.ndarray:
     return g
 
 
+def gamma5() -> np.ndarray:
+    """gamma5 = g0 g1 g2 g3, diag(1, 1, -1, -1) in this (chiral) basis."""
+    g = gamma_matrices()
+    return g[0] @ g[1] @ g[2] @ g[3]
+
+
 def random_su3_links(rng: np.random.Generator, lat_dims) -> np.ndarray:
     """Random unitary gauge links U[mu, *lat, 3, 3] (host-side QR of a
     Gaussian; U(3) rather than SU(3), fine for benchmarks)."""
@@ -59,6 +66,26 @@ def random_su3_links(rng: np.random.Generator, lat_dims) -> np.ndarray:
     d = np.einsum("...ii->...i", r)
     q = q * (d / np.abs(d)).conj()[..., None, :]
     return q
+
+
+def links_tensor(links, device) -> torch.Tensor:
+    """numpy links [nd, *lat, 3, 3] as a complex128 tensor on ``device``:
+    the operators' blocks are formed there, with the JAX package's exact
+    operations (copies, rolls, conjugates, multiples by +-1/2), so they
+    equal its host numpy blocks bit for bit."""
+    return torch.as_tensor(np.asarray(links), dtype=torch.complex128, device=device)
+
+
+def link_dagger_behind(U: torch.Tensor, mu: int) -> torch.Tensor:
+    """U_mu(s - mu)^H: the link field shifted by +mu, conjugate-transposed."""
+    return torch.roll(U[mu], 1, dims=mu).transpose(-1, -2).conj()
+
+
+def real_parts(blocks: torch.Tensor, dtype) -> CArray:
+    """Split-complex parts of complex128 ``blocks`` in ``dtype``'s part
+    precision (complex64 -> float32, complex128 -> float64)."""
+    part_dt = torch.float32 if dtype == torch.complex64 else torch.float64
+    return CArray(blocks.real.to(part_dt), blocks.imag.to(part_dt))
 
 
 def wilson_offsets(nd: int = 4):
@@ -95,29 +122,29 @@ def wilson_operator(
         links = random_su3_links(rng, lat_dims)  # [mu, *lat, c, c] complex128
     g = gamma_matrices()
     eye_s = np.eye(NS, dtype=np.complex128)
-    eye_c = np.broadcast_to(np.eye(NC, dtype=np.complex128),
-                            tuple(lat_dims) + (NC, NC))
+    U = links_tensor(links, device)
+    eye_c = torch.eye(NC, dtype=torch.complex128, device=U.device).expand(
+        tuple(lat_dims) + (NC, NC))
 
     offsets = wilson_offsets(nd)
     spin_factors = [(mass + r * nd) * eye_s]
     color_blocks = [eye_c]
     for mu in range(nd):
         spin_factors.append(-0.5 * (r * eye_s - g[mu]))
-        color_blocks.append(links[mu])
+        color_blocks.append(U[mu])
         spin_factors.append(-0.5 * (r * eye_s + g[mu]))
         # U_mu(s - mu)^H : shift the link field then conjugate-transpose
-        shifted = np.roll(links[mu], 1, axis=mu)
-        color_blocks.append(np.swapaxes(shifted, -1, -2).conj())
+        color_blocks.append(link_dagger_behind(U, mu))
+    del U
 
     part_dt = np.float32 if dtype == torch.complex64 else np.float64
-    blocks = np.asarray(np.stack(color_blocks, axis=nd), dtype=np.complex128)
     kron = np.stack(spin_factors, axis=0)
     lat_labels = "xyzt"[:nd]
     op = bsr_from_stencil(
         lat_labels + "Sc", lat_labels + "SC",
         lat_dims, {"c": NC}, {"C": NC},
         offsets,
-        CArray(blocks.real.astype(part_dt), blocks.imag.astype(part_dt)),
+        real_parts(torch.stack(color_blocks, dim=nd), dtype),
         kron=CArray(kron.real.astype(part_dt), kron.imag.astype(part_dt)),
         kron_i={"S": NS}, kron_d={"S": NS},
         layout=layout, device=device,
@@ -230,3 +257,34 @@ def cg_solve(op: BSROperator, b: CArray, n_iters: int = 10):
     for _ in range(n_iters):
         state = cg_step(op, state, op_h)
     return state[0], state[3]
+
+
+def twisted_mass_operator(
+    lat_dims: Tuple[int, ...],
+    mass: float = 0.1,
+    mu: float = 0.05,
+    r: float = 1.0,
+    key: Optional[int] = None,
+    dtype=torch.complex64,
+    links: Optional[np.ndarray] = None,
+    layout: str = "soa",
+    device="cuda",
+) -> BSROperator:
+    """Twisted-mass Wilson operator D_tm = D_W + i mu gamma5 (x) 1.
+
+    The twist is site-local and spin-diagonal, so it is added to the
+    centre direction's spin factor (index 0): the operator stays one
+    Kron-BSR stencil and runs the Wilson kernel with a complex centre
+    factor.  The spin factors are a new tensor; ``op``'s are not edited.
+    Same arguments as :func:`wilson_operator` (``layout="soa"`` is the
+    default here, the JAX package's is "aos")."""
+    if len(lat_dims) != 4:
+        raise ValueError("the gamma5 twist is defined on a 4D lattice")
+    op = wilson_operator(lat_dims, mass=mass, r=r, key=key, dtype=dtype, links=links,
+                         layout=layout, device=device)
+    tw = 1j * mu * gamma5()
+    kron = op.kron
+    re, im = kron.re.clone(), kron.im.clone()
+    re[0] += torch.as_tensor(tw.real, dtype=re.dtype, device=re.device)
+    im[0] += torch.as_tensor(tw.imag, dtype=im.dtype, device=im.device)
+    return op.replace(kron=CArray(re, im))

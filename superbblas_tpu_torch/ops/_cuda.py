@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu", "stencil_schedules.cu", "permute.cu", "batched_gemm.cu")
+SOURCES = ("stencil_soa.cu", "stencil_schedules.cu", "permute.cu", "batched_gemm.cu",
+           "roll_add.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("stencil_soa.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,12 +89,17 @@ def library() -> ctypes.CDLL:
     # (ki, kd, bi, bd, storage_bf16, field_bf16, b, kron, x, y re/im pointers,
     #  n, X, Y, Z, T, ndir, offsets) + each kernel's own trailing ints + stream
     head = [i] * 6 + [p] * 8 + [i] * 6 + [p]
-    for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_xin", [i, i, i]),
-                        ("sbt_stencil_soa_stream", [])):
+    for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_rt", [i]),
+                        ("sbt_stencil_soa_xin", [i, i, i]), ("sbt_stencil_soa_stream", [])):
         getattr(lib, name).argtypes = head + extra + [p]
         getattr(lib, name).restype = i
     lib.sbt_permute_4d.argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
     lib.sbt_permute_4d.restype = i
+    # (edge, rows, planes, mid_swap, X, Y, Z, T, strides, grid) + in, out, stream
+    lib.sbt_permute_4d_tiled.argtypes = [i] * 4 + [i64] * 11 + [p, p, p]
+    lib.sbt_permute_4d_tiled.restype = i
+    lib.sbt_roll_add.argtypes = [i, i64, i64, p, p, p]
+    lib.sbt_roll_add.restype = i
     # (f64, V, I, J, N) + the tile of ops/batched_gemm.py + b, x, y, stream
     for name, tile in (("sbt_batched_gemm_small", 3), ("sbt_batched_gemm_rowpack", 5)):
         getattr(lib, name).argtypes = [i, i64, i, i, i] + [i] * tile + [p] * 4

@@ -1,0 +1,63 @@
+"""bf16 roll-plus-add along the minor axis, E2 (counterpart of the probe
+``experiments/stencil_bf16_roll_probe.py``):
+
+    y[r, z, t] = x[r, z, (t - 1) mod T] + x[r, z, t]
+
+on a bf16 tensor [R, Z, T] (any leading shape: the rows are everything but
+the last axis).  ``roll_add`` runs the plain version on CPU tensors and
+the kernel ``csrc/roll_add.cu`` on CUDA ones, in one of two variants:
+``"f32"`` (convert, add in f32, round once; bit-exact against the plain
+version) or ``"bf16x2"`` (native bf16 pair adds; within one bf16 ulp of
+it, even T only).  It answers whether native bf16 arithmetic pays on the
+card; nothing in the package calls it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["roll_add", "roll_add_reference", "VARIANTS"]
+
+VARIANTS = ("f32", "bf16x2")
+
+
+def roll_add_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the roll and the add in f32, rounded once to
+    x's dtype."""
+    xf = x.float()
+    return (torch.roll(xf, 1, dims=-1) + xf).to(x.dtype)
+
+
+def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
+    """``roll(x, 1, -1) + x`` of a bf16 tensor.  CPU tensors run the plain
+    version; CUDA tensors the kernel's ``variant`` (``roll_add.launches``
+    counts its launches) or raise where it does not take the case."""
+    if variant not in VARIANTS:
+        raise ValueError(f"roll_add: variant {variant!r} is not one of {VARIANTS}")
+    if x.dtype != torch.bfloat16 or x.ndim < 1 or x.numel() == 0:
+        raise ValueError(f"roll_add: a non-empty bf16 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return roll_add_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"roll_add: no kernel for device {x.device}")
+    T = x.shape[-1]
+    if variant == "bf16x2" and T % 2:
+        raise ValueError(f"roll_add: the bf16x2 variant loads pairs and takes an even "
+                         f"last axis, got {T}")
+    if not x.is_contiguous():
+        raise ValueError("roll_add: the kernel takes a contiguous tensor")
+    from . import _cuda
+
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _cuda.library().sbt_roll_add(int(variant == "bf16x2"), x.numel() // T, T,
+                                           x.data_ptr(), y.data_ptr(),
+                                           torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"roll_add kernel launch failed: cudaError {err}")
+    roll_add.launches += 1
+    return y
+
+
+roll_add.launches = 0

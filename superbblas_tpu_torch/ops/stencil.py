@@ -8,14 +8,18 @@
 
 ``stencil_matvec_soa`` sends CPU tensors to the plain PyTorch version
 ``stencil_matvec_soa_reference`` and CUDA tensors to the hand-written
-kernel ``csrc/stencil_soa.cu``; a case the kernel does not take raises.
-``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream`` compute the
-same function with other schedules of the X neighbours
-(``csrc/stencil_schedules.cu``); no caller dispatches them.
+kernel ``csrc/stencil_soa.cu``: its templated route at ``KERNEL_SHAPES``,
+its runtime-shape route (``stencil_matvec_soa_rt``) at every other shape
+with KI*KD*BI*BD <= 256, the TPU kernel's rule; a case no route takes
+raises.  ``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream``
+compute the same function with other schedules of the X neighbours
+(``csrc/stencil_schedules.cu``, at ``SCHEDULE_SHAPES``); no caller
+dispatches them.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Sequence, Tuple
 
@@ -25,12 +29,17 @@ import torch
 from .. import cplx
 from ..cplx import CArray
 
-__all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference",
+__all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
            "stencil_matvec_soa_xin", "stencil_matvec_soa_stream",
            "soa_eligible", "aos_to_soa", "soa_to_aos"]
 
-#: (KI, KD, BI, BD) shapes instantiated in the kernel
-KERNEL_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
+#: (KI, KD, BI, BD) shapes of K1's templated route: Wilson, staggered and
+#: the clover term; every other shape takes the runtime-shape route
+KERNEL_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12))
+#: the shapes the X-inside and X-streaming schedules are instantiated at
+SCHEDULE_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
+#: most KI*KD*BI*BD a stencil takes (the TPU kernel's rule)
+MAX_BLOCK = 256
 #: (block storage dtype, field dtype) pairs instantiated in the kernel
 KERNEL_DTYPES = ((torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32),
@@ -40,7 +49,7 @@ MAX_DIRS = 16
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_BYTES = 232448
 
-_TODO = "still to port: ROADMAP.md Queue 2, K1 remaining cases"
+_TODO = "f64 and f32-block/bf16-field stencil kernels: ROADMAP.md, Next slices"
 
 
 def _axis_of(off) -> Tuple[int, int]:
@@ -53,11 +62,13 @@ def _axis_of(off) -> Tuple[int, int]:
     return nz[0]
 
 
-def soa_eligible(offsets, dim_lat) -> bool:
+def soa_eligible(offsets, dim_lat, bi: int = 1, bd: int = 1, ki: int = 1,
+                 kd: int = 1) -> bool:
     """Whether the SoA layout holds this stencil: a 4-D lattice, at most
-    MAX_DIRS one-hot +-1 offsets.  The block shapes the CUDA kernel takes
-    are checked where it launches (KERNEL_SHAPES)."""
-    if len(dim_lat) != 4 or not 0 < len(offsets) <= MAX_DIRS:
+    MAX_DIRS one-hot +-1 offsets, KI*KD*BI*BD <= MAX_BLOCK.  The TPU's
+    tiling rules (T % 128, Z % 8) are not the card's."""
+    if len(dim_lat) != 4 or not 0 < len(offsets) <= MAX_DIRS \
+            or ki * kd * bi * bd > MAX_BLOCK:
         return False
     try:
         for off in offsets:
@@ -136,20 +147,32 @@ def soa_to_aos(y: CArray, nlat: int, ki: int, bi: int) -> CArray:
     return cplx.cmap(t, y)
 
 
+def check_block(KI: int, KD: int, bi: int, bd: int) -> None:
+    """Raise ValueError above the MAX_BLOCK rule, on every device."""
+    if min(KI, KD, bi, bd) < 1 or KI * KD * bi * bd > MAX_BLOCK:
+        raise ValueError(f"(KI, KD, BI, BD) = {(KI, KD, bi, bd)}: the SoA stencil takes "
+                         f"positive extents with KI*KD*BI*BD <= {MAX_BLOCK}")
+
+
 def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                       offsets, bi: int, bd: int,
-                      packed_parity: Optional[int] = None) -> Tuple[int, int]:
-    """Raise unless the CUDA kernel takes these operands (device aside);
+                      packed_parity: Optional[int] = None,
+                      shapes: Optional[Sequence[Tuple[int, int, int, int]]] = None
+                      ) -> Tuple[int, int]:
+    """Raise unless a CUDA stencil kernel takes these operands (device
+    aside): K1 any shape within MAX_BLOCK, a schedule only its ``shapes``;
     returns (KI, KD)."""
     if packed_parity not in (None, 0, 1):
         raise ValueError(f"packed_parity={packed_parity!r}: a checkerboard parity is "
                          "None, 0 or 1")
     ndir = blocks.shape[0]
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
-    if (KI, KD, bi, bd) not in KERNEL_SHAPES:
+    check_block(KI, KD, bi, bd)
+    if shapes is not None and (KI, KD, bi, bd) not in shapes:
         raise NotImplementedError(
-            f"(KI, KD, BI, BD) = {(KI, KD, bi, bd)} in the CUDA stencil kernel, "
-            f"which takes {KERNEL_SHAPES} ({_TODO})")
+            f"(KI, KD, BI, BD) = {(KI, KD, bi, bd)} in the X-inside and X-streaming "
+            f"stencil kernels, which take {tuple(shapes)}; stencil_matvec_soa takes "
+            f"every shape (ROADMAP.md, Next slices: schedules at more shapes)")
     if (blocks.dtype, x.dtype) not in KERNEL_DTYPES:
         raise NotImplementedError(
             f"storage/field dtypes {blocks.dtype}/{x.dtype} in the CUDA stencil "
@@ -197,6 +220,7 @@ def xin_tile(n: int, X: int, F: int, itemsize: int, nk: int) -> Tuple[int, int, 
 
 
 def _launch(entry: str, blocks, kron, x, offsets, bi, bd, KI, KD, *extra) -> CArray:
+    """Run C entry ``entry`` on the operands; returns y."""
     from . import _cuda
 
     dev = x.device
@@ -242,16 +266,50 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     """y[n, KI*BI, X, Y, Z, T] = SoA stencil matvec; with ``packed_parity``
     (0 or 1) the operands hold one checkerboard parity with X halved.
 
-    CPU operands run the plain version.  CUDA operands run the kernel
-    (``stencil_matvec_soa.launches`` counts its launches), or raise when
-    the kernel does not take the case."""
+    CPU operands run the plain version.  CUDA operands run the kernel:
+    its templated route at KERNEL_SHAPES (``stencil_matvec_soa.launches``
+    counts those launches, ``.by_shape`` them by shape),
+    :func:`stencil_matvec_soa_rt` at the other
+    shapes; a case neither takes raises.  Above MAX_BLOCK it raises
+    ValueError on every device."""
+    KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
+    check_block(KI, KD, bi, bd)
     if _on_cpu(blocks, x, "stencil_matvec_soa"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                             packed_parity=packed_parity)
-    KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
+    if (KI, KD, bi, bd) not in KERNEL_SHAPES:
+        return stencil_matvec_soa_rt(blocks, kron, x, offsets, bi, bd,
+                                     packed_parity=packed_parity)
+    check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
     y = _launch("sbt_stencil_soa", blocks, kron, x, offsets, bi, bd, KI, KD,
                 -1 if packed_parity is None else int(packed_parity))
     stencil_matvec_soa.launches += 1
+    stencil_matvec_soa.by_shape[KI, KD, bi, bd] += 1
+    return y
+
+
+def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
+                          offsets: Sequence[Tuple[int, ...]], bi: int, bd: int,
+                          packed_parity: Optional[int] = None) -> CArray:
+    """K1's runtime-shape route (same contract as
+    :func:`stencil_matvec_soa`, any shape with KI*KD*BI*BD <= MAX_BLOCK, at
+    most 65535 columns): ``stencil_matvec_soa`` sends the shapes outside
+    KERNEL_SHAPES here.  At a templated shape it gives the templated
+    route's bits.  CPU operands run the plain version; CUDA operands the
+    kernel (``stencil_matvec_soa_rt.launches``) or raise."""
+    if _on_cpu(blocks, x, "stencil_matvec_soa_rt"):
+        KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
+        check_block(KI, KD, bi, bd)
+        return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
+                                            packed_parity=packed_parity)
+    KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
+    if x.shape[0] > 65535:
+        raise ValueError(f"{x.shape[0]} columns: the runtime-shape stencil kernel takes "
+                         "at most 65535")
+    y = _launch("sbt_stencil_soa_rt", blocks, kron, x, offsets, bi, bd, KI, KD,
+                -1 if packed_parity is None else int(packed_parity))
+    stencil_matvec_soa_rt.launches += 1
+    stencil_matvec_soa_rt.by_shape[KI, KD, bi, bd] += 1
     return y
 
 
@@ -268,7 +326,7 @@ def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
                     blocks.shape[0] * KI * KD)
     if _on_cpu(blocks, x, "stencil_matvec_soa_xin"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
-    check_kernel_case(blocks, kron, x, offsets, bi, bd)
+    check_kernel_case(blocks, kron, x, offsets, bi, bd, shapes=SCHEDULE_SHAPES)
     y = _launch("sbt_stencil_soa_xin", blocks, kron, x, offsets, bi, bd, KI, KD, *tile)
     stencil_matvec_soa_xin.launches += 1
     return y
@@ -284,12 +342,16 @@ def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
     raise."""
     if _on_cpu(blocks, x, "stencil_matvec_soa_stream"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
-    KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd)
+    KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, shapes=SCHEDULE_SHAPES)
     y = _launch("sbt_stencil_soa_stream", blocks, kron, x, offsets, bi, bd, KI, KD)
     stencil_matvec_soa_stream.launches += 1
     return y
 
 
+#: launches of each route, and of each route by (KI, KD, BI, BD)
 stencil_matvec_soa.launches = 0
+stencil_matvec_soa.by_shape = collections.Counter()
+stencil_matvec_soa_rt.launches = 0
+stencil_matvec_soa_rt.by_shape = collections.Counter()
 stencil_matvec_soa_xin.launches = 0
 stencil_matvec_soa_stream.launches = 0

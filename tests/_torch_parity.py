@@ -86,3 +86,21 @@ def assert_parity(got, want, dtype, rtol=None):
         g, w = to_np(g), to_np(w)
         assert g.shape == w.shape, (g.shape, w.shape)
         np.testing.assert_allclose(g, w, rtol=rtol, atol=max(a, rtol) * scale)
+
+
+def materialize(apply_fn, lat, blk_shape):
+    """Dense matrix [V*blk, V*blk] (complex numpy, column j = A e_j) of a
+    port operator on AoS fields [*lat, *blk_shape, ncols], from one apply
+    to the identity batch."""
+    n = int(np.prod(lat)) * int(np.prod(blk_shape))
+    eye = torch.eye(n, dtype=torch.float64).reshape(tuple(lat) + tuple(blk_shape) + (n,))
+    y = apply_fn(tcplx.CArray(eye, torch.zeros_like(eye)))
+    return (to_np(y.re) + 1j * to_np(y.im)).reshape(n, n)
+
+
+def gamma5_np():
+    """gamma5 = g0 g1 g2 g3 of the JAX package's (chiral) basis."""
+    from superbblas_tpu.models.wilson import gamma_matrices
+
+    g = gamma_matrices()
+    return g[0] @ g[1] @ g[2] @ g[3]

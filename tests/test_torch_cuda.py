@@ -1,7 +1,10 @@
 """The CUDA kernels on the card: the cases each refuses; the stencil
-kernel with packed parity and its X-inside and X-streaming schedules
-against the plain version (and the schedules against the kernel, bit for
-bit); the CG and even-odd solves through the stencil kernel against the
+kernel with packed parity, on both its routes at every new block shape,
+and its X-inside and X-streaming schedules against the plain version (and
+the schedules and the runtime-shape route against the templated kernel,
+bit for bit); the bf16 roll-plus-add (E2) in both variants and the
+transpose tile sweep (E3) at each tile; every operator family's apply on
+the card, in both layouts, against the same apply on the CPU; the CG and even-odd solves through the stencil kernel against the
 same solves on the CPU; the permute kernel against its plain version,
 alone and inside ``local_copy``; the batched-GEMM kernels K3 and E1
 against their plain version and a float64 product, and ``apply_coarse``
@@ -21,11 +24,13 @@ import torch
 
 from superbblas_tpu_torch import local_copy
 from superbblas_tpu_torch.cplx import CArray
+from superbblas_tpu_torch import models as M
 from superbblas_tpu_torch.models import coarse as C
 from superbblas_tpu_torch.models import eo_packed as E
 from superbblas_tpu_torch.models import wilson as W
 from superbblas_tpu_torch.ops import batched_gemm as G
 from superbblas_tpu_torch.ops import permute as P
+from superbblas_tpu_torch.ops import roll_add as R
 from superbblas_tpu_torch.ops import stencil as S
 
 OFFSETS = W.wilson_offsets(4)
@@ -55,8 +60,10 @@ def crand(shape, seed, device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
-    """f64 operands and 4x4 blocks are not instantiated in any of the three
-    stencil kernels; a parity other than 0 and 1 is refused."""
+    """f64 operands are not instantiated in any of the three stencil
+    kernels; the schedules take only their shapes (4x4 blocks here), K1
+    every shape up to KI*KD*BI*BD = 256 and raises above it; a parity
+    other than 0 and 1 is refused."""
     lat = (2, 2, 4, 8)
     blocks = crand((9, 9) + lat, 0, cuda_device, torch.float32)
     x = crand((1, 3) + lat, 1, cuda_device, torch.float32)
@@ -65,8 +72,17 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
     for fn in WRAPPERS.values():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(blocks.to(torch.float64), None, x.to(torch.float64), OFFSETS, 3, 3)
+    for fn in (S.stencil_matvec_soa_xin, S.stencil_matvec_soa_stream):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(b16, None, x16, OFFSETS, 4, 4)
+    before = S.stencil_matvec_soa_rt.launches
+    S.stencil_matvec_soa(b16, None, x16, OFFSETS, 4, 4)
+    assert S.stencil_matvec_soa_rt.launches == before + 1
+    b289 = crand((9, 289) + lat, 4, cuda_device, torch.float32)
+    x17 = crand((1, 17) + lat, 5, cuda_device, torch.float32)
+    for fn in (S.stencil_matvec_soa, S.stencil_matvec_soa_rt):
+        with pytest.raises(ValueError, match="256"):
+            fn(b289, None, x17, OFFSETS, 17, 17)
     with pytest.raises(ValueError, match="parity"):
         S.stencil_matvec_soa(blocks, None, x, OFFSETS, 3, 3, packed_parity=2)
 
@@ -123,6 +139,86 @@ def test_schedules_match_plain_version_and_kernel(cuda_device, schedule, st, ft)
             k1 = S.stencil_matvec_soa(*args)
             assert all(torch.equal(g, w) for g, w in zip(got, k1)), (schedule, lat, n)
     assert wrapper.launches == before + 2 * len(cases)
+
+
+#: (KI, KD, BI, BD) of K1 beyond the Wilson and staggered shapes: the
+#: clover term (templated route), the JAX package's test shapes and an
+#: asymmetric one (runtime-shape route)
+NEW_SHAPES = [(1, 1, 12, 12), (2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2)]
+
+
+def _shape_operands(shape, lat, n, ndir, st, ft, seed):
+    ki, kd, bi, bd = shape
+    blocks = crand((ndir, bi * bd) + lat, seed, "cuda", st)
+    kron = crand((ndir, ki, kd), seed + 1, "cuda", torch.float32) \
+        if (ki, kd) != (1, 1) else None
+    x = crand((n, kd * bd) + lat, seed + 2, "cuda", ft)
+    return blocks, kron, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", DTYPES)
+@pytest.mark.parametrize("shape", NEW_SHAPES)
+def test_k1_new_shapes_match_plain_version(cuda_device, shape, st, ft):
+    """K1 at each new shape against the plain version, on full lattices
+    (9 Wilson directions; the centre alone) and with packed parity on a
+    ragged half lattice; each call launches the route of its shape once.
+    The runtime-shape route at the same operands gives the templated
+    route's bits where both take the shape."""
+    templated = shape in S.KERNEL_SHAPES
+    counter = S.stencil_matvec_soa if templated else S.stencil_matvec_soa_rt
+    before = counter.launches
+    calls = 0
+    for i, (lat, n, offsets, parity) in enumerate((
+            ((3, 5, 6, 10), 3, OFFSETS, None), ((2, 4, 8, 32), 9, OFFSETS[:1], None),
+            ((2, 4, 3, 8), 2, OFFSETS[1:], 0), ((3, 5, 4, 7), 1, OFFSETS[1:], 1))):
+        blocks, k, x = _shape_operands(shape, lat, n, len(offsets), st, ft, 10 * i)
+        args = (blocks, k, x, offsets, shape[2], shape[3])
+        got = S.stencil_matvec_soa(*args, packed_parity=parity)
+        calls += 1
+        _close(got, S.stencil_matvec_soa_reference(*args, packed_parity=parity),
+               f"{shape} {lat} n={n} parity={parity}")
+        if templated:
+            rt = S.stencil_matvec_soa_rt(*args, packed_parity=parity)
+            assert all(torch.equal(g, w) for g, w in zip(got, rt)), (shape, lat)
+    assert counter.launches == before + calls
+
+
+@pytest.mark.cuda
+def test_roll_add_variants_match_plain_version(cuda_device):
+    """E2: the f32 variant bit for bit against the plain version (even and
+    odd T), the bf16x2 variant within one bf16 ulp of it (2^-7 of the
+    magnitude); bf16x2 refuses an odd T."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = R.roll_add.launches
+    for shape in ((256, 32, 256), (3, 5, 70), (2, 3, 9)):
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        want = R.roll_add_reference(x)
+        assert torch.equal(R.roll_add(x, "f32"), want), shape
+        if shape[-1] % 2 == 0:
+            got = R.roll_add(x, "bf16x2").float()
+            scale = torch.maximum(want.float().abs(), torch.full_like(got, 2.0 ** -126))
+            assert bool(((got - want.float()).abs() <= 2.0 ** -7 * scale).all()), shape
+        else:
+            with pytest.raises(ValueError, match="even"):
+                R.roll_add(x, "bf16x2")
+    assert R.roll_add.launches == before + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perm", [(3, 2, 1, 0), (3, 1, 2, 0)])
+def test_permute_tile_sweep_matches_plain_version(cuda_device, perm):
+    """E3: every tile bit-exact on ragged tiles, a strided view and int32
+    words; one launch a call."""
+    x = torch.randn((45, 6, 7, 70), device=cuda_device)
+    cases = (x, x[3:40, 1:5, 2:7, 5:66], x.view(torch.int32))
+    before = P.permute_4d_tiled.launches
+    for tile in P.TILES:
+        for v in cases:
+            got = P.permute_4d_tiled(v, perm, tile)
+            torch.cuda.synchronize()
+            assert got.is_contiguous() and torch.equal(got, P.permute_4d_reference(v, perm))
+    assert P.permute_4d_tiled.launches == before + len(P.TILES) * len(cases)
 
 
 @pytest.mark.cuda
@@ -280,3 +376,34 @@ def test_apply_coarse_on_card_matches_cpu(cuda_device):
     scale = max(float(w.abs().max()) for w in want)
     for g, w in zip(got, want):
         assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["soa", "aos"])
+def test_family_applies_on_card_match_cpu(cuda_device, layout):
+    """Twisted mass, staggered, clover, Shamir and Moebius (both sides)
+    built from the same numpy links on the card and on the CPU: the card's
+    apply (K1 at (4,4,3,3), (1,1,3,3) and (1,1,12,12) in SoA; K3 and E1 in
+    AoS) against the CPU's plain version, rtol 1e-5 of max |y| at f32."""
+    lat, ls, n = (2, 4, 4, 8), 4, 2
+    links = W.random_su3_links(np.random.default_rng(0), lat)
+    dwf = dict(Ls=ls, M5=1.8, m_f=0.1, dtype=torch.complex64)
+    cases = [(M.twisted_mass_operator, dict(mass=0.1, mu=0.05), M.apply_wilson, 12),
+             (M.staggered_operator, dict(mass=0.1), M.apply_staggered, 3),
+             (M.wilson_clover_operator, dict(mass=0.1, c_sw=1.0), M.apply_clover, 12),
+             (M.domain_wall_operator, dwf, M.apply_domain_wall, None),
+             (M.mobius_operator, dict(projector_side="left", **dwf), M.apply_domain_wall, None)]
+    for build, kw, apply, feat in cases:
+        ops = [build(lat, links=links, layout=layout, device=d, **kw)
+               for d in ("cpu", cuda_device)]
+        if layout == "soa":
+            shape = (n, ls, 12) + lat if feat is None else (n, feat) + lat
+        else:
+            shape = ((ls,) + lat + (4, 3, n) if feat is None else
+                     lat + ((3,) if feat == 3 else (4, 3)) + (n,))
+        x = crand(shape, 7, "cpu", torch.float32)
+        want = apply(ops[0], x)
+        got = apply(ops[1], x.to(cuda_device))
+        scale = max(float(w.abs().max()) for w in want)
+        for g, w in zip(got, want):
+            assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale, build.__name__

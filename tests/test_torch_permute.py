@@ -1,7 +1,10 @@
 """superbblas_tpu_torch.ops.permute against superbblas_tpu's Pallas tiled
-transpose, run in interpret mode on the CPU (the CUDA kernel's own tests
-are in test_torch_cuda.py).  Permutes are exact: results are compared bit
-for bit."""
+transpose, run in interpret mode on the CPU, and the tile sweep E3's plain
+version and tile arithmetic against np.transpose (the CUDA kernels' own
+tests are in test_torch_cuda.py).  Permutes are exact: results are
+compared bit for bit."""
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,3 +78,55 @@ def test_kernel_wrapper_raises_off_the_cpu_without_a_kernel():
     x = torch.empty((16, 8, 8, 32), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         P.permute_4d(x, (3, 2, 1, 0))
+
+
+def tiled_walk(x, perm, tile, max_yz=P.MAX_GRID_YZ):
+    """The tile sweep's copy, block by block, as csrc/permute.cu's
+    permute_4d_tiled_kernel walks it: the tiles of ``tiled_grid`` and the
+    grid-stride loops over X and the plane groups, each tile copied with
+    a slice."""
+    perm = tuple(int(p) for p in perm)
+    X, Y, Z, T = x.shape
+    edge, _, planes = tile
+    gx, gy, gz = P.tiled_grid(tuple(x.shape), tile, max_yz)
+    out = torch.empty(tuple(x.shape[p] for p in perm), dtype=x.dtype)
+    flat = out.view(T, Y * Z, X)
+    for bx, by, bz in itertools.product(range(gx), range(gy), range(gz)):
+        t0 = bx * edge
+        for x0 in range(by * edge, X, gy * edge):
+            for g in range(bz * planes, Y * Z, gz * planes):
+                for yz in range(g, min(g + planes, Y * Z)):
+                    y, z = divmod(yz, Z)
+                    plane = z * Y + y if P.SUPPORTED[perm] else yz
+                    flat[t0:t0 + edge, plane, x0:x0 + edge] = \
+                        x[x0:x0 + edge, y, z, t0:t0 + edge].T
+    return out
+
+
+@pytest.mark.parametrize("max_yz", [P.MAX_GRID_YZ, 2])
+@pytest.mark.parametrize("tile", P.TILES)
+@pytest.mark.parametrize("perm", PERMS)
+def test_tile_sweep_walk_matches_numpy(perm, tile, max_yz):
+    """The tile sweep's blocks, as the kernel walks them on the grid
+    ``tiled_grid`` gives (ragged tiles; with the grid capped at 2 the
+    grid-stride loops over X and the plane groups run too), copy exactly
+    np.transpose; the wrapper's CPU path is the plain version."""
+    x = rand((70, 3, 5, 45), seed=3)
+    want = np.transpose(x, perm)
+    got = tiled_walk(torch.from_numpy(x), perm, tile, max_yz)
+    np.testing.assert_array_equal(got.numpy(), want)
+    gx, gy, gz = P.tiled_grid(x.shape, tile, max_yz)
+    assert gx * tile[0] >= x.shape[3] and min(gy, gz) >= 1 and max(gy, gz) <= max_yz
+    before = P.permute_4d_tiled.launches
+    np.testing.assert_array_equal(P.permute_4d_tiled(torch.from_numpy(x), perm, tile).numpy(),
+                                  want)
+    assert P.permute_4d_tiled.launches == before
+
+
+def test_tile_sweep_refusals():
+    x = torch.zeros((16, 8, 8, 32))
+    with pytest.raises(ValueError, match="not one of"):
+        P.permute_4d_tiled(x, (3, 2, 1, 0), (16, 8, 1))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        P.permute_4d_tiled(x.to("meta"), (3, 2, 1, 0), P.TILES[0])
+    assert (32, 8, 1) in P.TILES    # permute_4d's own tile is one of the sweep

@@ -79,12 +79,20 @@ def test_cpu_dispatch_takes_plain_path():
     _, tb = both(blocks)
     _, tk = both(kron)
     _, tx = both(x)
-    before = TS.stencil_matvec_soa.launches
+    before = TS.stencil_matvec_soa.launches, TS.stencil_matvec_soa_rt.launches
     got = TS.stencil_matvec_soa(tb, tk, tx, WILSON_OFFSETS, BI, BD)
     want = TS.stencil_matvec_soa_reference(tb, tk, tx, WILSON_OFFSETS, BI, BD)
-    assert TS.stencil_matvec_soa.launches == before == 0
+    assert TS.stencil_matvec_soa.launches == before[0] == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # a shape of the runtime-shape route: the plain version too
+    k2 = CArray(tk.re[:, :2, :2].contiguous(), tk.im[:, :2, :2].contiguous())
+    x2 = CArray(tx.re[:, :6].contiguous(), tx.im[:, :6].contiguous())
+    for fn in (TS.stencil_matvec_soa, TS.stencil_matvec_soa_rt):
+        got = fn(tb, k2, x2, WILSON_OFFSETS, BI, BD)
+        want = TS.stencil_matvec_soa_reference(tb, k2, x2, WILSON_OFFSETS, BI, BD)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (TS.stencil_matvec_soa.launches, TS.stencil_matvec_soa_rt.launches) == before
 
 
 @pytest.mark.parametrize("with_kron", [False, True])
@@ -110,10 +118,14 @@ def test_kernel_rejects_what_it_does_not_take(case):
     kw = dict(blocks=tb, kron=tk, x=tx, offsets=WILSON_OFFSETS, bi=BI, bd=BD)
     err = NotImplementedError
     if case == "kron_2x2":
+        # a 2x2 spin factor with 9x9 blocks: KI*KD*BI*BD = 324 > 256
         kw["kron"] = CArray(tk.re[:, :2, :2], tk.im[:, :2, :2])
-        kw["x"] = CArray(tx.re[:, :6], tx.im[:, :6])
+        kw.update(bi=9, bd=9)
+        err = ValueError
     elif case == "block_4x4":
+        # the kernel takes (4, 4, 4, 4); these operands hold 3x3 blocks
         kw.update(bi=4, bd=4)
+        err = ValueError
     elif case == "packed_parity":
         # parities 0 and 1 run in the kernel; anything else is no parity
         kw["packed_parity"] = 2
@@ -133,7 +145,9 @@ def test_kernel_rejects_what_it_does_not_take(case):
         # right shape, columns not innermost-contiguous
         kw["x"] = CArray(*(p.transpose(0, 1).contiguous().transpose(0, 1) for p in tx))
         err = ValueError
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else None):
+    match = {"kron_2x2": "256", "block_4x4": "expected"}.get(
+        case, "ROADMAP" if err is NotImplementedError else None)
+    with pytest.raises(err, match=match):
         TS.check_kernel_case(**kw)
 
 
@@ -142,3 +156,51 @@ def test_soa_eligible():
     assert TS.soa_eligible(WILSON_OFFSETS, (3, 5, 6, 10))
     assert not TS.soa_eligible([(0, 0, 0, 2)], LAT)
     assert not TS.soa_eligible(WILSON_OFFSETS, (4, 4, 4))
+    # JAX's rule KI*KD*BI*BD <= 256, without its TPU tiling rules
+    assert TS.soa_eligible(WILSON_OFFSETS, (3, 5, 6, 10), 4, 4, 4, 4)
+    assert not TS.soa_eligible(WILSON_OFFSETS, LAT, 3, 3, 4, 8)
+    for args in ((3, 3, 4, 4), (12, 12, 1, 1), (4, 4, 4, 4), (17, 17, 1, 1)):
+        assert TS.soa_eligible(WILSON_OFFSETS, LAT, *args) == \
+            JS.soa_eligible(WILSON_OFFSETS, LAT, *args)
+
+
+#: (KI, KD, BI, BD) beyond the Wilson and staggered shapes: the JAX
+#: package's test shapes, the clover term's and an asymmetric one
+NEW_SHAPES = [(2, 2, 3, 3), (1, 1, 2, 2), (1, 1, 12, 12), (2, 1, 4, 2)]
+
+
+@pytest.mark.parametrize("parity", [None, 1])
+@pytest.mark.parametrize("shape", NEW_SHAPES)
+def test_reference_matches_jax_at_new_shapes(shape, parity):
+    """The plain version (which K1's two routes are held to on the card)
+    against JAX's at the shapes the runtime-shape route and the clover
+    term take, f64, full and packed parity."""
+    ki, kd, bi, bd = shape
+    lat = (2, 3, 4, 8)
+    offsets = WILSON_OFFSETS if parity is None else WILSON_OFFSETS[1:]
+    jb, tb = both(crand_np((len(offsets), bi * bd) + lat, 0))
+    jk, tk = both(crand_np((len(offsets), ki, kd), 1)) if (ki, kd) != (1, 1) \
+        else (None, None)
+    jx, tx = both(crand_np((3, kd * bd) + lat, 2))
+    got = TS.stencil_matvec_soa(tb, tk, tx, offsets, bi, bd, packed_parity=parity)
+    want = JS.stencil_matvec_soa_reference(jb, jk, jx, offsets, bi, bd,
+                                           packed_parity=parity)
+    assert tuple(got.re.shape) == (3, ki * bi) + lat
+    assert_parity(got, want, np.float64)
+
+
+def test_block_rule_raises_on_every_device():
+    """Above KI*KD*BI*BD = 256 the wrappers raise ValueError, on the CPU
+    too, and bsr_from_stencil refuses the SoA layout."""
+    from superbblas_tpu_torch.bsr import bsr_from_stencil
+
+    lat = (2, 2, 2, 2)
+    tb = both(crand_np((1, 289) + lat, 0))[1]
+    tx = both(crand_np((1, 17) + lat, 1))[1]
+    for fn in (TS.stencil_matvec_soa, TS.stencil_matvec_soa_rt):
+        with pytest.raises(ValueError, match="256"):
+            fn(tb, None, tx, [(0, 0, 0, 0)], 17, 17)
+    blocks = both(crand_np(lat + (1, 17, 17), 2))[1]
+    with pytest.raises(ValueError, match="eligible"):
+        bsr_from_stencil("xyzta", "xyztb", lat, {"a": 17}, {"b": 17}, [(0, 0, 0, 0)],
+                         blocks, layout="soa", device="cpu")
