@@ -50,8 +50,14 @@ Batched-GEMM checks: the kernels K3 (``batched_small_gemm``) and E1
 product at the JAX package's test shapes, E1's probe shape, ragged shapes
 and the V-cycle's shapes; then each timed in turns with the plain version
 and ``torch.bmm`` (TF32 off): K3 at (8192, 32, 32, 128), E1 at (4096, 32,
-288, 32), both at the V-cycle's two coarse levels, and E1 beside K3 at
-K3's shapes.
+288, 32) and at the coarse path's (8192, 32, 288, 32), both at the
+V-cycle's two coarse levels, and E1 beside K3 at K3's shapes; each also
+device-only (20 calls captured in one CUDA graph).  The kernels line
+gives CUDA-event times as for every kernel (``ms``, ``plain_ms``,
+``library_ms``) and, for K3 and E1 only, the device-only ones
+(``device_ms``, ``plain_device_ms``, ``library_device_ms``).  At the
+V-cycle's shapes it prints the wrappers' host cost a call beside
+torch.bmm's, and its parts.
 
 Coarse path: ``coarse_operator`` on 8x8x8x16 (a 32^3x64 lattice blocked
 by 4^4) with 32x32 blocks, f32, numpy seed 0, Hermitian positive definite
@@ -85,7 +91,9 @@ runtime route against the templated one bit for bit at (4,4,3,3) and
 (1,1,3,3); then each shape driven once at 16^3x32 x 8 and timed beside
 its bound.  Families' AoS check: every family's AoS apply (twisted mass,
 staggered and the clover term on K3, Shamir and Moebius on E1) against
-its SoA apply at 4x4x8x8, Ls 4.
+its SoA apply at 4x4x8x8, Ls 4.  Default-call check (fault P3): the
+default ``mobius_operator(DEFAULT_LAT)``, AoS at complex128 on the card,
+applied through E1 at f64 against its SoA twin.
 
 Family paths (f32, SoA, CGNE to 1e-5 on the normal residual, each solve
 checked by its true normal and unsquared residuals and by one K1 launch
@@ -97,6 +105,12 @@ first; K1 at the 64 kernel columns checked and timed); and, on the
 Wilson path's lattice and links, twisted mass (mu 0.05, cg_solve, 25
 iterations) and staggered (adjoint_operator; K1 (1,1,3,3) checked and
 timed).
+
+P2 path (fault P2): a default-dtype (complex128) SoA ``mobius_operator``
+at 8^3x16, Ls 8, and a complex128 SoA ``wilson_operator`` on the main
+lattice and links, applied through K1's f64 route, and the Wilson blocks
+cast to f32 applied to bf16 fields (K1's f32-block/bf16-field pair), each
+against the plain version on the card; K1 timed at both pairs.
 
 E2 and E3: the bf16 roll-plus-add in both variants (f32 bit-exact, bf16x2
 within one bf16 ulp, elements that differ counted) at [256, 32, 256] and
@@ -145,6 +159,7 @@ from superbblas_tpu_torch.models import (adjoint_operator, apply_clover, apply_c
                                          wilson_operator)
 from superbblas_tpu_torch.bsr import BSROperator, bsr_cast_storage
 from superbblas_tpu_torch.ops import _cuda
+from superbblas_tpu_torch.ops import batched_gemm as gemm_ops
 from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_gemm_rowpack,
                                                    batched_small_gemm,
                                                    batched_small_gemm_reference)
@@ -163,8 +178,9 @@ DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                (torch.bfloat16, torch.bfloat16))
 SCHEDULES = {"xin": stencil_matvec_soa_xin, "stream": stencil_matvec_soa_stream}
 #: max |kernel - plain| allowed, relative to max |plain|: f32 rounding for
-#: f32 fields, one bf16 ulp (2^-7) for bf16 fields
-TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+#: f32 fields, one bf16 ulp (2^-7) for bf16 fields, f64 rounding of sums of
+#: a few hundred products for f64 fields
+TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float64: 1e-12}
 MAIN_LAT, MAIN_COLS, MASS = (32, 32, 32, 64), 8, 0.1
 CG_ITERS = 25
 #: Schur CG iterations of the even-odd solve, and the unpreconditioned CG
@@ -178,6 +194,8 @@ BICG_TOL, BICG_MAXITER = 1e-5, 50
 #: FLOP/s outside the tensor cores; a card set below 700 W runs below them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: f64 FLOP/s outside the tensor cores (the same data sheet)
+F64_FLOPS = 34e12
 #: the dense path's tensor: bench.py's bench_copy shape, f32
 DENSE_SHAPE = (128, 64, 64, 128)
 PERMS = {"tzyx": (3, 2, 1, 0), "tyzx": (3, 1, 2, 0)}
@@ -203,10 +221,16 @@ GEMM_CHECK_SHAPES = ((40, 12, 12, 32), (7, 24, 24, 16), (16, 12, 8, 5), (8, 32, 
                      (4096, 32, 288, 32), (7, 4, 324, 3), VC_K3_SHAPE, (16, 4, 64, 4),
                      (16, 4, 64, 1), VC_E1_SHAPE, (256, 4, 324, 4), (256, 4, 324, 1))
 K3_TIME_SHAPE, E1_TIME_SHAPE = (8192, 32, 32, 128), (4096, 32, 288, 32)
-#: timed shapes: each kernel's own (its entry of the kernels line) and the
-#: V-cycle's; where K3 can run, E1 is timed beside it
-GEMM_TIME_SHAPES = (("k3", K3_TIME_SHAPE), ("e1", E1_TIME_SHAPE), ("k3", VC_K3_SHAPE),
-                    ("e1", VC_E1_SHAPE))
+#: the coarse path's own E1 shape (8x8x8x16 sites, J = 9 x 32)
+E1_COARSE_SHAPE = (8192, 32, 288, 32)
+#: timed shapes: each kernel's own (its entry of the kernels line), the
+#: coarse path's and the V-cycle's; where K3 can run, E1 is timed beside it
+GEMM_TIME_SHAPES = (("k3", K3_TIME_SHAPE), ("e1", E1_TIME_SHAPE), ("e1", E1_COARSE_SHAPE),
+                    ("k3", VC_K3_SHAPE), ("e1", VC_E1_SHAPE))
+#: launches captured in one CUDA graph for a device-only time
+GRAPH_CALLS = 20
+#: calls issued back to back for a host time a call
+HOST_CALLS = 200
 #: coarse path: 8x8x8x16 sites (32^3x64 blocked by 4^4), 32x32 blocks, 9
 #: directions.  At mass 0 the spectrum spans about [-8.25, 8.23] (Lanczos,
 #: 4^4 and 4^3x8 lattices, f64, on the CPU), so mass 9 keeps it in about
@@ -392,7 +416,7 @@ def bench_shape(gen):
     """K1, K4a, K4b and the plain version at the Wilson bench shape:
     checked, then timed in turns."""
     lat, n = (8, 8, 16, 128), 8
-    op32 = wilson_operator(lat, mass=0.1, key=0, device="cuda")
+    op32 = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
     for label, op, ft in (("f32", op32, torch.float32),
                           ("bf16/bf16", bsr_cast_storage(op32, torch.bfloat16),
                            torch.bfloat16)):
@@ -439,11 +463,11 @@ def profile_run(label, fn):
         raise AssertionError("the profiler saw no device time")
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=F32_FLOPS):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` and do ``flops`` f32 operations, at its published
-    peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    to move ``nbytes`` and do ``flops`` operations at ``peak`` (f32 unless
+    named), at its published peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -949,10 +973,80 @@ def captured_gemms():
         bsr.batched_small_gemm = inner
 
 
+def graph_ms(fn, reps=7) -> float:
+    """Device ms of one call of ``fn``: GRAPH_CALLS calls captured in one
+    CUDA graph (after a warm-up on a side stream), the median of ``reps``
+    replays over GRAPH_CALLS: no host cost of the calls is inside."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / GRAPH_CALLS)
+    return statistics.median(times)
+
+
+def host_us(fn) -> float:
+    """Host microseconds a call of ``fn``: HOST_CALLS calls issued back to
+    back from an idle card, waited on at the end.  Where the card runs a
+    call in a few microseconds (the V-cycle's shapes) the host sets the
+    pace, so this is the host's cost of issuing one."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / HOST_CALLS * 1e6
+
+
+def host_breakdown(key, b, x):
+    """The wrapper's host cost a call beside torch.bmm's, and its parts:
+    the argument checks, the tile lookup, the allocation of y, the stream
+    lookup and the C entry alone (ctypes and cudaLaunchKernel, on
+    operands and a tile fixed beforehand).  Returns {part: us}."""
+    V, I, J = b.shape
+    N = x.shape[2]
+    entry, tile_fn = (("sbt_batched_gemm_small", gemm_ops.small_tile) if key == "k3"
+                      else ("sbt_batched_gemm_rowpack", gemm_ops.rowpack_tile))
+    cfg, sites = tile_fn(V, I, J, N)
+    y = torch.empty((V, I, N), device="cuda")
+    c_entry = getattr(_cuda.library(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (0, V, I, J, N, cfg, sites, b.data_ptr(), x.data_ptr(), y.data_ptr(), stream)
+    return {"wrapper": host_us(lambda: GEMM_KERNELS[key](b, x)),
+            "torch.bmm": host_us(lambda: torch.bmm(b, x)),
+            "checks": host_us(lambda: gemm_ops._check(b, x, key)),
+            "tile": host_us(lambda: tile_fn(V, I, J, N)),
+            "new_empty": host_us(lambda: b.new_empty((V, I, N))),
+            "stream": host_us(lambda: torch.cuda.current_stream(0).cuda_stream),
+            "C entry": host_us(lambda: c_entry(*args))}
+
+
 def time_gemms(gen):
     """K3 and E1 at the timed shapes, in turns with the plain version and
-    torch.bmm (TF32 off), and E1 beside K3 where K3 runs.  Returns
-    {(kernel, shape): ({name: median ms}, (bound ms, bound by))}."""
+    torch.bmm (TF32 off), and E1 beside K3 where K3 runs; then the kernel's,
+    the plain version's and torch.bmm's device-only times (``graph_ms``;
+    the events' times less them are the host's: at these sizes the host
+    issues a call in about as long as the card runs it), and at the
+    V-cycle's shapes the host's cost a call and its parts
+    (``host_breakdown``).  Returns {(kernel, shape): ({name: median ms,
+    name + "_device": device ms}, (bound ms, bound by))}."""
     out = {}
     for key, (V, I, J, N) in GEMM_TIME_SHAPES:
         b = torch.randn((V, I, J), generator=gen, device="cuda") / J ** 0.5
@@ -963,6 +1057,17 @@ def time_gemms(gen):
         fns.update(plain=lambda: batched_small_gemm_reference(b, x),
                    bmm=lambda: torch.bmm(b, x))
         ms = time_turns(fns, reps=25)
+        for name in ("kernel", "plain", "bmm"):
+            ms[name + "_device"] = graph_ms(fns[name])
+        print(f"{key} {(V, I, J, N)} f32 device-only (CUDA graph of {GRAPH_CALLS}): kernel "
+              f"{ms['kernel_device']:.4f} ms, plain {ms['plain_device']:.4f} ms, torch.bmm "
+              f"{ms['bmm_device']:.4f} ms; host (events less device): kernel "
+              f"{ms['kernel'] - ms['kernel_device']:.4f} ms, torch.bmm "
+              f"{ms['bmm'] - ms['bmm_device']:.4f} ms", flush=True)
+        if (V, I, J, N) in (VC_K3_SHAPE, VC_E1_SHAPE):
+            us = host_breakdown(key, b, x)
+            print(f"{key} {(V, I, J, N)} f32 host us a call ({HOST_CALLS} issued back to "
+                  f"back): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
         nbytes, flops = 4 * V * (I * J + J * N + I * N), 2 * V * I * J * N
         bd = bound(nbytes, flops)
         out[key, (V, I, J, N)] = ms, bd
@@ -1238,6 +1343,12 @@ K1_TIME_LAT, K1_TIME_COLS = (16, 16, 16, 32), 8
 #: the families' AoS check: lattice, Ls, columns; max |AoS - SoA| allowed,
 #: relative to max |SoA|: f32 sums of up to 324 terms in other orders
 AOS_LAT, AOS_LS, AOS_COLS, AOS_TOL = (4, 4, 8, 8), 4, 2, 1e-5
+#: fault P2's path: the Moebius operator at its default dtype (complex128)
+#: in the SoA layout, 8^3x16 x Ls 8 x 2 rhs (small, so the phase stays
+#: short), then a complex128 SoA Wilson operator on the main lattice and
+#: links; fault P3's default call: mobius_operator(DEFAULT_LAT), AoS at
+#: complex128 (J = 324: E1 at f64), against its SoA twin
+P2_LAT, P2_LS, P2_COLS, DEFAULT_LAT = (8, 8, 8, 16), 8, 2, (4, 4, 4, 8)
 #: E2 shapes: the probe's and one that resolves on the card; E3's: the
 #: probe's 64^4 f32
 E2_SHAPES = ((256, 32, 256), (4096, 32, 256))
@@ -1254,14 +1365,17 @@ def g5(v: CArray, feature_axis: int) -> CArray:
 
 
 def stencil_bound(blocks, kron, x, offsets, bi, bd):
-    """(ms, by) of one SoA matvec, from the BSROperator models of its bytes
-    (blocks once, x read, y written) and operations."""
+    """(ms, by) of one SoA matvec: the bytes of the blocks once (in their
+    type), of x read and y written (in the field's), and the operations of
+    the BSROperator model, at the f64 peak for f64 fields."""
     ki, kd = (1, 1) if kron is None else tuple(kron.re.shape[1:])
     op = BSROperator(blocks, kron, offsets, tuple(x.re.shape[2:]), (bi,), (bd,),
                      (ki,) if kron is not None else (), (kd,) if kron is not None else ())
     n = x.re.shape[0]
-    return bound(op.memops_per_matvec(n, itemsize=2 * x.re.element_size()),
-                 op.flops_per_matvec(n))
+    nbytes = 2 * (blocks.re.numel() * blocks.re.element_size()
+                  + (x.re.numel() // (kd * bd) * (ki * bi) + x.re.numel()) * x.re.element_size())
+    return bound(nbytes, op.flops_per_matvec(n),
+                 F64_FLOPS if x.re.dtype == torch.float64 else F32_FLOPS)
 
 
 def time_stencil(blocks, kron, x, offsets, bi, bd, reps, label):
@@ -1538,6 +1652,107 @@ def twisted_mass_path(links, b):
     return launches
 
 
+@contextlib.contextmanager
+def plain_stencil():
+    """Runs the SoA stencil applies of ``bsr.apply_stencil_soa`` through
+    the plain version while active."""
+    inner = bsr.stencil_matvec_soa
+    bsr.stencil_matvec_soa = stencil_matvec_soa_reference
+    try:
+        yield
+    finally:
+        bsr.stencil_matvec_soa = inner
+
+
+def max_rel(got: CArray, want: CArray, tol: float, label: str) -> float:
+    """max |got - want| over both parts, in f64; raises above ``tol`` of
+    max |want|; returns the max abs error."""
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.double().abs().max()) for w in want)
+    ok = got.re.shape == want.re.shape and err <= tol * scale
+    print(f"check {label}: max|d| {err:.3e} max|y| {scale:.3e} rel {err / scale:.3e} "
+          f"(<= {tol}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: disagrees")
+    return err
+
+
+def p2_path(links, b, gen):
+    """Fault P2, the f64 SoA operators on the card, and K1's f32-block/
+    bf16-field pair: a default-dtype (complex128) SoA ``mobius_operator``
+    at P2_LAT x Ls P2_LS and a complex128 SoA ``wilson_operator`` on the
+    main lattice and links, each applied through K1's f64 route, and the
+    Wilson operator's blocks cast to f32 applied to bf16 fields, the counts
+    set to 0 just before and read after each apply; each against the plain
+    version on the card, then K1 timed at both pairs on the Wilson shape.
+    Returns {pair: (launches, max error, {"kernel", "plain"}: ms, bound)}."""
+    t0 = time.perf_counter()
+    dw = mobius_operator(P2_LAT, Ls=P2_LS, layout="soa", device="cuda")
+    op = wilson_operator(MAIN_LAT, mass=MASS, links=links, dtype=torch.complex128,
+                         layout="soa", device="cuda")
+    op_b = bsr_cast_storage(op, torch.float32)
+    xd = randn_c((P2_COLS, P2_LS, 12) + P2_LAT, gen, torch.float64)
+    b64, b16 = b.to(torch.float64), b.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"p2 path: Moebius {P2_LAT} Ls {P2_LS} {dw.wilson.blocks_re.dtype}, Wilson "
+          f"{MAIN_LAT} {op.blocks_re.dtype} blocks built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launches = []
+    ys = []
+    for apply, o, v in ((apply_domain_wall, dw, xd), (apply_wilson, op, b64),
+                        (apply_wilson, op_b, b16)):
+        reset_counts()
+        ys.append(apply(o, v))
+        torch.cuda.synchronize()
+        launches.append(read_counts()["stencil_matvec_soa"])
+    print(f"p2 path: K1 launches of the Moebius f64, Wilson f64 and f32/bf16 applies "
+          f"{launches}", flush=True)
+    if launches != [1, 1, 1] or ys[0].re.dtype != torch.float64 or ys[2].re.dtype != b16.re.dtype:
+        raise AssertionError("an f64 or f32/bf16 apply did not launch K1 once")
+    with plain_stencil():
+        want = apply_domain_wall(dw, xd)
+    e_m = max_rel(ys[0], want, TOL[torch.float64],
+                  f"Moebius {P2_LAT} Ls {P2_LS} complex128 SoA apply vs plain")
+    del ys, want, dw, xd
+    e_w = compare(op.blocks, op.kron, b64, op.offsets, f"K1 f64 {MAIN_LAT} n={MAIN_COLS}")
+    ms64, bd64 = time_stencil(op.blocks, op.kron, b64, op.offsets, 3, 3, 3,
+                              f"K1 f64 {MAIN_LAT} n={MAIN_COLS}")
+    del op, b64
+    e_b = compare(op_b.blocks, op_b.kron, b16, op_b.offsets,
+                  f"K1 f32 blocks/bf16 fields {MAIN_LAT} n={MAIN_COLS}")
+    ms16, bd16 = time_stencil(op_b.blocks, op_b.kron, b16, op_b.offsets, 3, 3, 3,
+                              f"K1 f32 blocks/bf16 fields {MAIN_LAT} n={MAIN_COLS}")
+    return {"f64": (2, max(e_m, e_w), ms64, bd64), "f32/bf16": (1, e_b, ms16, bd16)}
+
+
+def default_call_path(gen):
+    """Fault P3: ``mobius_operator(DEFAULT_LAT)``, the default call (AoS,
+    complex128, on the card), applied through E1 at f64 (three Gauss
+    products of J = 324, the counts set to 0 just before and read just
+    after), against the SoA operator built alike (K1's f64 route).
+    Returns (E1 launches, max abs error)."""
+    d_aos = mobius_operator(DEFAULT_LAT)
+    d_soa = mobius_operator(DEFAULT_LAT, layout="soa", device="cuda")
+    x = randn_c((2, 8, 12) + DEFAULT_LAT, gen, torch.float64)
+    want = dwf_to_aos(apply_domain_wall(d_soa, x))
+    xa = dwf_to_aos(x)
+    reset_counts()
+    with captured_gemms() as calls:
+        got = apply_domain_wall(d_aos, xa)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    types = sorted({str(bb.dtype) for bb, _ in calls})
+    print(f"default call mobius_operator({DEFAULT_LAT}): {type(d_aos).__name__} mode "
+          f"{d_aos.mode}, products {[tuple(bb.shape) for bb, _ in calls]} {types}, launches "
+          f"{counts}", flush=True)
+    if not (isinstance(d_aos, BSROperator) and d_aos.mode == "stencil" and types == ["torch.float64"]
+            and counts["batched_gemm_rowpack"] == 3 and counts["batched_small_gemm"] == 0):
+        raise AssertionError("the default Moebius call did not apply through E1 at f64")
+    err = max_rel(got, want, TOL[torch.float64],
+                  f"default-call Moebius {DEFAULT_LAT} AoS f64 vs SoA f64")
+    return counts["batched_gemm_rowpack"], err
+
+
 def dwf_to_aos(v: CArray) -> CArray:
     """[n, Ls, 12, *lat] -> [Ls, *lat, 4, 3, n]."""
     n, ls = v.re.shape[:2]
@@ -1727,6 +1942,7 @@ def main():
     bench_shape(gen)
     k1_shapes, moebius_cols_err = k1_shape_path(gen)
     aos_launches, aos_err = families_aos_check(gen)
+    dc_launches, dc_err = default_call_path(gen)
     clover = clover_path(gen, args.profile)
     moebius = moebius_path(gen, args.profile)
     moebius = (moebius[0], max(moebius[1], moebius_cols_err)) + moebius[2:]
@@ -1741,6 +1957,7 @@ def main():
     k1_bound = bound(op.memops_per_matvec(MAIN_COLS, itemsize=8),
                      op.flops_per_matvec(MAIN_COLS))
     del op
+    p2 = p2_path(links, b, gen)
     tm_launches = twisted_mass_path(links, b)
     del b
     staggered = staggered_path(links, gen)
@@ -1763,7 +1980,13 @@ def main():
         "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
         "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
         "launches": launches, "max_abs_err": err, "ms": ms["k1"], "plain_ms": ms["plain"],
-        "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}, {
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}] + [{
+        "name": f"stencil_matvec_soa[{pair}]", **stencil,
+        "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
+        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "launches": n_launch, "max_abs_err": e, "ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": bd_[0], "bound_by": bd_[1]}
+        for pair, (n_launch, e, t, bd_) in p2.items()] + [{
         "name": "stencil_matvec_soa[packed_parity]", **stencil,
         "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
         "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
@@ -1796,14 +2019,15 @@ def main():
         "source": "superbblas_tpu_torch/csrc/batched_gemm.cu", "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times["kernel"],
         "plain_ms": times["plain"], "bound_ms": bd[0], "bound_by": bd[1],
-        "library_ms": times["bmm"]}
+        "library_ms": times["bmm"], "device_ms": times["kernel_device"],
+        "plain_device_ms": times["plain_device"], "library_device_ms": times["bmm_device"]}
         for fn, replaces, launches, err, (times, bd) in (
             (batched_small_gemm, "superbblas_tpu/ops/batched_gemm_pallas.py:99",
              vc_launches["batched_small_gemm"] + aos_launches["k3"],
              max(gemm_err["k3"], vc_err["k3"], aos_err), gemm_ms["k3", K3_TIME_SHAPE]),
             (batched_gemm_rowpack, "experiments/bgemm_rowpack_probe.py:32",
-             c_launches + vc_launches["batched_gemm_rowpack"] + aos_launches["e1"],
-             max(gemm_err["e1"], c_err, vc_err["e1"], aos_err),
+             c_launches + vc_launches["batched_gemm_rowpack"] + aos_launches["e1"]
+             + dc_launches, max(gemm_err["e1"], c_err, vc_err["e1"], aos_err, dc_err),
              gemm_ms["e1", E1_TIME_SHAPE]))] + [{
         "name": f"roll_add[{v}]", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/roll_add.cu",

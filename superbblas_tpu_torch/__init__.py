@@ -11,8 +11,11 @@ even-odd packed solve (``models.eo_packed``) and the Krylov solvers
 """
 
 from . import labels, cplx, ops, bsr, models, solvers  # noqa: I001  (dependency order)
+from .bsr import (BSROperator, bsr_cast_storage, bsr_from_stencil, bsr_get_preferred_layout,
+                  bsr_krylov)
 from .labels import ContractionPlan
 from .ops import local_contraction, local_copy, local_permute
 
-__all__ = ["labels", "cplx", "bsr", "models", "ops", "solvers", "ContractionPlan",
-           "local_contraction", "local_copy", "local_permute"]
+__all__ = ["labels", "cplx", "bsr", "models", "ops", "solvers", "BSROperator",
+           "bsr_cast_storage", "bsr_from_stencil", "bsr_get_preferred_layout", "bsr_krylov",
+           "ContractionPlan", "local_contraction", "local_copy", "local_permute"]

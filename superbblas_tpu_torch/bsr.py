@@ -191,17 +191,16 @@ def bsr_from_stencil(
     kron=None,
     kron_i: Optional[dict] = None,
     kron_d: Optional[dict] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     device="cuda",
 ) -> BSROperator:
     """Constructor for a regular stencil operator.
 
     ``blocks``: [*lat, ndir, BI, BD] (flattened block dims), a CArray of
     numpy arrays or tensors, a complex array or a real one.  ``kron``:
-    [ndir, KI, KD] or None.  ``layout``: "soa" (the default here, where the
-    JAX package defaults to "aos": the stencil kernel's layout, which needs
-    a 4-D lattice and one-hot +-1 offsets) or "aos" (label order, any
-    stencil).  The operator is built on ``device``: the card unless the
+    [ndir, KI, KD] or None.  ``layout``: "aos" (label order, any stencil;
+    the default, as in the JAX package) or "soa" (the stencil kernel's
+    layout, which needs a 4-D lattice and one-hot +-1 offsets).  The operator is built on ``device``: the card unless the
     caller names the CPU."""
     if layout not in ("soa", "aos"):
         raise ValueError(f"layout={layout!r}: 'soa' or 'aos'")

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "CArray", "from_complex", "to_complex", "is_carray",
-    "cmap", "conj", "scale", "add", "cbilinear", "cdot_general",
+    "CArray", "asarray", "from_complex", "to_complex", "is_carray",
+    "cmap", "conj", "scale", "add", "cbilinear", "cdot_general", "cmatmul",
     "inner_real",
 ]
 
@@ -68,6 +68,17 @@ def from_complex(x) -> CArray:
     if x.is_complex():
         return CArray(x.real.contiguous(), x.imag.contiguous())
     return CArray(x, torch.zeros_like(x))
+
+
+def asarray(x):
+    """CArray for complex inputs (numpy arrays or tensors), a plain tensor
+    otherwise."""
+    if isinstance(x, CArray):
+        return x
+    if (isinstance(x, np.ndarray) and np.iscomplexobj(x)) or (
+            isinstance(x, torch.Tensor) and x.is_complex()):
+        return from_complex(x)
+    return torch.as_tensor(x)
 
 
 def to_complex(c) -> torch.Tensor:
@@ -190,6 +201,14 @@ def cdot_general(a, b, dimension_numbers, preferred_element_type=None,
             return torch.einsum(f"{''.join(xs)},{''.join(ys)}->{''.join(out)}", x, y)
 
     return cbilinear(dg, a, b)
+
+
+def cmatmul(a, b, preferred_element_type=None):
+    """a @ b over split-complex (or real) operands: a's last axis against
+    b's second-to-last (its only one for a vector), no batch axes, as
+    ``lax.dot_general`` orders the output."""
+    dims = (((a.ndim - 1,), (max(b.ndim - 2, 0),)), ((), ()))
+    return cdot_general(a, b, dims, preferred_element_type)
 
 
 def inner_real(a, b):

@@ -236,7 +236,8 @@ cudaError_t launch_kernel(bool stream_schedule, dim3 grid, dim3 block, size_t sm
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, block, smem, stream>>>(
-        static_cast<const ST*>(a.b_re), static_cast<const ST*>(a.b_im), a.k_re, a.k_im,
+        static_cast<const ST*>(a.b_re), static_cast<const ST*>(a.b_im),
+        static_cast<const float*>(a.k_re), static_cast<const float*>(a.k_im),
         static_cast<const FT*>(a.x_re), static_cast<const FT*>(a.x_im),
         static_cast<FT*>(a.y_re), static_cast<FT*>(a.y_im), a.n, a.X, a.Y, a.Z, a.T, dirs);
     return cudaGetLastError();
@@ -276,11 +277,11 @@ struct LaunchStream {
 
 extern "C" {
 
-// K4a. offsets: host array [ndir, 4] of one-hot +-1 (or all-zero)
+// K4a. pair: kF32F32, kBf16F32 or kBf16Bf16; offsets: host array [ndir, 4] of one-hot +-1 (or all-zero)
 // offsets; (S, C, XG): sites, columns and X groups of a block (the
 // wrapper's tile, S * C * XG <= 256).
-int sbt_stencil_soa_xin(int ki, int kd, int bi, int bd, int storage_bf16,
-                        int field_bf16, const void* b_re, const void* b_im,
+int sbt_stencil_soa_xin(int ki, int kd, int bi, int bd, int pair,
+                        const void* b_re, const void* b_im,
                         const void* k_re, const void* k_im, const void* x_re,
                         const void* x_im, void* y_re, void* y_im, int n, int X,
                         int Y, int Z, int T, int ndir, const int* offsets, int S,
@@ -288,16 +289,14 @@ int sbt_stencil_soa_xin(int ki, int kd, int bi, int bd, int storage_bf16,
     Dirs dirs{};
     const cudaError_t err = parse_dirs(ndir, offsets, -1, &dirs);
     if (err != cudaSuccess) return err;
-    const Operands a{b_re, b_im, static_cast<const float*>(k_re),
-                     static_cast<const float*>(k_im), x_re, x_im, y_re, y_im,
-                     n, X, Y, Z, T};
-    return dispatch<LaunchXin>(ki, kd, bi, bd, storage_bf16, field_bf16, a, dirs, S, C,
-                               XG, static_cast<cudaStream_t>(stream));
+    const Operands a{b_re, b_im, k_re, k_im, x_re, x_im, y_re, y_im, n, X, Y, Z, T};
+    return dispatch<LaunchXin, false>(ki, kd, bi, bd, pair, a, dirs, S, C, XG,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // K4b. offsets: as sbt_stencil_soa_xin.
-int sbt_stencil_soa_stream(int ki, int kd, int bi, int bd, int storage_bf16,
-                           int field_bf16, const void* b_re, const void* b_im,
+int sbt_stencil_soa_stream(int ki, int kd, int bi, int bd, int pair,
+                           const void* b_re, const void* b_im,
                            const void* k_re, const void* k_im, const void* x_re,
                            const void* x_im, void* y_re, void* y_im, int n, int X,
                            int Y, int Z, int T, int ndir, const int* offsets,
@@ -305,11 +304,9 @@ int sbt_stencil_soa_stream(int ki, int kd, int bi, int bd, int storage_bf16,
     Dirs dirs{};
     const cudaError_t err = parse_dirs(ndir, offsets, -1, &dirs);
     if (err != cudaSuccess) return err;
-    const Operands a{b_re, b_im, static_cast<const float*>(k_re),
-                     static_cast<const float*>(k_im), x_re, x_im, y_re, y_im,
-                     n, X, Y, Z, T};
-    return dispatch<LaunchStream>(ki, kd, bi, bd, storage_bf16, field_bf16, a, dirs,
-                                  static_cast<cudaStream_t>(stream));
+    const Operands a{b_re, b_im, k_re, k_im, x_re, x_im, y_re, y_im, n, X, Y, Z, T};
+    return dispatch<LaunchStream, false>(ki, kd, bi, bd, pair, a, dirs,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,6 +13,10 @@ from .eo_packed import (apply_hopping_packed_soa, cb_pack_soa, cb_unpack_soa,
                         eo_solve_packed_soa, hopping_packed_soa)
 from .coarse import apply_coarse, coarse_operator
 from . import multigrid
+from .multigrid import (build_hierarchy, build_prolongator, chebyshev_smoother,
+                        coarse_bsr_operator, coarse_matrix, symmetric_two_grid_preconditioner,
+                        two_grid_error_contraction, two_grid_preconditioner,
+                        vcycle_preconditioner)
 
 __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets",
            "wilson_operator", "apply_wilson", "adjoint_operator",
@@ -25,4 +29,8 @@ __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets",
            "checkerboard_masks", "schur_cg",
            "cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
            "apply_hopping_packed_soa", "eo_solve_packed_soa",
-           "coarse_operator", "apply_coarse", "multigrid"]
+           "coarse_operator", "apply_coarse", "multigrid",
+           "build_prolongator", "build_hierarchy", "chebyshev_smoother",
+           "vcycle_preconditioner", "coarse_matrix", "coarse_bsr_operator",
+           "two_grid_error_contraction", "symmetric_two_grid_preconditioner",
+           "two_grid_preconditioner"]

@@ -93,16 +93,17 @@ def wilson_clover_operator(
     key: Optional[int] = None,
     dtype=torch.complex64,
     links: Optional[np.ndarray] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     device="cuda",
 ) -> CloverOperator:
     """Build D_clover over random (``key``) or given numpy ``links``.
 
     Labels follow the Wilson convention: image "xyzt"+"Sc", domain
     "xyzt"+"SC", the clover term treating (S, c) as one 12x12 block.
-    ``layout="soa"`` (the default here; the JAX package's is "aos") builds
-    both terms in the SoA layout: ``apply_clover`` then takes [ncols, 12,
-    *lat] CArrays.  The operator is built on ``device``: the card unless
+    ``layout="aos"`` (the default, as in the JAX package) builds both
+    terms in the AoS layout, fields [*lat, NS, NC, ncols]; ``layout="soa"``
+    builds both in the SoA layout: ``apply_clover`` then takes [ncols, 12,
+    *lat] CArrays (the hot path).  The operator is built on ``device``: the card unless
     the caller names the CPU."""
     nd = len(lat_dims)
     if nd != 4:

@@ -14,13 +14,14 @@ D_M = (b5 D_W + 1) delta_ss' + (c5 D_W - 1) Lambda_ss'.
 
 Two layouts:
 
-* SoA (:class:`DomainWallSoAOperator`, the default here; the JAX
-  package's default is "aos"): the 4-D hopping does not depend on s, so Ls
+* SoA (:class:`DomainWallSoAOperator`, ``layout="soa"``, the hot path):
+  the 4-D hopping does not depend on s, so Ls
   folds into the stencil kernel's columns (fields [ncols, Ls, 12, *lat]
   reshaped to [ncols*Ls, 12, *lat], K1 at (4, 4, 3, 3)); the s5 terms are
   elementwise, the projectors being diagonal in the chiral basis
   (gamma5 = diag(1, 1, -1, -1)).
-* AoS: a 5-D stencil on (s, x, y, z, t) with full 12x12 blocks, Shamir
+* AoS (the default, as in the JAX package): a 5-D stencil on (s, x, y,
+  z, t) with full 12x12 blocks, Shamir
   with 11 offsets (one batched product of J = 132: E1), Moebius with 27,
   16 of them corners (J = 324: E1).
 
@@ -144,15 +145,15 @@ def domain_wall_operator(
     key: Optional[int] = None,
     dtype=torch.complex128,
     links: Optional[np.ndarray] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     device="cuda",
 ):
     """Build the Shamir D_dw on the 5-D lattice (s5, x, y, z, t).
 
-    ``layout="soa"`` (the default here; the JAX package's is "aos")
-    returns a :class:`DomainWallSoAOperator`; ``layout="aos"`` a 5-D
-    stencil with labels "sxyztSc" / "sxyztSC", the (S, c) pair one dense
-    12x12 block, taking fields [Ls, *lat, NS, NC, ncols].  ``links`` are
+    ``layout="soa"`` returns a :class:`DomainWallSoAOperator`;
+    ``layout="aos"`` (the default, as in the JAX package) a 5-D stencil
+    with labels "sxyztSc" / "sxyztSC", the (S, c) pair one dense 12x12
+    block, taking fields [Ls, *lat, NS, NC, ncols].  ``links`` are
     numpy (None: random from ``key``).  Built on ``device``: the card
     unless the caller names the CPU."""
     if len(lat_dims) != 4:
@@ -203,7 +204,7 @@ def mobius_operator(
     key: Optional[int] = None,
     dtype=torch.complex128,
     links: Optional[np.ndarray] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     projector_side: str = "right",
     device="cuda",
 ):
@@ -215,9 +216,9 @@ def mobius_operator(
     with the s wrap scaled by -m_f; Shamir is b5 = 1, c5 = 0.
     ``projector_side``: "right" applies (c5 D_W - 1) after the projection
     (the form above), "left" builds Lambda (c5 D_W - 1); they are
-    Gamma5-R5 adjoint partners.  ``layout="soa"`` (the default here; the
-    JAX package's is "aos") needs one Wilson kernel call an apply plus
-    elementwise terms; ``layout="aos"`` is the 5-D stencil with 27 offsets
+    Gamma5-R5 adjoint partners.  ``layout="soa"`` needs one Wilson kernel
+    call an apply plus elementwise terms; ``layout="aos"`` (the default,
+    as in the JAX package) is the 5-D stencil with 27 offsets
     (centre, 8 spatial, 2 axial, 16 corners (s +-1, mu +-1) from c5 D_W
     Lambda; the corners are skipped at c5 = 0)."""
     if projector_side not in ("right", "left"):

@@ -45,15 +45,15 @@ def staggered_operator(
     key: Optional[int] = None,
     dtype=torch.complex64,
     links: Optional[np.ndarray] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     device="cuda",
 ) -> BSROperator:
     """Build the staggered operator as a plain (no spin factor) stencil.
 
     Labels: lattice "xyzt"[:nd], colour "c" (image) / "C" (domain).
-    ``layout="soa"`` (the default here; the JAX package's is "aos") runs
-    the stencil kernel on [ncols, 3, *lat]; ``layout="aos"`` takes
-    [*lat, 3, ncols] through ``bsr_krylov``.  ``links`` are numpy
+    ``layout="aos"`` (the default, as in the JAX package) takes [*lat, 3,
+    ncols] through ``bsr_krylov``; ``layout="soa"`` runs the stencil
+    kernel on [ncols, 3, *lat] (the hot path).  ``links`` are numpy
     [nd, *lat, 3, 3] (None: random from ``key``).  The operator is built
     on ``device``: the card unless the caller names the CPU."""
     nd = len(lat_dims)

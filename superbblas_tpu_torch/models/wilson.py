@@ -7,11 +7,11 @@
 
 is built as a Kronecker-factored stencil operator: spin factors shared
 across sites, per-site colour links, in the SoA layout (the stencil
-kernel's, the default here) or the AoS one (label order, applied through
-``bsr_krylov``).  Links and gammas are made on the host in numpy, with the
-same code as the JAX package; the blocks are formed from them on the
-operator's device with the same exact operations, so one seed gives
-bit-identical operators in both.
+kernel's) or the AoS one (label order, applied through ``bsr_krylov``;
+the default, as in the JAX package).  Links and gammas are made on the
+host in numpy, with the same code as the JAX package; the blocks are
+formed from them on the operator's device with the same exact
+operations, so one seed gives bit-identical operators in both.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def wilson_operator(
     key: Optional[int] = None,
     dtype=torch.complex64,
     links: Optional[np.ndarray] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     storage_dtype=None,
     device="cuda",
 ) -> BSROperator:
@@ -110,9 +110,9 @@ def wilson_operator(
 
     ``key`` seeds numpy's generator for the links (None: 0).  ``dtype``
     picks precision: complex64 -> float32 parts, complex128 -> float64.
-    ``layout="soa"`` (the default here; the JAX package's is "aos") runs
-    the stencil kernel on SoA operands [ncols, 12, *lat]; ``layout="aos"``
-    takes [*lat, NS, NC, ncols] fields through ``bsr_krylov``.
+    ``layout="aos"`` (the default, as in the JAX package) takes [*lat, NS,
+    NC, ncols] fields through ``bsr_krylov``; ``layout="soa"`` runs the
+    stencil kernel on SoA operands [ncols, 12, *lat] (the hot path).
     ``storage_dtype=torch.bfloat16`` stores the link blocks in bf16; the
     spin factors keep ``dtype``'s precision.  The operator is built on
     ``device``: the card unless the caller names the CPU."""
@@ -247,10 +247,11 @@ def cg_step(op: BSROperator, state, op_h: Optional[BSROperator] = None):
     return (x, rr, p, rs_new)
 
 
-def cg_solve(op: BSROperator, b: CArray, n_iters: int = 10):
+def cg_solve(op: BSROperator, b: CArray, n_iters: int = 10, tol: float = 0.0):
     """Conjugate gradient on the normal equations D^H D x = D^H b, from
     x = 0, for ``n_iters`` iterations.  Returns (x, |r|^2).  Makes
-    1 + 2 * n_iters stencil matvecs."""
+    1 + 2 * n_iters stencil matvecs.  ``tol`` is accepted and unused, as
+    in the JAX package: the iteration count is fixed."""
     op_h = adjoint_operator(op)
     rhs = apply_wilson(op_h, b)
     state = (cplx.cmap(torch.zeros_like, b), rhs, rhs, cplx.inner_real(rhs, rhs))
@@ -267,7 +268,7 @@ def twisted_mass_operator(
     key: Optional[int] = None,
     dtype=torch.complex64,
     links: Optional[np.ndarray] = None,
-    layout: str = "soa",
+    layout: str = "aos",
     device="cuda",
 ) -> BSROperator:
     """Twisted-mass Wilson operator D_tm = D_W + i mu gamma5 (x) 1.
@@ -276,8 +277,8 @@ def twisted_mass_operator(
     centre direction's spin factor (index 0): the operator stays one
     Kron-BSR stencil and runs the Wilson kernel with a complex centre
     factor.  The spin factors are a new tensor; ``op``'s are not edited.
-    Same arguments as :func:`wilson_operator` (``layout="soa"`` is the
-    default here, the JAX package's is "aos")."""
+    Same arguments as :func:`wilson_operator` (``layout="aos"`` by
+    default, as in the JAX package)."""
     if len(lat_dims) != 4:
         raise ValueError("the gamma5 twist is defined on a 4D lattice")
     op = wilson_operator(lat_dims, mass=mass, r=r, key=key, dtype=dtype, links=links,

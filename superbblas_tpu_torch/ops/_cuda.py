@@ -86,9 +86,9 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    # (ki, kd, bi, bd, storage_bf16, field_bf16, b, kron, x, y re/im pointers,
-    #  n, X, Y, Z, T, ndir, offsets) + each kernel's own trailing ints + stream
-    head = [i] * 6 + [p] * 8 + [i] * 6 + [p]
+    # (ki, kd, bi, bd, type pair, b, kron, x, y re/im pointers, n, X, Y, Z, T,
+    #  ndir, offsets) + each kernel's own trailing ints + stream
+    head = [i] * 5 + [p] * 8 + [i] * 6 + [p]
     for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_rt", [i]),
                         ("sbt_stencil_soa_xin", [i, i, i]), ("sbt_stencil_soa_stream", [])):
         getattr(lib, name).argtypes = head + extra + [p]
@@ -100,8 +100,9 @@ def library() -> ctypes.CDLL:
     lib.sbt_permute_4d_tiled.restype = i
     lib.sbt_roll_add.argtypes = [i, i64, i64, p, p, p]
     lib.sbt_roll_add.restype = i
-    # (f64, V, I, J, N) + the tile of ops/batched_gemm.py + b, x, y, stream
-    for name, tile in (("sbt_batched_gemm_small", 3), ("sbt_batched_gemm_rowpack", 5)):
-        getattr(lib, name).argtypes = [i, i64, i, i, i] + [i] * tile + [p] * 4
+    # (f64, V, I, J, N, tile, sites) as ops/batched_gemm.py picks them + b,
+    # x, y, stream
+    for name in ("sbt_batched_gemm_small", "sbt_batched_gemm_rowpack"):
+        getattr(lib, name).argtypes = [i, i64, i, i, i, i, i] + [p] * 4
         getattr(lib, name).restype = i
     return lib

@@ -12,51 +12,74 @@ calls it three times per apply (the split-complex Gauss products).
 ``batched_small_gemm`` sends CPU tensors to the plain PyTorch version
 ``batched_small_gemm_reference`` and CUDA tensors to one of two
 hand-written kernels in ``csrc/batched_gemm.cu``, as
-``batched_gemm_route`` decides: K3 (``sbt_batched_gemm_small``, the whole
-of each b[v] in shared memory) for I, J <= 64, and E1
-(``sbt_batched_gemm_rowpack``, up to 128 rows of b and x streamed through
-shared memory in chunks of J) for every other shape.
-``batched_gemm_rowpack`` launches E1 for any shape.  Both take f32 and
-f64, b and x of one dtype, and sum each output over j in ascending order
-with fused multiply-adds in that dtype.
+``batched_gemm_route`` decides: K3 (``sbt_batched_gemm_small``) for I, J
+<= 64, and E1 (``sbt_batched_gemm_rowpack``) for every other shape.
+``batched_gemm_rowpack`` launches E1 for any shape.  Both are one
+templated kernel with register tiles and a ``cp.async`` ring, at the
+tiles of ``CONFIGS`` (read from the kernel's source): K3's blocks walk
+whole sites (``small_tile``), E1's stream chunks of J (``rowpack_tile``).  Both take f32 and f64, b and x of
+one dtype, and sum each output in that dtype with fused multiply-adds in
+a fixed order (J split among a block's warps where V is small, the
+partial sums added in a fixed order): the same bits from run to run.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+import re
+from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
 
 from .. import cplx
+from . import _cuda
 
 __all__ = ["batched_small_gemm", "batched_gemm_rowpack", "batched_small_gemm_reference",
-           "batched_gemm_route", "small_tile", "rowpack_tile"]
+           "batched_gemm_route", "small_tile", "rowpack_tile", "CONFIGS"]
 
 #: the dtypes both kernels take
 DTYPES = (torch.float32, torch.float64)
 #: largest I and J that K3 takes (the TPU kernel's padded limit)
 SMALL_MAX = 64
-#: threads of a block
-THREADS = 256
-#: shared memory one block may use on the H100 (227 KB), and the share the
-#: tile choices aim for, so that two blocks fit an SM
-SMEM_BYTES = 232448
-SMEM_AIM = 98304
-#: blocks a launch keeps before it packs several sites into one: two for
-#: each of the H100's 132 SMs.  A block's loads of b and x are serial
-#: rounds of global-memory latency, so a few blocks of many sites leave
-#: the card waiting (E1 at the V-cycle's (256, 4, 324, 8): 8 blocks of 32
-#: sites took 0.19 ms)
+#: blocks a launch keeps before its tile splits J among the warps of a
+#: block (and, for K3, before a block walks several sites): two for each
+#: of the H100's 132 SMs.  A block's loads of b and x are rounds of
+#: global-memory latency, so a few blocks leave the card waiting (E1 at
+#: the V-cycle's (256, 4, 324, 8): 8 blocks of 32 sites took 0.19 ms)
 MIN_BLOCKS = 264
-_GRID_YZ = 65535
+#: blocks a launch keeps a walk of several sites a block (K3) above: 16
+#: an SM, so that the waves of blocks stay many
+WALK_BLOCKS = 16 * 132
+#: most sites a K3 block walks
+MAX_WALK = 2
+
+
+def _read_tiles() -> Dict[int, Tuple[int, ...]]:
+    """The kernel's tiles, from their only copy, the ``SBT_GEMM_TILES``
+    table of ``csrc/batched_gemm.cu``: {number: (IT rows x NT columns of
+    one site's y a block, RR x CC outputs a thread, J in chunks of JC, KS
+    groups of warps splitting each step's KS * JC values of J, MINB blocks
+    an SM asked of the register allocation)}; a block has (IT/RR) * (NT/CC)
+    * KS threads.  The source's static_asserts hold each to the card's
+    shared memory and thread limits."""
+    src = (Path(__file__).resolve().parent.parent / "csrc" / "batched_gemm.cu").read_text()
+    table = re.search(r"#define SBT_GEMM_TILES\(X\)(.*?)\n\n", src, re.S).group(1)
+    rows = [tuple(int(v) for v in row.split(","))
+            for row in re.findall(r"X\(([\d, ]+)\)", table)]
+    return {row[0]: row[1:] for row in rows}
+
+
+#: 0 wide (K3's main shape), 1 square (E1's main shape), 2 square with J
+#: split 4 ways (few blocks), 3 narrow (I <= 4, N <= 8) and 4 tall (I <=
+#: 16, N <= 8), J split 8 and 4 ways
+CONFIGS = _read_tiles()
 
 
 def batched_gemm_route(I: int, J: int, dtype) -> str:
     """Which kernel a CUDA call takes: "small" (K3) for I, J <= 64,
     "rowpack" (E1) otherwise.  Raises ValueError for a dtype other than
-    f32 and f64, or an empty block.  E1 takes these shapes too, but K3
-    ran faster at each I, J <= 64 shape timed beside it (``chip_smoke.py``'s
-    ``time_gemms``; ``PERF.md`` §6).  The TPU kernel's eligibility
+    f32 and f64, or an empty block.  The TPU kernel's eligibility
     (``batched_gemm_eligible``: f32, 8-aligned padding within a 128-tile)
     is not the card's."""
     if dtype not in DTYPES:
@@ -67,49 +90,44 @@ def batched_gemm_route(I: int, J: int, dtype) -> str:
     return "small" if I <= SMALL_MAX and J <= SMALL_MAX else "rowpack"
 
 
-def _rows_a_thread(rows: int) -> int:
-    """RR, the rows of one site a thread keeps in registers: 4, 8 or 16."""
-    return 16 if rows > 8 else 8 if rows > 4 else 4
+def _blocks(cfg: int, V: int, I: int, N: int) -> int:
+    """Blocks of tile ``cfg`` with one site each."""
+    IT, NT = CONFIGS[cfg][:2]
+    return V * -(-I // IT) * -(-N // NT)
 
 
-def _spread(blocks_a_site: int, V: int) -> int:
-    """The most sites a block may take and still leave MIN_BLOCKS blocks
-    (or one a site, when there are fewer)."""
-    return max(1, V * blocks_a_site // MIN_BLOCKS)
+@functools.lru_cache(maxsize=None)
+def _tile(V: int, I: int, J: int, N: int, walk: bool) -> Tuple[int, int]:
+    """(tile, sites a block): narrow and tall tiles for a few rows and
+    columns (their blocks always split J); otherwise wide (N > 32) or
+    square tiles, split where one site a block gives fewer than MIN_BLOCKS
+    blocks.  With ``walk`` (K3), a block whose J fits one step walks up to
+    MAX_WALK sites while WALK_BLOCKS blocks remain."""
+    if I <= 4 and N <= 8:
+        cfg = 3
+    elif I <= 16 and N <= 8:
+        cfg = 4
+    else:
+        cfg = 0 if N > 32 else 1
+        if _blocks(cfg, V, I, N) < MIN_BLOCKS:
+            cfg = 2
+    JC, KS = CONFIGS[cfg][4:6]
+    sites = 1
+    if walk and J <= JC * KS:
+        sites = max(1, min(MAX_WALK, _blocks(cfg, V, I, N) // WALK_BLOCKS))
+    return cfg, sites
 
 
-def small_tile(V: int, I: int, J: int, N: int,
-               itemsize: int) -> Tuple[int, int, int, int]:
-    """(S, NT, RR, shared bytes) of K3: a block takes S sites and NT <= 128
-    columns; b[v] (rows padded to an odd length, so rows fall in different
-    banks) and a [J, NT] tile of x[v] of each site sit in shared memory; a
-    thread computes RR rows of one column, so a block has S * ceil(I/RR)
-    * NT <= 256 such items; S stays small enough for MIN_BLOCKS blocks."""
-    RR = _rows_a_thread(I)
-    G = -(-I // RR)
-    NT = min(N, 128)
-    while G * NT > THREADS:
-        NT //= 2
-    per_site = (I * (J | 1) + J * NT) * itemsize
-    S = max(1, min(V, THREADS // (G * NT), SMEM_AIM // per_site,
-                   _spread(-(-N // NT), V)))
-    return S, NT, RR, S * per_site
+def small_tile(V: int, I: int, J: int, N: int) -> Tuple[int, int]:
+    """(tile, sites a block) of K3, cached by shape: the ring of a block
+    runs over whole sites where J fits one step."""
+    return _tile(V, I, J, N, True)
 
 
-def rowpack_tile(V: int, I: int, J: int, N: int,
-                 itemsize: int) -> Tuple[int, int, int, int, int, int]:
-    """(S, IT, NT, JC, RR, shared bytes) of E1: a block takes IT <= 32 rows
-    of each of S sites (S*IT <= 128 rows, 4 sites x 32 rows at the probe's
-    shape) and NT <= 32 columns, and streams J through shared memory in
-    chunks of JC <= 32; a thread keeps RR rows of one column in registers,
-    S * ceil(IT/RR) * NT <= 256 items a block; S stays small enough for
-    MIN_BLOCKS blocks."""
-    IT, NT, JC = min(I, 32), min(N, 32), min(J, 32)
-    RR = _rows_a_thread(IT)
-    per_site = (IT * (JC | 1) + JC * NT) * itemsize
-    S = max(1, min(V, THREADS // (-(-IT // RR) * NT), 128 // IT, SMEM_AIM // per_site,
-                   _spread(-(-I // IT) * -(-N // NT), V)))
-    return S, IT, NT, JC, RR, S * per_site
+def rowpack_tile(V: int, I: int, J: int, N: int) -> Tuple[int, int]:
+    """(tile, sites a block) of E1, cached by shape: one site a block, its
+    ring over chunks of J."""
+    return _tile(V, I, J, N, False)
 
 
 def batched_small_gemm_reference(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -146,21 +164,37 @@ def _empty(b: torch.Tensor, x: torch.Tensor) -> bool:
     return b.shape[0] == 0 or x.shape[2] == 0
 
 
-def _launch(entry: str, b: torch.Tensor, x: torch.Tensor, *tile) -> torch.Tensor:
-    from . import _cuda
-
+def _launch(entry: str, b: torch.Tensor, x: torch.Tensor, cfg: int,
+            sites: int) -> torch.Tensor:
+    """One launch of the C entry ``entry`` at tile ``cfg``, ``sites`` a
+    block, on b's device and its current stream; the device is switched
+    only when it is not the current one."""
     if not (b.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{entry}: the kernel needs contiguous b and x")
     V, I, J = b.shape
     N = x.shape[2]
-    y = torch.empty((V, I, N), dtype=b.dtype, device=b.device)
-    with torch.cuda.device(b.device):
-        err = getattr(_cuda.library(), entry)(
-            int(b.dtype == torch.float64), V, I, J, N, *tile,
-            b.data_ptr(), x.data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream(b.device).cuda_stream)
+    y = b.new_empty((V, I, N))
+    args = (int(b.dtype == torch.float64), V, I, J, N, cfg, sites, b.data_ptr(),
+            x.data_ptr(), y.data_ptr())
+    fn = getattr(_cuda.library(), entry)
+    dev = b.device.index
+    if dev == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    return y
+
+
+def _rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """E1 on checked CUDA operands: one launch, counted."""
+    if _empty(b, x):
+        return b.new_empty((b.shape[0], b.shape[1], x.shape[2]))
+    V, I, J = b.shape
+    y = _launch("sbt_batched_gemm_rowpack", b, x, *rowpack_tile(V, I, J, x.shape[2]))
+    batched_gemm_rowpack.launches += 1
     return y
 
 
@@ -171,16 +205,7 @@ def batched_gemm_rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check(b, x, "batched_gemm_rowpack")
     if _on_cpu(b, "batched_gemm_rowpack"):
         return batched_small_gemm_reference(b, x)
-    if _empty(b, x):
-        return b.new_empty((b.shape[0], b.shape[1], x.shape[2]))
-    V, I, J = b.shape
-    S, IT, NT, JC, RR, smem = rowpack_tile(V, I, J, x.shape[2], b.element_size())
-    if -(-I // IT) > _GRID_YZ or -(-x.shape[2] // NT) > _GRID_YZ or smem > SMEM_BYTES:
-        raise ValueError(f"batched_gemm_rowpack: {tuple(b.shape)} x {tuple(x.shape)} "
-                         "is outside the kernel's grid")
-    y = _launch("sbt_batched_gemm_rowpack", b, x, S, IT, NT, JC, RR)
-    batched_gemm_rowpack.launches += 1
-    return y
+    return _rowpack(b, x)
 
 
 def batched_small_gemm(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -189,21 +214,17 @@ def batched_small_gemm(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ``b``: [V, I, J]; ``x``: [V, J, N]; returns [V, I, N] in their dtype
     (f32 or f64, one for both).  CPU tensors run the plain version.  CUDA
     tensors run K3 for I, J <= 64 (``batched_small_gemm.launches`` counts
-    its launches) and E1 otherwise (through :func:`batched_gemm_rowpack`),
-    or raise."""
+    its launches) and E1 otherwise (counted as
+    :func:`batched_gemm_rowpack`'s), or raise."""
     route = _check(b, x, "batched_small_gemm")
     if _on_cpu(b, "batched_small_gemm"):
         return batched_small_gemm_reference(b, x)
     if route == "rowpack":
-        return batched_gemm_rowpack(b, x)
+        return _rowpack(b, x)
     if _empty(b, x):
         return b.new_empty((b.shape[0], b.shape[1], x.shape[2]))
     V, I, J = b.shape
-    S, NT, RR, smem = small_tile(V, I, J, x.shape[2], b.element_size())
-    if -(-x.shape[2] // NT) > _GRID_YZ or smem > SMEM_BYTES:
-        raise ValueError(f"batched_small_gemm: {tuple(b.shape)} x {tuple(x.shape)} "
-                         "is outside the kernel's grid")
-    y = _launch("sbt_batched_gemm_small", b, x, S, NT, RR)
+    y = _launch("sbt_batched_gemm_small", b, x, *small_tile(V, I, J, x.shape[2]))
     batched_small_gemm.launches += 1
     return y
 

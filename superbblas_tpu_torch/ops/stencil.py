@@ -40,16 +40,22 @@ KERNEL_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12))
 SCHEDULE_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
 #: most KI*KD*BI*BD a stencil takes (the TPU kernel's rule)
 MAX_BLOCK = 256
-#: (block storage dtype, field dtype) pairs instantiated in the kernel
+#: (block storage dtype, field dtype) pairs K1 takes, in the order of the
+#: C entries' pair code (csrc/stencil_soa.cuh kPair): summed in f32 (bf16
+#: converted on load, rounded on store), f64/f64 summed in f64
 KERNEL_DTYPES = ((torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32),
-                 (torch.bfloat16, torch.bfloat16))
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.bfloat16),
+                 (torch.float64, torch.float64))
+#: the pairs the X-inside and X-streaming schedules take
+SCHEDULE_DTYPES = KERNEL_DTYPES[:3]
 #: most directions the kernel takes (csrc/stencil_soa.cuh kMaxDirs)
 MAX_DIRS = 16
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_BYTES = 232448
 
-_TODO = "f64 and f32-block/bf16-field stencil kernels: ROADMAP.md, Next slices"
+_TODO = "the schedules at more type pairs: ROADMAP.md, Queue 2 A"
 
 
 def _axis_of(off) -> Tuple[int, int]:
@@ -160,8 +166,9 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                       shapes: Optional[Sequence[Tuple[int, int, int, int]]] = None
                       ) -> Tuple[int, int]:
     """Raise unless a CUDA stencil kernel takes these operands (device
-    aside): K1 any shape within MAX_BLOCK, a schedule only its ``shapes``;
-    returns (KI, KD)."""
+    aside): K1 any shape within MAX_BLOCK and every pair of KERNEL_DTYPES,
+    a schedule only its ``shapes`` and SCHEDULE_DTYPES; returns (KI,
+    KD)."""
     if packed_parity not in (None, 0, 1):
         raise ValueError(f"packed_parity={packed_parity!r}: a checkerboard parity is "
                          "None, 0 or 1")
@@ -173,10 +180,15 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
             f"(KI, KD, BI, BD) = {(KI, KD, bi, bd)} in the X-inside and X-streaming "
             f"stencil kernels, which take {tuple(shapes)}; stencil_matvec_soa takes "
             f"every shape (ROADMAP.md, Next slices: schedules at more shapes)")
-    if (blocks.dtype, x.dtype) not in KERNEL_DTYPES:
+    pairs = KERNEL_DTYPES if shapes is None else SCHEDULE_DTYPES
+    if (blocks.dtype, x.dtype) not in pairs:
+        if shapes is None:
+            raise ValueError(f"storage/field dtypes {blocks.dtype}/{x.dtype}: the CUDA "
+                             f"stencil kernel takes {KERNEL_DTYPES}")
         raise NotImplementedError(
-            f"storage/field dtypes {blocks.dtype}/{x.dtype} in the CUDA stencil "
-            f"kernel, which takes {KERNEL_DTYPES} ({_TODO})")
+            f"storage/field dtypes {blocks.dtype}/{x.dtype} in the X-inside and "
+            f"X-streaming stencil kernels, which take {SCHEDULE_DTYPES} ({_TODO}); "
+            "stencil_matvec_soa takes every pair of KERNEL_DTYPES")
     if not soa_eligible(offsets, tuple(blocks.shape[2:])) \
             or len(offsets) != ndir:
         raise ValueError(f"{len(offsets)} offsets {offsets} for {ndir} directions: "
@@ -227,8 +239,10 @@ def _launch(entry: str, blocks, kron, x, offsets, bi, bd, KI, KD, *extra) -> CAr
     for c in (blocks, kron):
         if c is not None and (c.re.device != dev or c.im.device != dev):
             raise ValueError(f"operands on {c.re.device}/{c.im.device} and {dev}")
+    # the kron factors in the type the pair sums in
+    kdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     if kron is not None:
-        kron = cplx.cmap(lambda a: a.to(torch.float32).contiguous(), kron)
+        kron = cplx.cmap(lambda a: a.to(kdt).contiguous(), kron)
     n = x.shape[0]
     lat = tuple(x.shape[2:])
     y = CArray(torch.empty((n, KI * bi) + lat, dtype=x.dtype, device=dev),
@@ -237,8 +251,7 @@ def _launch(entry: str, blocks, kron, x, offsets, bi, bd, KI, KD, *extra) -> CAr
     offs = (ctypes.c_int * len(flat))(*flat)
     with torch.cuda.device(dev):
         err = getattr(_cuda.library(), entry)(
-            KI, KD, bi, bd, int(blocks.dtype == torch.bfloat16),
-            int(x.dtype == torch.bfloat16),
+            KI, KD, bi, bd, KERNEL_DTYPES.index((blocks.dtype, x.dtype)),
             blocks.re.data_ptr(), blocks.im.data_ptr(),
             None if kron is None else kron.re.data_ptr(),
             None if kron is None else kron.im.data_ptr(),

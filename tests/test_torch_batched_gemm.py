@@ -118,40 +118,51 @@ def test_cpu_tensors_launch_nothing():
     assert (TG.batched_small_gemm.launches, TG.batched_gemm_rowpack.launches) == before
 
 
-def _blocks(V, S, *tiles):
-    """Blocks of a launch, and blocks with one site each: ceil(V / S) (or
-    V) times the tiles of the other grid axes (ceil(extent / tile))."""
-    rest = int(np.prod([-(-n // t) for n, t in tiles]))
-    return -(-V // S) * rest, V * rest
+def _pow2(v):
+    return v > 0 and v & (v - 1) == 0
 
 
 @pytest.mark.parametrize("V,I,J,N", [(4096, 32, 288, 32), (256, 4, 324, 8), (16, 4, 64, 8),
                                      (8192, 32, 32, 128), (7, 4, 324, 3), (3, 200, 500, 70),
                                      (40, 64, 64, 300), (5, 1, 1, 1), (16384, 4, 324, 8),
-                                     (16384, 4, 64, 8)])
+                                     (16384, 4, 64, 8), (4096, 12, 324, 2), (1024, 3, 27, 2)])
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_tiles_fit_the_card(V, I, J, N, itemsize):
-    """Each kernel's tile fits 227 KB of shared memory and has a thread for
-    each of its items (RR rows of one column of one site), and a launch
-    keeps MIN_BLOCKS blocks (or one a site) before it packs sites; E1 takes
-    at most 128 rows a block; at the probe's shape E1 packs 4 sites x 32
-    rows, at I = 4 up to 32 sites x 4 rows, and the V-cycle's small
-    levels take one site a block."""
-    S, IT, NT, JC, RR, smem = TG.rowpack_tile(V, I, J, N, itemsize)
-    assert smem <= TG.SMEM_BYTES and S * IT <= 128 and S * -(-IT // RR) * NT <= TG.THREADS
-    assert 1 <= S <= V and IT == min(I, 32) and NT == min(N, 32) and JC == min(J, 32)
-    assert RR in (4, 8, 16) and (RR == 4 or RR // 2 < IT)
-    blocks, one_a_site = _blocks(V, S, (I, IT), (N, NT))
-    assert blocks >= min(TG.MIN_BLOCKS, one_a_site)
-    if (I, J) == (32, 288):
-        assert (S, IT, RR) == (4, 32, 16)
-    if (I, J, N, itemsize) == (4, 324, 8, 4):
-        assert (S, IT, NT, RR) == ({256: 1, 16384: 32}[V], 4, 8, 4)
-    if max(I, J) <= TG.SMALL_MAX:
-        S, NT, RR, smem = TG.small_tile(V, I, J, N, itemsize)
-        assert smem <= TG.SMEM_BYTES and 1 <= S <= V and 1 <= NT <= min(N, 128)
-        assert S * -(-I // RR) * NT <= TG.THREADS
-        blocks, one_a_site = _blocks(V, S, (N, NT))
-        assert blocks >= min(TG.MIN_BLOCKS, one_a_site)
-        if (V, I, J, N) == (16, 4, 64, 8):
-            assert (S, NT, RR) == (1, 8, 4)
+    """Each kernel's tile, as read from the kernel's source, has at most
+    1024 threads a block (its shared memory is held to 227 KB by the
+    source's static_asserts); every extent the kernel shifts by is a power
+    of two and a chunk of J is whole 16-byte loads; a launch keeps MIN_BLOCKS
+    blocks or splits J among the warps of a block; a K3 block walks
+    several sites only while WALK_BLOCKS blocks remain, an E1 block takes
+    one; the main shapes take the wide (K3) and square (E1) tiles, the
+    V-cycle's small levels the narrow one, split 8 ways."""
+    for tile_fn, walk in ((TG.rowpack_tile, False), (TG.small_tile, True)):
+        if walk and max(I, J) > TG.SMALL_MAX:
+            continue
+        cfg, sites = tile_fn(V, I, J, N)
+        IT, NT, RR, CC, JC, KS = TG.CONFIGS[cfg][:6]
+        threads = (IT // RR) * (NT // CC) * KS
+        assert cfg in TG.CONFIGS and len(TG.CONFIGS[cfg]) == 7 and threads <= 1024
+        assert all(_pow2(v) for v in (IT // RR, NT // CC, JC * KS, NT, KS))
+        assert IT % RR == 0 and NT % CC == 0 and JC % (16 // itemsize) == 0
+        rest = -(-I // IT) * -(-N // NT)
+        if V * rest < TG.MIN_BLOCKS:
+            assert KS > 1
+        assert 1 <= sites <= TG.MAX_WALK
+        if sites > 1:
+            assert walk and J <= JC * KS and -(-V // sites) * rest >= TG.WALK_BLOCKS
+        else:
+            assert not walk or J > JC * KS or V * rest < 2 * TG.WALK_BLOCKS
+    if (V, I, J, N) in ((4096, 32, 288, 32), (256, 4, 324, 8), (16, 4, 64, 8)):
+        assert TG.rowpack_tile(V, I, J, N) == {32: (1, 1), 4: (3, 1)}[I]
+    if (V, I, J, N) == (8192, 32, 32, 128):
+        assert TG.small_tile(V, I, J, N) == (0, 2)
+
+
+def test_tile_choice_is_cached():
+    """The wrappers' tile choice is one dictionary hit after the first
+    call at a shape."""
+    before = TG._tile.cache_info().hits
+    for _ in range(3):
+        TG.rowpack_tile(333, 4, 324, 8)
+    assert TG._tile.cache_info().hits >= before + 2

@@ -220,7 +220,8 @@ def test_soa_operator_through_bsr_krylov():
     lat = (2, 2, 8, 128)
     jop_a = JW.wilson_operator(lat, mass=0.4, key=7, dtype=jnp.complex128)
     jop_s = JW.wilson_operator(lat, mass=0.4, key=7, dtype=jnp.complex128, layout="soa")
-    top = TW.wilson_operator(lat, mass=0.4, key=7, dtype=torch.complex128, device="cpu")
+    top = TW.wilson_operator(lat, mass=0.4, key=7, dtype=torch.complex128, layout="soa",
+                          device="cpu")
     jx, tx = both(crand_np(lat + (4, 3, 2), 5))
     got = TB.bsr_krylov(1.0, top, tx, "xyztSCn")
     assert_parity(got, JB.bsr_krylov(1.0, jop_s, jx, "xyztSCn"), np.float64, rtol=RTOL)

@@ -60,18 +60,23 @@ def crand(shape, seed, device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
-    """f64 operands are not instantiated in any of the three stencil
-    kernels; the schedules take only their shapes (4x4 blocks here), K1
-    every shape up to KI*KD*BI*BD = 256 and raises above it; a parity
+    """K1 launches f64 operands on both its routes, while the schedules
+    refuse them; the schedules take only their shapes (4x4 blocks here),
+    K1 every shape up to KI*KD*BI*BD = 256 and raises above it; a parity
     other than 0 and 1 is refused."""
     lat = (2, 2, 4, 8)
     blocks = crand((9, 9) + lat, 0, cuda_device, torch.float32)
     x = crand((1, 3) + lat, 1, cuda_device, torch.float32)
     b16 = crand((9, 16) + lat, 2, cuda_device, torch.float32)
     x16 = crand((1, 4) + lat, 3, cuda_device, torch.float32)
-    for fn in WRAPPERS.values():
+    b64, x64 = blocks.to(torch.float64), x.to(torch.float64)
+    for fn in (S.stencil_matvec_soa, S.stencil_matvec_soa_rt):
+        before = fn.launches
+        assert fn(b64, None, x64, OFFSETS, 3, 3).re.dtype == torch.float64
+        assert fn.launches == before + 1
+    for fn in (S.stencil_matvec_soa_xin, S.stencil_matvec_soa_stream):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(blocks.to(torch.float64), None, x.to(torch.float64), OFFSETS, 3, 3)
+            fn(b64, None, x64, OFFSETS, 3, 3)
     for fn in (S.stencil_matvec_soa_xin, S.stencil_matvec_soa_stream):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(b16, None, x16, OFFSETS, 4, 4)
@@ -184,6 +189,47 @@ def test_k1_new_shapes_match_plain_version(cuda_device, shape, st, ft):
     assert counter.launches == before + calls
 
 
+#: max |kernel - plain| relative to max |plain| of K1's added pairs: f64
+#: rounding for f64 (sums of at most 9 * 12 * 4 products), one bf16 ulp for
+#: bf16 fields
+PAIR_TOL = {torch.float64: 1e-12, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", [(torch.float64, torch.float64),
+                                   (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12), (2, 1, 4, 2)])
+def test_k1_f64_and_f32_bf16_pairs_match_plain_version(cuda_device, shape, st, ft):
+    """K1 at f64 blocks with f64 fields (summed in f64, f64 kron factors)
+    and at f32 blocks with bf16 fields (summed in f32, rounded on store)
+    against the plain version on full lattices and with packed parity,
+    on the templated shapes and one runtime shape; the runtime route
+    gives the templated route's bits where both take the shape."""
+    templated = shape in S.KERNEL_SHAPES
+    counter = S.stencil_matvec_soa if templated else S.stencil_matvec_soa_rt
+    before = counter.launches
+    ki, kd, bi, bd = shape
+    cases = (((3, 5, 6, 10), 3, OFFSETS, None), ((2, 4, 3, 8), 2, OFFSETS[1:], 0),
+             ((3, 5, 4, 7), 1, OFFSETS[1:], 1))
+    kdt = torch.float64 if ft == torch.float64 else torch.float32
+    for i, (lat, n, offsets, parity) in enumerate(cases):
+        blocks = crand((len(offsets), bi * bd) + lat, 10 * i, "cuda", st)
+        kron = crand((len(offsets), ki, kd), 10 * i + 1, "cuda", kdt) \
+            if (ki, kd) != (1, 1) else None
+        x = crand((n, kd * bd) + lat, 10 * i + 2, "cuda", ft)
+        args = (blocks, kron, x, offsets, bi, bd)
+        got = S.stencil_matvec_soa(*args, packed_parity=parity)
+        want = S.stencil_matvec_soa_reference(*args, packed_parity=parity)
+        assert got.re.dtype == ft and got.re.shape == want.re.shape
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.double().abs().max()) for w in want)
+        assert err <= PAIR_TOL[ft] * scale, (shape, lat, parity, err, scale)
+        if templated:
+            rt = S.stencil_matvec_soa_rt(*args, packed_parity=parity)
+            assert all(torch.equal(g, w) for g, w in zip(got, rt)), (shape, lat)
+    assert counter.launches == before + len(cases)
+
+
 @pytest.mark.cuda
 def test_roll_add_variants_match_plain_version(cuda_device):
     """E2: the f32 variant bit for bit against the plain version (even and
@@ -227,7 +273,7 @@ def test_eo_solve_on_card_matches_cpu(cuda_device):
     on the CPU (plain version): 4 N + 4 packed launches; rtol 1e-4, as
     CG amplifies summation-order differences."""
     lat, mass, iters = (4, 2, 4, 8), 0.1, 10
-    op = W.wilson_operator(lat, mass=mass, key=0, device="cpu")
+    op = W.wilson_operator(lat, mass=mass, key=0, layout="soa", device="cpu")
     b = crand((2, 12) + lat, 3, "cpu", torch.float32)
     x_cpu, rs_cpu = E.eo_solve_packed_soa(op, b, a=mass + 4.0, n_iters=iters)
     before = S.stencil_matvec_soa.launches
@@ -245,7 +291,7 @@ def test_cg_solve_on_card_matches_cpu(cuda_device):
     """The solve through the kernel against the same solve on the CPU
     (plain version); CG amplifies summation-order differences: rtol 1e-4."""
     lat = (2, 4, 8, 16)
-    op = W.wilson_operator(lat, mass=0.1, key=0, device="cpu")
+    op = W.wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cpu")
     b = crand((2, 12) + lat, 3, "cpu", torch.float32)
     x_cpu, rs_cpu = W.cg_solve(op, b, n_iters=10)
     before = S.stencil_matvec_soa.launches
@@ -299,11 +345,16 @@ def test_local_copy_on_card_matches_cpu(cuda_device):
 
 #: batched-GEMM shapes (V, I, J, N): the JAX package's test shapes, ragged
 #: ones, E1's probe shape and the V-cycle's coarse levels (8 columns in
-#: the solve, 4 and 1 in its set-up)
+#: the solve, 4 and 1 in its set-up: the narrow tile, J split 8 ways); the
+#: families' AoS shapes (tall tile, split 4 ways); 4-byte copies (N = 1,
+#: 3, 5; J = 27, 33); K3 walking two sites a block (ragged V at the
+#: end); the square tile split 4 ways at few blocks (V = 3, 7, 40)
 GEMM_SHAPES = [(40, 12, 12, 32), (7, 24, 24, 16), (16, 12, 8, 5), (8, 32, 32, 128),
                (7, 4, 324, 3), (5, 70, 33, 40), (4096, 32, 288, 32), (256, 4, 324, 8),
                (256, 4, 324, 4), (256, 4, 324, 1), (16, 4, 64, 8), (16, 4, 64, 4),
-               (16, 4, 64, 1), (8192, 32, 32, 128)]
+               (16, 4, 64, 1), (8192, 32, 32, 128), (4096, 12, 324, 2), (1024, 3, 27, 2),
+               (300, 8, 33, 1), (20001, 12, 12, 5), (25001, 32, 32, 40), (3, 200, 500, 70),
+               (40, 64, 64, 300)]
 
 
 def _gemm_operands(V, I, J, N, dtype, device):
@@ -337,6 +388,31 @@ def test_batched_gemm_kernels_match_plain_version(cuda_device, kernel, dtype):
         plain = G.batched_small_gemm_reference(b, x)
         assert float((got.double() - plain.double()).abs().max()) <= tol, (V, I, J, N)
     assert wrapper.launches == before + len(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_gemm_kernels_give_the_same_bits_twice(cuda_device, dtype):
+    """Two launches on the same operands give equal bits (the split-J
+    partial sums are added in a fixed order), at each tile and on
+    misaligned operands (a contiguous view one element into its storage:
+    the 4-byte copies)."""
+    for V, I, J, N in ((256, 4, 324, 8), (16, 4, 64, 8), (4096, 12, 324, 2),
+                       (7, 24, 24, 16), (8192, 32, 32, 128), (4096, 32, 288, 32)):
+        b, x = _gemm_operands(V, I, J, N, dtype, cuda_device)
+        for wrapper in (G.batched_small_gemm, G.batched_gemm_rowpack):
+            assert torch.equal(wrapper(b, x), wrapper(b, x)), (V, I, J, N)
+    b, x = _gemm_operands(40, 12, 36, 8, dtype, cuda_device)
+    xs = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    xs[1:] = x.reshape(-1)
+    xm = xs[1:].view(x.shape)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    want64 = torch.einsum("vij,vjn->vin", b.double(), x.double())
+    tol = (1e-5 if dtype == torch.float32 else 1e-12) * 6 * float(want64.abs().max())
+    for wrapper in (G.batched_small_gemm, G.batched_gemm_rowpack):
+        got = wrapper(b, xm)
+        assert torch.equal(got, wrapper(b, xm))
+        assert float((got.double() - want64).abs().max()) <= tol
 
 
 @pytest.mark.cuda

@@ -141,7 +141,8 @@ def test_eo_solve_solves_the_full_system():
     """The packed solve's psi satisfies D psi = b (full-lattice operator,
     plain version), f64."""
     lat, mass = (4, 2, 2, 4), 0.5
-    top = TW.wilson_operator(lat, mass=mass, key=3, dtype=torch.complex128, device="cpu")
+    top = TW.wilson_operator(lat, mass=mass, key=3, dtype=torch.complex128, layout="soa",
+                          device="cpu")
     _, b = both(crand_np((2, 12) + lat, 7))
     psi, rs = TE.eo_solve_packed_soa(top, b, a=mass + 4.0, n_iters=60)
     r = TC.add(TW.apply_wilson(top, psi), TC.scale(-1.0, b))
@@ -153,7 +154,7 @@ def test_packed_hopping_adjoint_identity():
     """<y_e, H_eo x_o> = <(H^H)_oe y_e, x_o>: the packed hopping of the
     adjoint operator is the adjoint of the packed hopping."""
     lat = (4, 2, 4, 6)
-    top = TW.wilson_operator(lat, key=1, dtype=torch.complex128, device="cpu")
+    top = TW.wilson_operator(lat, key=1, dtype=torch.complex128, layout="soa", device="cpu")
     half = (2, 12, lat[0] // 2) + lat[1:]
     _, x = both(crand_np(half, 8))
     _, y = both(crand_np(half, 9))

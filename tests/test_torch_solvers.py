@@ -138,7 +138,8 @@ def test_cgne_wilson_normal_operator_matches_jax():
     """CG on D^H D x = D^H b with the small SoA Wilson operator, f64."""
     lat = (2, 2, 8, 128)
     jop = JW.wilson_operator(lat, mass=1.0, key=0, layout="soa", dtype=jnp.complex128)
-    top = TW.wilson_operator(lat, mass=1.0, key=0, dtype=torch.complex128, device="cpu")
+    top = TW.wilson_operator(lat, mass=1.0, key=0, dtype=torch.complex128, layout="soa",
+                          device="cpu")
     jop_h, top_h = JW.adjoint_operator(jop), TW.adjoint_operator(top)
     jb, tb = both(crand_np((1, 12) + lat, 7))
     kw = dict(tol=1e-8, maxiter=100)

@@ -110,9 +110,12 @@ def test_all_ones_gives_neighbour_count(with_kron):
 
 
 @pytest.mark.parametrize("case", ["kron_2x2", "block_4x4", "packed_parity",
-                                  "f64", "f32_blocks_bf16_field", "offset_2",
+                                  "f64", "f32_blocks_bf16_field", "f16", "offset_2",
                                   "wrong_x_shape", "non_contiguous"])
 def test_kernel_rejects_what_it_does_not_take(case):
+    """K1 takes the five pairs of KERNEL_DTYPES (f64 and f32 blocks with
+    bf16 fields among them) and refuses f16; the X-inside and X-streaming
+    schedules refuse those two pairs, naming ROADMAP.md."""
     blocks, kron, x = operands(True, np.float32)
     tb, tk, tx = (both(a)[1] for a in (blocks, kron, x))
     kw = dict(blocks=tb, kron=tk, x=tx, offsets=WILSON_OFFSETS, bi=BI, bd=BD)
@@ -130,11 +133,18 @@ def test_kernel_rejects_what_it_does_not_take(case):
         # parities 0 and 1 run in the kernel; anything else is no parity
         kw["packed_parity"] = 2
         err = ValueError
-    elif case == "f64":
-        kw["blocks"] = tb.to(torch.float64)
-        kw["x"] = tx.to(torch.float64)
-    elif case == "f32_blocks_bf16_field":
-        kw["x"] = tx.to(torch.bfloat16)
+    elif case in ("f64", "f32_blocks_bf16_field"):
+        if case == "f64":
+            kw["blocks"] = tb.to(torch.float64)
+            kw["x"] = tx.to(torch.float64)
+        else:
+            kw["x"] = tx.to(torch.bfloat16)
+        assert TS.check_kernel_case(**kw) == (4, 4)
+        kw["shapes"] = TS.SCHEDULE_SHAPES
+    elif case == "f16":
+        kw["blocks"] = tb.to(torch.float16)
+        kw["x"] = tx.to(torch.float16)
+        err = ValueError
     elif case == "offset_2":
         kw["offsets"] = WILSON_OFFSETS[:-1] + [(0, 0, 0, 2)]
         err = ValueError
@@ -145,7 +155,7 @@ def test_kernel_rejects_what_it_does_not_take(case):
         # right shape, columns not innermost-contiguous
         kw["x"] = CArray(*(p.transpose(0, 1).contiguous().transpose(0, 1) for p in tx))
         err = ValueError
-    match = {"kron_2x2": "256", "block_4x4": "expected"}.get(
+    match = {"kron_2x2": "256", "block_4x4": "expected", "f16": "takes"}.get(
         case, "ROADMAP" if err is NotImplementedError else None)
     with pytest.raises(err, match=match):
         TS.check_kernel_case(**kw)

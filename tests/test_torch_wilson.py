@@ -27,7 +27,7 @@ def ops(dtype, storage=None):
     jd, td = PRECISIONS[dtype]
     jop = JW.wilson_operator(LAT, mass=0.1, key=0, layout="soa", dtype=jd,
                              storage_dtype=None if storage is None else jnp.bfloat16)
-    top = TW.wilson_operator(LAT, mass=0.1, key=0, dtype=td, device="cpu",
+    top = TW.wilson_operator(LAT, mass=0.1, key=0, dtype=td, layout="soa", device="cpu",
                              storage_dtype=None if storage is None else torch.bfloat16)
     return jop, top
 
@@ -156,11 +156,12 @@ def test_cg_solve_matches_jax(dtype):
 def _build_without_device(entry):
     lat = (2, 2, 2, 4)
     if entry == "wilson_operator":
-        return TW.wilson_operator(lat, key=0)
+        return TW.wilson_operator(lat, key=0, layout="soa")
     blocks = np.zeros(lat + (9, 3, 3), np.float32)
     if entry == "bsr_from_stencil":
         return TB.bsr_from_stencil("xyztc", "xyztC", lat, {"c": 3}, {"C": 3},
-                                   TW.wilson_offsets(4), TC.CArray(blocks, blocks))
+                                   TW.wilson_offsets(4), TC.CArray(blocks, blocks),
+                                   layout="soa")
     soa = np.zeros((9, 9) + lat, np.float32)
     return TB.operator_from_numpy(soa, soa, None, None, TW.wilson_offsets(4), lat, 3, 3)
 
