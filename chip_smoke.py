@@ -3,14 +3,28 @@
     python3 chip_smoke.py [--profile]
 
 Builds the CUDA kernels from ``superbblas_tpu_torch/csrc`` (one nvcc per
-source, in parallel) and drives the port's paths on the card.
+source, in parallel) and drives the port's paths on the card.  Prints the
+measured device-to-device copy rate beside the data sheet's (the bounds
+keep the data sheet's) and the tiled K1 kernel's registers, spills and
+resident blocks at every type pair.
 
 Stencil checks: the stencil kernel K1 against its plain PyTorch version at
 small shapes, and with ``packed_parity`` (both parities) on ragged half
 lattices; its X-inside (K4a) and X-streaming (K4b) schedules against the
-plain version and against K1, bit for bit, at small shapes; all three at
-the Wilson bench shape (lattice 8x8x16x128, 8 columns, f32 and bf16),
-timed in turns with the plain version there.
+plain version and against K1's runtime-shape route, bit for bit, at small
+shapes; all three at the Wilson bench shape (lattice 8x8x16x128, 8
+columns, f32 and bf16), K1 driven once there through ``apply_wilson``
+(one launch, one spin plan), then timed in turns with the plain version.
+
+K1's rows of the kernels line give ``bound_ms`` against the operations
+its spin plan does (a factored Wilson hop projects onto two slots; the
+``_factor_kron`` plan of the TPU kernel) and, as ``bound_ref_ms``, the
+bound with the reference's FLOP model; ``plan_builds`` is the plans built
+in the row's solve: plans are kept by kron value, so one to N for N
+operators with spin factors, none in an iteration (asserted on the CG,
+even-odd, BiCGStab, twisted-mass, clover, Moebius and staggered solves;
+the staggered operators have no spin factors, so none); the MG-FGCR,
+CGNE and V-cycle solves build no plan and read no kron to the host.
 
 Wilson path: one Wilson operator on a 32x32x32x64 lattice (links from
 numpy seed 0, f32) with 8 right-hand sides, built once and shared by the
@@ -166,7 +180,9 @@ from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_g
 from superbblas_tpu_torch.ops.permute import (TILES, maybe_permute, permute_4d,
                                               permute_4d_reference, permute_4d_tiled)
 from superbblas_tpu_torch.ops.roll_add import VARIANTS, roll_add, roll_add_reference
-from superbblas_tpu_torch.ops.stencil import (soa_to_aos, stencil_matvec_soa,
+from superbblas_tpu_torch.ops import stencil as stencil_ops
+from superbblas_tpu_torch.ops.stencil import (clear_plans, soa_to_aos, spin_plan,
+                                              stencil_matvec_soa,
                                               stencil_matvec_soa_reference,
                                               stencil_matvec_soa_rt,
                                               stencil_matvec_soa_stream,
@@ -270,8 +286,10 @@ def compare(blocks, kron, x, offsets, label, fn=None, packed_parity=None, bi=3,
     torch.cuda.synchronize()
     if got.re.dtype != x.re.dtype or got.re.shape != want.re.shape:
         raise AssertionError(f"{label}: output {got.re.dtype} {tuple(got.re.shape)}")
-    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-    scale = max(float(w.float().abs().max()) for w in want)
+    # in f64: an f32 cast would round two f64 results that differ in their
+    # last bits a whole f32 step apart
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.double().abs().max()) for w in want)
     ok = err <= TOL[x.re.dtype] * scale
     print(f"check {label}: max|d|={err:.3e} max|y|={scale:.3e} "
           f"rel={err / scale:.3e} {'ok' if ok else 'FAIL'}", flush=True)
@@ -309,17 +327,18 @@ def time_stencils(op, x, reps):
                        "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
 
 
-def same_as_k1(blocks, kron, x, offsets, label):
-    """K4a and K4b against the plain version and against K1, bit for bit
-    (they share K1's per-site math and its order of sums); returns the max
-    abs error against the plain version."""
-    k1 = stencil_matvec_soa(blocks, kron, x, offsets, 3, 3)
+def same_as_rt(blocks, kron, x, offsets, label):
+    """K4a and K4b against the plain version and against K1's runtime-shape
+    route, bit for bit (they share its per-site math and its order of
+    sums; K1's tiled route sums a factored direction in another order);
+    returns the max abs error against the plain version."""
+    rt = stencil_matvec_soa_rt(blocks, kron, x, offsets, 3, 3)
     err = 0.0
     for name, fn in SCHEDULES.items():
         err = max(err, compare(blocks, kron, x, offsets, f"{name} {label}", fn=fn))
         got = fn(blocks, kron, x, offsets, 3, 3)
-        if not all(torch.equal(g, w) for g, w in zip(got, k1)):
-            raise AssertionError(f"{name} {label}: differs from K1")
+        if not all(torch.equal(g, w) for g, w in zip(got, rt)):
+            raise AssertionError(f"{name} {label}: differs from K1's runtime-shape route")
     return err
 
 
@@ -333,10 +352,42 @@ def reset_counts():
         fn.launches = 0
     for fn in (stencil_matvec_soa, stencil_matvec_soa_rt):
         fn.by_shape.clear()
+    stencil_matvec_soa.plan_builds = 0
+    stencil_matvec_soa.kron_reads = 0
 
 
 def read_counts():
-    return {fn.__name__: fn.launches for fn in COUNTED}
+    return {fn.__name__: fn.launches for fn in COUNTED} | {
+        "plan_builds": stencil_matvec_soa.plan_builds,
+        "kron_reads": stencil_matvec_soa.kron_reads}
+
+
+#: spin plans built by each path's solve, by path (the kernels line)
+PLANS_BUILT = {}
+
+
+def expect_plans(label, operators):
+    """Raise unless the run since reset_counts() and clear_plans() built
+    between one and ``operators`` spin plans (plans are kept by kron value:
+    one per operator with spin factors at most, none in the iterations) and
+    read at most ``operators`` kron tensors to the host; kept in
+    PLANS_BUILT under the label's first word."""
+    got, reads = stencil_matvec_soa.plan_builds, stencil_matvec_soa.kron_reads
+    PLANS_BUILT[label.split()[0]] = got
+    print(f"{label}: spin plans built {got}, krons read to the host {reads} (at most "
+          f"{operators}, one per operator with a kron)", flush=True)
+    if not (min(1, operators) <= got <= operators and reads <= operators):
+        raise AssertionError(f"{label}: {got} spin plans built and {reads} krons read, "
+                             f"expected 1 to {operators}")
+
+
+def expect_no_plans(label, counts):
+    """Raise unless a solve whose operators' plans already exist built no
+    spin plan and read no kron to the host in its iterations."""
+    print(f"{label}: spin plans built {counts['plan_builds']}, krons read to the host "
+          f"{counts['kron_reads']} (expected 0 and 0)", flush=True)
+    if counts["plan_builds"] or counts["kron_reads"]:
+        raise AssertionError(f"{label}: a plan was built or a kron read in the solve")
 
 
 def norm(a) -> float:
@@ -406,32 +457,75 @@ def schedule_checks(gen):
         for st, ft in DTYPE_PAIRS:
             blocks = randn_c((9, 9) + lat, gen, st)
             kron = randn_c((9, 4, 4), gen)
-            same_as_k1(blocks, kron, randn_c((n, 12) + lat, gen, ft), WILSON_OFFSETS,
+            same_as_rt(blocks, kron, randn_c((n, 12) + lat, gen, ft), WILSON_OFFSETS,
                        f"{lat} n={n} {st}/{ft}")
-            same_as_k1(blocks, None, randn_c((n, 3) + lat, gen, ft), WILSON_OFFSETS,
+            same_as_rt(blocks, None, randn_c((n, 3) + lat, gen, ft), WILSON_OFFSETS,
                        f"no-kron {lat} n={n} {st}/{ft}")
 
 
 def bench_shape(gen):
-    """K1, K4a, K4b and the plain version at the Wilson bench shape:
-    checked, then timed in turns."""
+    """K1, K4a, K4b and the plain version at the Wilson bench shape: K1
+    driven once (the counts and the kept plans reset just before, read
+    just after), checked, the schedules held against the runtime-shape
+    route, then all timed in turns.  Returns {label: (launches, max error,
+    {name: median ms}, (bound ms, by, reference-model ms), plans built)}."""
     lat, n = (8, 8, 16, 128), 8
     op32 = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
+    out = {}
     for label, op, ft in (("f32", op32, torch.float32),
                           ("bf16/bf16", bsr_cast_storage(op32, torch.bfloat16),
                            torch.bfloat16)):
         x = randn_c((n, 12) + lat, gen, ft)
-        compare(op.blocks, op.kron, x, op.offsets, f"bench {lat} n={n} {label}")
-        same_as_k1(op.blocks, op.kron, x, op.offsets, f"bench {lat} n={n} {label}")
+        clear_plans()
+        reset_counts()
+        apply_wilson(op, x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["stencil_matvec_soa"] != 1 or counts["plan_builds"] != 1:
+            raise AssertionError(f"bench {label}: counts {counts}, expected one launch and "
+                                 "one plan")
+        err = compare(op.blocks, op.kron, x, op.offsets, f"bench {lat} n={n} {label}")
+        same_as_rt(op.blocks, op.kron, x, op.offsets, f"bench {lat} n={n} {label}")
         ms = time_stencils(op, x, reps=25)
         flops = op.flops_per_matvec(n)
         nbytes = op.memops_per_matvec(n, itemsize=2 * x.re.element_size())
-        bound_ms, bound_by = bound(nbytes, flops)
-        print(f"bench {label} bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        bd_ = stencil_bound(op.blocks, op.kron, x, op.offsets, 3, 3)
+        print(f"bench {label} bound {bd_[0]:.4f} ms ({bd_[1]}), reference-model bound "
+              f"{bd_[2]:.4f} ms", flush=True)
         for k, v in ms.items():
             print(f"bench {label} {k}: median {v:.4f} ms over 25, "
-                  f"{flops / v / 1e6:.1f} GFLOP/s, {nbytes / v / 1e6:.1f} GB/s",
-                  flush=True)
+                  f"{flops / v / 1e6:.1f} GFLOP/s (reference model), "
+                  f"{nbytes / v / 1e6:.1f} GB/s", flush=True)
+        out[label] = 1, err, ms, bd_, counts["plan_builds"]
+    return out
+
+
+def copy_rate() -> float:
+    """Device-to-device copy rate, bytes/s (read and write counted), of a
+    1 GiB f32 tensor: the median of 5 copies on CUDA events."""
+    a = torch.empty(2 ** 28, device="cuda")
+    b = torch.empty_like(a)
+    ms = time_turns({"copy": lambda: b.copy_(a)}, 5)["copy"]
+    del a, b
+    return 2 * 2 ** 30 / (ms * 1e-3)
+
+
+def tiled_attrs() -> dict:
+    """{"shape form pair": [registers, local bytes, threads, blocks an
+    SM]} of the tiled kernel at 32^3x64 x 8 (cudaFuncGetAttributes)."""
+    import ctypes
+
+    out = {}
+    for ki, form in ((4, "sparse"), (4, "dense"), (1, "dense")):
+        for pair, (st, ft) in enumerate(stencil_ops.KERNEL_DTYPES):
+            got = (ctypes.c_int * 4)()
+            err = _cuda.library().sbt_stencil_tiled_attrs(ki, ki, 3, 3, pair,
+                                                          int(form == "sparse"),
+                                                          MAIN_COLS, *MAIN_LAT, 4, got)
+            if err != 0:
+                raise AssertionError(f"tiled kernel attributes: cudaError {err}")
+            out[f"{ki},{ki},3,3 {form} {str(st)[6:]}/{str(ft)[6:]}"] = list(got)
+    return out
 
 
 def profile_run(label, fn):
@@ -488,8 +582,8 @@ def main_operator(gen):
 
 def wilson_path(op, b, profile: bool):
     """The Wilson path end to end: kernel against plain on the operator's
-    operands, CG solve, checks.  Returns (launches in the solve, max
-    error)."""
+    operands, CG solve (one spin plan built for D and one for D^H), checks.
+    Returns (launches in the solve, max error)."""
     lat, n = MAIN_LAT, MAIN_COLS
     # the kernel against the plain version on the solve's own operands:
     # D b and D^H b, independently of the solve's self-consistency
@@ -499,6 +593,7 @@ def wilson_path(op, b, profile: bool):
     del op_h
 
     torch.cuda.reset_peak_memory_stats()
+    clear_plans()
     reset_counts()
     t0 = time.perf_counter()
     x, rs = cg_solve(op, b, n_iters=CG_ITERS)
@@ -507,6 +602,7 @@ def wilson_path(op, b, profile: bool):
     launches = read_counts()["stencil_matvec_soa"]
     expected = 1 + 2 * CG_ITERS
     peak = torch.cuda.max_memory_allocated()
+    expect_plans("main path cg_solve (D and D^H)", 2)
 
     # checks: true residual of the normal equations, adjoint identity
     op_h = adjoint_operator(op)
@@ -542,8 +638,9 @@ def wilson_path(op, b, profile: bool):
 def schedule_path(op, b):
     """K4a and K4b through their entry points once each on the main
     operator and right-hand sides (the counts set to 0 just before and
-    read just after), held against K1 bit for bit and against the plain
-    version; then K1, K4a, K4b and the plain version timed in turns.
+    read just after), held against K1's runtime-shape route bit for bit
+    and against the plain version; then K1, K4a, K4b and the plain
+    version timed in turns.
     Returns ({name: launches}, {name: max error}, {name: median ms})."""
     args = (op.blocks, op.kron, b, op.offsets, 3, 3)
     reset_counts()
@@ -555,19 +652,20 @@ def schedule_path(op, b):
     if launches != {"xin": 1, "stream": 1} or counts["stencil_matvec_soa"] != 0:
         raise AssertionError(f"schedule path launches {counts}, expected one of each "
                              "schedule")
-    k1 = stencil_matvec_soa(*args)
+    rt = stencil_matvec_soa_rt(*args)
     want = stencil_matvec_soa_reference(*args)
     torch.cuda.synchronize()
     scale = max(float(w.abs().max()) for w in want)
     err = {}
     for name, y in got.items():
         err[name] = max(float((g - w).abs().max()) for g, w in zip(y, want))
-        same = all(torch.equal(g, w) for g, w in zip(y, k1))
+        same = all(torch.equal(g, w) for g, w in zip(y, rt))
         print(f"check {name} main path: max|d| vs plain {err[name]:.3e} "
-              f"(rel {err[name] / scale:.3e}), equal to K1 bit for bit: {same}", flush=True)
+              f"(rel {err[name] / scale:.3e}), equal to K1's runtime-shape route bit for "
+              f"bit: {same}", flush=True)
         if not (err[name] <= TOL[torch.float32] * scale and same):
             raise AssertionError(f"{name} on the main operator disagrees")
-    del got, k1, want
+    del got, rt, want
     ms = time_stencils(op, b, reps=11)
     print(f"main shape {MAIN_LAT} n={MAIN_COLS} matvec medians over 11 in turns: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
@@ -601,14 +699,15 @@ def eo_path(op, b, profile: bool):
         ms[name] = t["kernel"], t["plain"]
         print(f"eo {name} packed hopping: kernel median {t['kernel']:.4f} ms, plain "
               f"median {t['plain']:.4f} ms over 7", flush=True)
-    hop = hops["H_eo"][0]
-    hop_bound = bound(hop.memops_per_matvec(n, itemsize=8), hop.flops_per_matvec(n))
-    print(f"eo packed hopping bound {hop_bound[0]:.4f} ms ({hop_bound[1]}): "
-          f"{hop.flops_per_matvec(n) / 1e9:.2f} GFLOP, "
-          f"{hop.memops_per_matvec(n, itemsize=8) / 1e9:.3f} GB", flush=True)
-    del hops, hop
+    hop, _, src = hops["H_eo"]
+    hop_bound = stencil_bound(hop.blocks, hop.kron, src, hop.offsets, 3, 3)
+    print(f"eo packed hopping bound {hop_bound[0]:.4f} ms ({hop_bound[1]}), reference-model "
+          f"bound {hop_bound[2]:.4f} ms: {hop.flops_per_matvec(n) / 1e9:.2f} GFLOP in the "
+          f"model, {hop.memops_per_matvec(n, itemsize=8) / 1e9:.3f} GB", flush=True)
+    del hops, hop, src
 
     torch.cuda.reset_peak_memory_stats()
+    clear_plans()
     reset_counts()
     t0 = time.perf_counter()
     psi, rs = eo_solve_packed_soa(op, b, a=a, n_iters=EO_ITERS)
@@ -617,6 +716,7 @@ def eo_path(op, b, profile: bool):
     launches = read_counts()["stencil_matvec_soa"]
     expected = 4 * EO_ITERS + 4
     peak = torch.cuda.max_memory_allocated()
+    expect_plans("eo path eo_solve_packed_soa (four packed hoppings)", 4)
     finite = all(bool(torch.isfinite(q).all()) for q in psi)
     res = true_residual(op, psi, b)
     print(f"eo path {MAIN_LAT} x {n} rhs: eo_solve_packed_soa {EO_ITERS} iters "
@@ -651,6 +751,7 @@ def eo_path(op, b, profile: bool):
 
     rhs = cplx.add(cb_pack_soa(b, 0), cplx.scale(
         -1.0 / a, apply_hopping_packed_soa(he, cb_pack_soa(b, 1), 0)))
+    clear_plans()
     reset_counts()
     t0 = time.perf_counter()
     x_e, _, k = solvers.bicgstab(dhat, rhs, tol=BICG_TOL, maxiter=BICG_MAXITER)
@@ -665,6 +766,7 @@ def eo_path(op, b, profile: bool):
     if not (k < BICG_MAXITER and schur <= 2e-5 and b_launches == 4 * k):
         raise AssertionError("bicgstab on the packed Schur operator did not converge "
                              "through the kernel")
+    expect_plans("bicgstab on the packed Schur operator (two packed hoppings)", 2)
     del he, ho, rhs, x_e, r
     if profile:
         profile_run("eo solve", lambda: eo_solve_packed_soa(op, b, a=a, n_iters=EO_ITERS))
@@ -1212,6 +1314,7 @@ def mg_path(profile: bool):
     def A(u):
         return multigrid._level_apply(op, u, True, op_h)
 
+    A(b)   # the plans of D and D^H, as the set-up built D's
     reset_counts()
     t0 = time.perf_counter()
     xm, _, itm = solvers.fgcr(D, b, M=M, tol=MG_TOL, maxiter=800, restart=8, cols=True)
@@ -1240,6 +1343,8 @@ def mg_path(profile: bool):
     if mg_counts["stencil_matvec_soa"] != 11 * itm \
             or cg_counts["stencil_matvec_soa"] != 2 * itc + 1:
         raise AssertionError("a fine apply of the MG path did not launch K1")
+    expect_no_plans("mg path MG-FGCR", mg_counts)
+    expect_no_plans("mg path CGNE", cg_counts)
     if profile:
         profile_run("mg-fgcr solve", lambda: solvers.fgcr(D, b, M=M, tol=MG_TOL, maxiter=800,
                                                           restart=8, cols=True))
@@ -1287,6 +1392,7 @@ def vcycle_path(gen):
     rho = norm(CArray(e.re - corr.re, e.im - corr.im)) / norm(e)
     b = mg_rhs(MG_LAT, MG_COLS)
     rhs = multigrid._level_apply(op_h, b, normal=False)
+    V(A(rhs))   # every level's plans, before the counts
     reset_counts()
     t0 = time.perf_counter()
     xv, _, itv = solvers.fgcr(A, rhs, M=V, tol=MG_TOL, maxiter=400, restart=8, cols=True)
@@ -1308,6 +1414,7 @@ def vcycle_path(gen):
     if min(counts["stencil_matvec_soa"], counts["batched_gemm_rowpack"],
            counts["batched_small_gemm"]) == 0:
         raise AssertionError(f"a level's kernel was not launched: {counts}")
+    expect_no_plans("vcycle path FGCR", counts)
     return {k: setup_counts[k] + counts[k] for k in counts}, path_err
 
 
@@ -1364,30 +1471,54 @@ def g5(v: CArray, feature_axis: int) -> CArray:
     return CArray(signs * v.re, signs * v.im)
 
 
+def planned_flops(kron, n, V, bi, bd, ndir) -> int:
+    """The operations one matvec does with the spin plan of ``kron``
+    (``spin_plan``; None: K_d = 1), 8 a complex multiply-add: a direct
+    direction's nonzero spin entries x BD and its KI x BI x BD colour
+    products, a factored one's nonzero P entries x BD, its r x BI x BD
+    colour products and its nonzero R entries x BI."""
+    if kron is None:
+        return 8 * V * n * ndir * bi * bd
+    per_site = 0
+    for spec in spin_plan(kron, torch.float32).specs:
+        nnz = sum(len(row) for row in spec[1])
+        if spec[0] == "direct":
+            per_site += nnz * bd + len(spec[1]) * bi * bd
+        else:
+            per_site += nnz * bd + len(spec[1]) * bi * bd + sum(len(r) for r in spec[2]) * bi
+    return 8 * V * n * per_site
+
+
 def stencil_bound(blocks, kron, x, offsets, bi, bd):
-    """(ms, by) of one SoA matvec: the bytes of the blocks once (in their
-    type), of x read and y written (in the field's), and the operations of
-    the BSROperator model, at the f64 peak for f64 fields."""
+    """(ms, by, reference-model ms) of one SoA matvec: the bytes of the
+    blocks once (in their type), of x read and y written (in the
+    field's), against the operations the spin plan does (planned_flops),
+    at the f64 peak for f64 fields; beside it the bound with the
+    operations of the BSROperator model (the reference's, PR 1-6's
+    bound)."""
     ki, kd = (1, 1) if kron is None else tuple(kron.re.shape[1:])
     op = BSROperator(blocks, kron, offsets, tuple(x.re.shape[2:]), (bi,), (bd,),
                      (ki,) if kron is not None else (), (kd,) if kron is not None else ())
     n = x.re.shape[0]
+    V = x.re.numel() // (n * kd * bd)
     nbytes = 2 * (blocks.re.numel() * blocks.re.element_size()
                   + (x.re.numel() // (kd * bd) * (ki * bi) + x.re.numel()) * x.re.element_size())
-    return bound(nbytes, op.flops_per_matvec(n),
-                 F64_FLOPS if x.re.dtype == torch.float64 else F32_FLOPS)
+    peak = F64_FLOPS if x.re.dtype == torch.float64 else F32_FLOPS
+    ms, by = bound(nbytes, planned_flops(kron, n, V, bi, bd, len(offsets)), peak)
+    return ms, by, bound(nbytes, op.flops_per_matvec(n), peak)[0]
 
 
 def time_stencil(blocks, kron, x, offsets, bi, bd, reps, label):
     """K1 (the route of its shape) and the plain version on one matvec, in
     turns, beside the bound.  Returns ({"kernel", "plain"}: median ms,
-    (bound ms, by))."""
+    (bound ms, by, reference-model bound ms))."""
     args = (blocks, kron, x, offsets, bi, bd)
     ms = time_turns({"kernel": lambda: stencil_matvec_soa(*args),
                      "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
     bd_ = stencil_bound(*args)
     print(f"time {label}: kernel median {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms "
-          f"over {reps} in turns; bound {bd_[0]:.4f} ms ({bd_[1]})", flush=True)
+          f"over {reps} in turns; bound {bd_[0]:.4f} ms ({bd_[1]}), reference-model bound "
+          f"{bd_[2]:.4f} ms", flush=True)
     return ms, bd_
 
 
@@ -1465,12 +1596,15 @@ def k1_shape_path(gen):
     return out, err[MOEBIUS_SHAPE]
 
 
-def family_solve(label, A, Ah, b, maxiter):
-    """CGNE (``solvers.cgne``) to FAMILY_TOL, the counts set to 0 just
-    before and read just after; then its true residuals in f64: the normal
-    one against SOLVE_RES_TOL, the unsquared one against UNSQUARED_TOL.
-    Returns (iterations, {route: launches by shape})."""
+def family_solve(label, A, Ah, b, maxiter, plans):
+    """CGNE (``solvers.cgne``) to FAMILY_TOL, the counts set to 0 and the
+    kept spin plans dropped just before, read just after; then its true
+    residuals in f64: the normal one against SOLVE_RES_TOL, the unsquared
+    one against UNSQUARED_TOL, and ``plans`` plans built (one per operator
+    with spin factors).  Returns (iterations, {route: launches by
+    shape})."""
     torch.cuda.reset_peak_memory_stats()
+    clear_plans()
     reset_counts()
     t0 = time.perf_counter()
     x, _, it = solvers.cgne(A, Ah, b, tol=FAMILY_TOL, maxiter=maxiter)
@@ -1496,6 +1630,7 @@ def family_solve(label, A, Ah, b, maxiter):
     if counts["stencil_matvec_soa_rt"] or counts["batched_small_gemm"] \
             or counts["batched_gemm_rowpack"]:
         raise AssertionError(f"{label}: a kernel off the SoA path was launched")
+    expect_plans(label, plans)
     return it, shapes
 
 
@@ -1526,8 +1661,9 @@ def clover_path(gen, profile: bool):
     def Ah(v):
         return g5(A(g5(v, 1)), 1)
 
+    # one plan: the hopping term's; the clover term has no spin factors
     it, shapes = family_solve(f"clover path {CLOVER_LAT} x {MAIN_COLS} rhs", A, Ah, b,
-                              CLOVER_MAXITER)
+                              CLOVER_MAXITER, plans=1)
     applies = 1 + 2 * it
     if shapes["templated"] != {(4, 4, 3, 3): applies, CLOVER_SHAPE: applies}:
         raise AssertionError(f"clover path launches {shapes}, expected {applies} of each "
@@ -1582,8 +1718,9 @@ def moebius_path(gen, profile: bool):
     ms, bd_ = time_stencil(w.blocks, w.kron, xf, w.offsets, 3, 3, 5,
                            f"K1 (4,4,3,3) {MOEBIUS_LAT} {ncols} columns (Moebius)")
     del xf, u
+    # two plans: the Wilson operators of both projector sides
     it, shapes = family_solve(f"moebius path {MOEBIUS_LAT} Ls {MOEBIUS_LS} x {MOEBIUS_COLS} "
-                              "rhs", A, Ah, b, MOEBIUS_MAXITER)
+                              "rhs", A, Ah, b, MOEBIUS_MAXITER, plans=2)
     applies = 1 + 2 * it
     if shapes["templated"] != {(4, 4, 3, 3): applies}:
         raise AssertionError(f"moebius path launches {shapes}, expected {applies}")
@@ -1610,9 +1747,12 @@ def staggered_path(links, gen):
                       f"{MAIN_LAT} n={MAIN_COLS}") for name, o in (("D", op), ("D^H", op_h)))
     ms, bd_ = time_stencil(op.blocks, None, b, op.offsets, 3, 3, 5,
                            f"K1 (1,1,3,3) staggered {MAIN_LAT} n={MAIN_COLS}")
+    # no plan: the staggered operators have no spin factors (K_d = 1 in the
+    # tiled kernel without a table)
     it, shapes = family_solve(f"staggered path {MAIN_LAT} x {MAIN_COLS} rhs",
                               lambda v: apply_staggered(op, v),
-                              lambda v: apply_staggered(op_h, v), b, STAGGERED_MAXITER)
+                              lambda v: apply_staggered(op_h, v), b, STAGGERED_MAXITER,
+                              plans=0)
     applies = 1 + 2 * it
     if shapes["templated"] != {(1, 1, 3, 3): applies}:
         raise AssertionError(f"staggered path launches {shapes}, expected {applies}")
@@ -1631,12 +1771,14 @@ def twisted_mass_path(links, b):
     print(f"twisted-mass path {MAIN_LAT} mass {MASS} mu {TM_MU}: set-up "
           f"{time.perf_counter() - t0:.2f} s; centre spin factor imaginary part max "
           f"{float(op.kron.im[0].abs().max()):.3f}", flush=True)
+    clear_plans()
     reset_counts()
     t0 = time.perf_counter()
     x, rs = cg_solve(op, b, n_iters=CG_ITERS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()["stencil_matvec_soa"]
+    expect_plans("twisted-mass path cg_solve (D and D^H)", 2)
     op_h = adjoint_operator(op)
     dhb = apply_wilson(op_h, b)
     dx = apply_wilson(op, x)
@@ -1927,6 +2069,14 @@ def main():
     print(f"kernel library {_cuda.BUILD}: {nvcc}, build and load "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+    rate = copy_rate()
+    print(f"device-to-device copy {rate / 1e12:.3f} TB/s measured (1 GiB, read and write "
+          f"counted); the bounds take the data sheet's {HBM_BYTES_PER_S / 1e12:.2f} TB/s",
+          flush=True)
+    for key, (regs, local, threads, blocks) in tiled_attrs().items():
+        print(f"tiled K1 {key}: {regs} registers, {local} B local (spills), {threads} "
+              f"threads a block, {blocks} blocks an SM", flush=True)
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     small_checks(gen)
@@ -1939,7 +2089,7 @@ def main():
     vc_launches, vc_err = vcycle_path(gen)
     if min(c_launches, mg_launches) == 0:
         raise AssertionError("the coarse or MG path launched none of its kernels")
-    bench_shape(gen)
+    bench = bench_shape(gen)
     k1_shapes, moebius_cols_err = k1_shape_path(gen)
     aos_launches, aos_err = families_aos_check(gen)
     dc_launches, dc_err = default_call_path(gen)
@@ -1954,8 +2104,7 @@ def main():
     eo_launches, eo_err, eo_ms, eo_bound = eo_path(op, b, args.profile)
     if eo_launches == 0:
         raise AssertionError("the even-odd path launched no packed stencil kernel")
-    k1_bound = bound(op.memops_per_matvec(MAIN_COLS, itemsize=8),
-                     op.flops_per_matvec(MAIN_COLS))
+    k1_bound = stencil_bound(op.blocks, op.kron, b, op.offsets, 3, 3)
     del op
     p2 = p2_path(links, b, gen)
     tm_launches = twisted_mass_path(links, b)
@@ -1974,39 +2123,46 @@ def main():
 
     print(f"chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)
-    stencil = {"route": "cuda", "library_ms": None}
+    # K1's rows: bound_ms against the operations of the spin plan,
+    # bound_ref_ms against the reference's FLOP model (PR 1-6's bound)
+    stencil = {"route": "cuda", "library_ms": None,
+               "replaces": "superbblas_tpu/ops/stencil_pallas.py:368"}
+    tiled_src = {"source": "superbblas_tpu_torch/csrc/stencil_tiled.cu"}
+    soa_src = {"source": "superbblas_tpu_torch/csrc/stencil_soa.cu"}
     print(json.dumps({"kernels": [{
-        "name": "stencil_matvec_soa", **stencil,
-        "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
-        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "name": "stencil_matvec_soa", **stencil, **tiled_src,
         "launches": launches, "max_abs_err": err, "ms": ms["k1"], "plain_ms": ms["plain"],
-        "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}] + [{
-        "name": f"stencil_matvec_soa[{pair}]", **stencil,
-        "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
-        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "bound_ref_ms": k1_bound[2],
+        "plan_builds": PLANS_BUILT["main"]}] + [{
+        "name": f"stencil_matvec_soa[{pair}]", **stencil, **tiled_src,
         "launches": n_launch, "max_abs_err": e, "ms": t["kernel"], "plain_ms": t["plain"],
-        "bound_ms": bd_[0], "bound_by": bd_[1]}
+        "bound_ms": bd_[0], "bound_by": bd_[1], "bound_ref_ms": bd_[2]}
         for pair, (n_launch, e, t, bd_) in p2.items()] + [{
-        "name": "stencil_matvec_soa[packed_parity]", **stencil,
-        "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
-        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "name": "stencil_matvec_soa[packed_parity]", **stencil, **tiled_src,
         "launches": eo_launches, "max_abs_err": eo_err, "ms": eo_ms["H_eo"][0],
-        "plain_ms": eo_ms["H_eo"][1], "bound_ms": eo_bound[0], "bound_by": eo_bound[1]}] + [{
-        "name": name, **stencil, "source": "superbblas_tpu_torch/csrc/stencil_soa.cu",
-        "replaces": "superbblas_tpu/ops/stencil_pallas.py:368",
+        "plain_ms": eo_ms["H_eo"][1], "bound_ms": eo_bound[0], "bound_by": eo_bound[1],
+        "bound_ref_ms": eo_bound[2], "plan_builds": PLANS_BUILT["eo"]}] + [{
+        "name": f"stencil_matvec_soa[bench 8x8x16x128 {label}]", **stencil, **tiled_src,
+        "launches": n_launch, "max_abs_err": e, "ms": t["k1"], "plain_ms": t["plain"],
+        "bound_ms": bd_[0], "bound_by": bd_[1], "bound_ref_ms": bd_[2], "plan_builds": pb}
+        for label, (n_launch, e, t, bd_, pb) in bench.items()] + [{
+        "name": name, **stencil, **src,
         "launches": n_launch, "max_abs_err": e, "ms": t["kernel"], "plain_ms": t["plain"],
-        "bound_ms": bd_[0], "bound_by": bd_[1]}
-        for name, (n_launch, e, t, bd_) in (
-            ("stencil_matvec_soa[1,1,12,12 clover term]", clover),
-            ("stencil_matvec_soa[4,4,3,3 Moebius, 64 columns]", moebius),
-            ("stencil_matvec_soa[1,1,3,3 staggered]", staggered),
-            *((f"stencil_matvec_soa_rt[{','.join(map(str, shape))}]", k1_shapes[shape])
-              for shape in K1_RT_SHAPES))] + [{
+        "bound_ms": bd_[0], "bound_by": bd_[1], "bound_ref_ms": bd_[2],
+        **({"plan_builds": PLANS_BUILT[path]} if path else {})}
+        for name, src, path, (n_launch, e, t, bd_) in (
+            ("stencil_matvec_soa[1,1,12,12 clover term]", soa_src, None, clover),
+            ("stencil_matvec_soa[4,4,3,3 Moebius, 64 columns]", tiled_src, "moebius",
+             moebius),
+            ("stencil_matvec_soa[1,1,3,3 staggered]", tiled_src, "staggered", staggered),
+            *((f"stencil_matvec_soa_rt[{','.join(map(str, shape))}]", soa_src, None,
+               k1_shapes[shape]) for shape in K1_RT_SHAPES))] + [{
         "name": fn.__name__, **stencil,
         "source": "superbblas_tpu_torch/csrc/stencil_schedules.cu",
         "replaces": f"superbblas_tpu/ops/stencil_pallas.py:{line}",
         "launches": s_launches[name], "max_abs_err": s_err[name], "ms": ms[name],
-        "plain_ms": ms["plain"], "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}
+        "plain_ms": ms["plain"], "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "bound_ref_ms": k1_bound[2]}
         for (name, fn), line in zip(SCHEDULES.items(), (649, 795))] + [{
         "name": "permute_4d", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/permute.cu",

@@ -3,10 +3,11 @@
 //
 // Replace the Pallas TPU kernels superbblas_tpu/ops/stencil_pallas.py
 // stencil_matvec_soa_xin (_kernel_xin) and stencil_matvec_soa_stream
-// (_kernel_stream).  Both compute exactly what K1 (stencil_soa.cu)
-// computes, with the same operands and contract (no packed parity), and
-// share its per-site math (site_matvec in stencil_soa.cuh), so they sum in
-// the same order and give the same bits.  They differ in where the X
+// (_kernel_stream).  Both compute exactly what K1 computes, with the same
+// operands and contract (no packed parity), and share the per-site math
+// of K1's runtime-shape route (site_matvec in stencil_soa.cuh), so they
+// sum in its order and give its bits; K1's tiled route (stencil_tiled.cu)
+// sums a factored direction in another order.  They differ in where the X
 // neighbours come from: K1 reads x(s-x), x(s) and x(s+x) from device
 // memory (three reads of every x value, the reuse left to L1/L2); these
 // stage the X line of each (y, z, t) site and column in shared memory, so

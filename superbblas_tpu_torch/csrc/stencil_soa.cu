@@ -1,8 +1,11 @@
-// SoA nearest-neighbour Kron-BSR stencil matvec for Hopper (sm_90a), K1.
+// SoA nearest-neighbour Kron-BSR stencil matvec for Hopper (sm_90a), K1,
+// at the clover term's shape and on the runtime-shape route.
 //
 // Replaces the Pallas TPU kernel superbblas_tpu/ops/stencil_pallas.py
-// stencil_matvec_soa (_kernel, _matvec_body).  It computes the sum of
-// stencil_soa.cuh over a periodic 4-D lattice, in split complex:
+// stencil_matvec_soa (_kernel, _matvec_body) at every shape but the
+// Wilson and staggered ones, which run the tiled kernel with the spin
+// plan (stencil_tiled.cu).  It computes the sum of stencil_soa.cuh over a
+// periodic 4-D lattice, in split complex:
 //   x       [n, KD*BD, X, Y, Z, T]   field dtype FT
 //   blocks  [ndir, BI*BD, X, Y, Z, T] storage dtype ST
 //   kron    [ndir, KI, KD]           acc_t<ST, FT>, runtime values
@@ -12,17 +15,12 @@
 // bf16/f32, bf16/bf16 and f32/bf16 (the TPU kernel's pairs, summed in
 // f32, bf16 converted on load and rounded on store), and f64/f64, summed
 // in f64 (the port's own: the JAX package computes an f64 SoA operator
-// through its reference).  The f64 route is there to be right, not fast:
-// it moves twice the bytes and runs at the card's f64 FMA rate, and the
-// templated (4, 4, 3, 3) instantiation holds 12 complex inputs, 12 complex
-// sums and a 4x3 complex spin product in double registers (PERF.md says
-// whether it spills).
+// through its reference).  The f64 route is there to be right, not fast.
 //
-// Two routes take every shape the TPU kernel takes (KI*KD*BI*BD <= 256):
-// the templated kernel, with the sums unrolled for (4, 4, 3, 3) (Wilson,
-// twisted mass, domain wall), (1, 1, 3, 3) (staggered) and (1, 1, 12, 12)
-// (the clover term: 12 inputs, 12 outputs, 144 block loads a site), and
-// the runtime-shape kernel stencil_soa_rt_kernel for every other shape.
+// Two routes: the templated kernel, with the sums unrolled for
+// (1, 1, 12, 12) (the clover term: 12 inputs, 12 outputs, 144 block loads
+// a site), and the runtime-shape kernel stencil_soa_rt_kernel for every
+// shape other than the three templated ones with KI*KD*BI*BD <= 256.
 //
 // Packed parity.  With packed_parity p in {0, 1} the operands hold one
 // checkerboard parity with X halved (site (x, y, z, t) at xh = x / 2), and
@@ -32,14 +30,9 @@
 // are unchanged.  This is the parity-select X shift of the TPU kernel
 // (stencil_pallas.py _kernel, packed_parity) and of the plain version.
 //
-// What bounds it on the H100.  By its counts, bytes: per site and column,
-// f32 Wilson (ndir=9, KI=KD=4, BI=BD=3) does 6048 flops
-// (flops_per_matvec) against at least 273 B of device memory traffic
-// (x 96 B + y 96 B + links 648 B shared by 8 columns), about 22 flop/B,
-// near the card's f32 ridge.  As measured (PERF.md), not bytes: bf16
-// links and fields halve the bytes and leave the time unchanged, and the
-// kernel moves about 17% of the card's HBM bandwidth.  It is bound by
-// issue and latency, at 128 registers a thread and about 25% occupancy.
+// What bounds it on the H100.  The clover term by bytes (144 block
+// entries a site against 12 inputs and 12 outputs a column); as measured
+// (PERF.md) it runs at 3.6x that bound, bound by issue and latency.
 //
 // What the design does about the traffic:
 //  * one thread per (site, column); the flat site index is T-fastest, so
@@ -48,15 +41,12 @@
 //    the links B_d(s) a warp loads are served to the other columns from
 //    L1 instead of device memory;
 //  * neighbours are addressed directly with periodic wrap per axis; the
-//    reuse of x between neighbouring sites is left to L1/L2 (no halo
-//    copy, no shared-memory tiling; the schedules of stencil_schedules.cu
-//    stage the X neighbours in shared memory instead);
-//  * kron factors are staged once per block in shared memory;
+//    reuse of x between neighbouring sites is left to L1/L2;
+//  * kron factors are staged once per block in shared memory, as runtime
+//    values (the spin plan is the tiled kernel's);
 //  * bf16 operands are converted on load, results rounded on store;
 //  * one template over the type pair, so the f64 route is the same code
 //    with double registers and fma in place of fmaf.
-// Constant-folded gamma entries and the rank-2 half-spinor projection of
-// the TPU kernel's _factor_kron are not done here.
 //
 // Plain C interface (loaded with ctypes); every call returns the
 // cudaError_t of its launch.
@@ -134,7 +124,8 @@ struct LaunchK1 {
 // d, j and b at run time: y[., o, s] = sum_d sum_j B_d[i, j](s) *
 // sum_b K_d[a, b] x[., b*BD + j, s + o_d].  The products and sums are the
 // fma_a of site_matvec in its order, so at a templated shape this route
-// gives the templated route's bits.  Row a of every K_d sits in shared
+// gives the templated route's bits, and the tiled kernel's wherever no
+// direction of the spin plan factors.  Row a of every K_d sits in shared
 // memory; x and the blocks are read from device memory, their reuse
 // across the outputs of a site left to L1/L2.
 template <typename ST, typename FT>
@@ -223,7 +214,8 @@ extern "C" {
 // pair: the kPair of (storage, field) types; offsets: host array [ndir,
 // 4] of one-hot +-1 (or all-zero) offsets; packed_parity: 0 or 1 for
 // checkerboard-packed operands, -1 for none.  The templated route: (KI,
-// KD, BI, BD) in (4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12).
+// KD, BI, BD) = (1, 1, 12, 12); stencil_tiled.cu takes (4, 4, 3, 3) and
+// (1, 1, 3, 3).
 int sbt_stencil_soa(int ki, int kd, int bi, int bd, int pair,
                     const void* b_re, const void* b_im,
                     const void* k_re, const void* k_im, const void* x_re,
@@ -237,7 +229,7 @@ int sbt_stencil_soa(int ki, int kd, int bi, int bd, int pair,
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (ki == 1 && kd == 1 && bi == 12 && bd == 12)
         return dispatch_types<LaunchK1, 1, 1, 12, 12, true>(pair, a, dirs, st);
-    return dispatch<LaunchK1, true>(ki, kd, bi, bd, pair, a, dirs, st);
+    return cudaErrorInvalidValue;
 }
 
 // The runtime-shape route: any shape with ki*kd*bi*bd <= 256, n <= 65535.

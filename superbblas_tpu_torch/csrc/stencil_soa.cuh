@@ -1,6 +1,7 @@
-// Shared per-site math of the SoA stencil kernels (stencil_soa.cu: K1 on
-// its templated and runtime-shape routes, stencil_schedules.cu: the
-// X-inside and X-streaming schedules).
+// Shared per-site math of the SoA stencil kernels (stencil_soa.cu: K1 at
+// the clover term's shape and on its runtime-shape route,
+// stencil_schedules.cu: the X-inside and X-streaming schedules; the tiled
+// kernel of stencil_tiled.cu shares the types, loads and dispatch).
 //
 // All three compute, over a periodic 4-D lattice s = (X, Y, Z, T) with
 // one-hot +-1 offsets o_d, in split complex (separate re/im planes),
@@ -12,7 +13,8 @@
 // it a fetch functor that fills the F = KD*BD features of direction d's
 // neighbour.  Every product and sum is an explicit fmaf in one fixed
 // order, so the compiler cannot contract them differently in different
-// kernels: the three kernels give the same bits for the same inputs.
+// kernels: these kernels give the same bits for the same inputs, and the
+// tiled kernel does too where no direction of its spin plan factors.
 //
 // Types.  Blocks have a storage type ST and fields a field type FT; the
 // sums run in acc_t<ST, FT>: f32 for every pair with f32 or bf16 (bf16
@@ -242,8 +244,9 @@ cudaError_t dispatch_types(int pair, Args... args) {
     return cudaErrorInvalidValue;
 }
 
-// the (KI, KD, BI, BD) shapes every stencil kernel is instantiated at
-// (K1 adds (1, 1, 12, 12) in stencil_soa.cu), each with its type pairs
+// the (KI, KD, BI, BD) shapes the tiled kernel and the schedules are
+// instantiated at (K1's templated kernel takes (1, 1, 12, 12) in
+// stencil_soa.cu), each with its type pairs
 template <template <int, int, int, int, typename, typename> class Launch, bool kAllPairs,
           typename... Args>
 cudaError_t dispatch(int ki, int kd, int bi, int bd, int pair, Args... args) {

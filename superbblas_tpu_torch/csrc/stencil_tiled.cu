@@ -1,0 +1,673 @@
+// K1 at the Wilson (4, 4, 3, 3) and staggered (1, 1, 3, 3) shapes for
+// Hopper (sm_90a): the tiled stencil kernel with the spin plan.
+//
+// Replaces the Pallas TPU kernel superbblas_tpu/ops/stencil_pallas.py
+// stencil_matvec_soa (_kernel, _matvec_body, _factor_kron) at these two
+// shapes.  It computes, over a periodic 4-D lattice in split complex,
+//   y[n, a*BI+i, s] = sum_d sum_j B_d[i, j](s) sum_b K_d[a, b] x[n, b*BD+j, s+o_d]
+// with x [n, KD*BD, X, Y, Z, T] and y [n, KI*BI, ...] of the field type
+// FT, blocks [ndir, BI*BD, ...] of the storage type ST, sums in
+// acc_t<ST, FT> (f32, or f64 for f64/f64; the five pairs of kPair), and
+// packed parity as stencil_soa.cu has it.
+//
+// The spin factors come from the plan (ops/stencil.py kernel_plan: the
+// TPU kernel's _factor_kron, built once per kron tensor), one PlanDir a
+// direction, read by every thread with uniform loads:
+//  * a factored direction K_d = R_d P_d of rank 2 (every Wilson hop at
+//    r = 1) projects x onto two half-spinor slots with P_d, multiplies
+//    them by the 3x3 colour block (18 complex FMAs, not 36), and adds R_d
+//    times the result to the four output slots;
+//  * a direct direction multiplies K_d's rows into x and the colour block
+//    into those, in site_matvec's order of sums (stencil_soa.cuh), so where
+//    no direction factors the kernel gives the runtime route's bits.
+// Two forms of one kernel, chosen by the plan: the sparse form reads the
+// plan's nonzeros only (four terms of x a direction: a direct row's one
+// entry, or two entries of each P row, scaled to a first coefficient of
+// 1; one entry of each R row), the Wilson family's plan; the dense form
+// multiplies K_d, P_d and R_d whole and takes every kron (random factors,
+// r != 1).  Per site and column the sparse form does about 8 x 144 + 192
+// = 1344 FMAs on a Wilson operator where the PR 1 kernel did 3024.
+//
+// What bounds it on the H100: bytes, at both shapes, once the hops are
+// projected.  Wilson, 32^3x64 x 8 f32: 2184 B a site (links 648, x 768,
+// y 768) against 1536 x 8 columns FMAs, 1.37 ms of bytes against 0.38 ms
+// of FMAs at the data sheet's rates; staggered: links 648 B a site
+// against x and y 384 B, 0.65 ms of bytes.  What each choice does:
+//  * 32-bit coordinates from the block's tile: blockIdx gives the tile
+//    (columns, T, Z, Y, X) and threadIdx the site in it, with no 64-bit
+//    division; 64-bit arithmetic only for a direction's and a column's
+//    base pointers, so in-plane offsets stay 32-bit up to 2^31 values a
+//    column's field or a direction's blocks (kPlanes);
+//  * the order of the blocks keeps x in L2 for its nine reads: columns
+//    fastest (a site's links are read from device memory once for all its
+//    columns), then T, Z, then yc rows of Y, then X, then the rest of Y;
+//    yc (x_chunk in ops/stencil.py) keeps the traffic between a block and
+//    its +-X neighbours' blocks within a third of L2, where the PR 1 order
+//    put the +-X planes a whole X plane apart (about 90 MB at 32^3x64 x 8)
+//    and read x from device memory about three times;
+//  * the columns of a site are adjacent threads of a block: the link
+//    loads of the other columns hit L1; at (1, 1, 3, 3) a thread takes
+//    two columns, so a direction's nine links are loaded once for two;
+//  * every direction's links are prefetched into L2 when the thread
+//    starts, and at (4, 4, 3, 3) the direction loop is unrolled by two,
+//    so two directions' x and link loads are in flight before their sums
+//    (at (1, 1, 3, 3) the unroll loses, tools/k1_ablation.py); the
+//    f32 forms fit in 128 registers (80 at (1, 1, 3, 3)) so that two
+//    (three) blocks of 256 threads share an SM (__launch_bounds__; f64
+//    takes one);
+//  * no shared memory and no barrier: x's reuse between the tile's sites
+//    is left to L1 and L2.  Staging was measured and loses
+//    (tools/k1_variants.cu, timed by tools/k1_ablation.py): an X-walk
+//    block with a four-slot ring of x lines and the plane's links in
+//    shared memory holds one block of 256 threads an SM (160 KB) and runs
+//    1.4x this kernel's time; the links alone staged by cp.async, or
+//    direction d + 1's x loaded before d's sums, gain nothing.  With x
+//    read at the site itself and one direction's links (a diagnostic)
+//    it still runs 0.8x its time: issue and latency at 16 warps an SM,
+//    not bytes, hold it above the bound.
+//
+// Plain C interface (loaded with ctypes); every call returns the
+// cudaError_t of its launch.
+
+#include "stencil_soa.cuh"
+
+namespace {
+
+constexpr int kS = 4;   // spin slots a plan record holds (KI, KD <= 4)
+
+// one direction of the plan, as ops/stencil.py _plan_dtype lays it out
+template <typename A> struct PlanDir {
+    int mode;     // 0: direct, 1: factored
+    int rank;     // factored: rows of P_d (1 or 2)
+    int slots;    // sparse form: x slot of term k in bits 4k..4k+3
+    int rslots;   // sparse form: slot of g that R row a takes, bits 4a..4a+3
+    A k[2][kS][kS];   // (re, im) of K_d (direct) or of P_d in rows < rank
+    A r[2][kS][2];    // (re, im) of R_d (factored)
+    A t[2][kS];       // sparse form: coefficient of term k (1 for 2c in a factored one)
+    A q[2][kS];       // sparse form: coefficient of R row a
+};
+static_assert(sizeof(PlanDir<float>) == 272, "ops/stencil.py PLAN_DIR_BYTES");
+static_assert(sizeof(PlanDir<double>) == 528, "ops/stencil.py PLAN_DIR_BYTES");
+
+// a launch's lattice and tiling
+struct Tile {
+    int n, X, Y, Z, T;
+    int yc;       // Y rows the blocks cover at one x before stepping X
+    int bt, bz;   // a block's tile: bt T sites x bz Z rows
+    int ncb;      // column blocks: blockIdx.x = cb + ncb * (T tile)
+    int nz;       // Z tiles: blockIdx.y = (Z tile) + nz * (Y row within yc)
+    int sY, sX;   // site strides of Y and X (Z*T, Y*Z*T)
+};
+
+// The design's constants.  Each is a macro that tools/k1_ablation.py sets
+// with -D to build and time a variant (tools/k1_variants.cu holds the
+// variants that change more than a constant); the package builds the
+// defaults.
+#ifndef SBT_K1_COL_GROUPS
+#define SBT_K1_COL_GROUPS 8   // column groups a block (at most)
+#endif
+#ifndef SBT_K1_STAG_COLS
+#define SBT_K1_STAG_COLS 2    // columns a thread at (1, 1, 3, 3)
+#endif
+#ifndef SBT_K1_MINB_W
+#define SBT_K1_MINB_W 2       // blocks of 256 threads an SM at (4, 4, 3, 3), f32 sums
+#endif
+#ifndef SBT_K1_MINB_S
+#define SBT_K1_MINB_S 3       // the same at (1, 1, 3, 3)
+#endif
+#ifndef SBT_K1_PREFETCH
+#define SBT_K1_PREFETCH 2     // links prefetched into L2: 0 never, 1 at (4, 4, 3, 3), 2 always
+#endif
+#ifndef SBT_K1_LDCS
+#define SBT_K1_LDCS 0         // 1: links loaded with the streaming hint (__ldcs)
+#endif
+#ifndef SBT_K1_UNROLL_W
+#define SBT_K1_UNROLL_W 2     // unroll of the direction loop at (4, 4, 3, 3)
+#endif
+#ifndef SBT_K1_UNROLL_S
+#define SBT_K1_UNROLL_S 1     // the same at (1, 1, 3, 3)
+#endif
+#define SBT_PRAGMA(x) _Pragma(#x)
+#define SBT_UNROLL(n) SBT_PRAGMA(unroll n)
+
+// columns a thread takes: one at (4, 4, 3, 3) (24 sums), two at
+// (1, 1, 3, 3), which share each direction's nine link entries
+template <int KI> constexpr int kCols = KI == 1 ? SBT_K1_STAG_COLS : 1;
+// blocks of 256 threads an SM should hold: two at (4, 4, 3, 3) in f32
+// (128 registers), three at (1, 1, 3, 3) (85), one in f64
+template <int KI, typename A> constexpr int kMinBlocks =
+    sizeof(A) == 8 ? 1 : KI == 1 ? SBT_K1_MINB_S : SBT_K1_MINB_W;
+
+// a line of device memory into L2, with no register and no wait
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// a link value: through the read-only path, or streaming (SBT_K1_LDCS)
+template <typename ST> __device__ __forceinline__ auto load_link(const ST* p) {
+#if SBT_K1_LDCS
+    if constexpr (sizeof(ST) == 2) return __bfloat162float(__ldcs(p));
+    else return __ldcs(p);
+#else
+    return load_f(p);
+#endif
+}
+
+// a value of x: from device memory (the read-only path) or, kSh, from
+// shared memory
+__device__ __forceinline__ double to_f(double v) { return v; }
+template <bool kSh, typename FT> __device__ __forceinline__ auto load_x(const FT* p) {
+    if constexpr (kSh) return to_f(*p);
+    else return load_f(p);
+}
+
+// four consecutive plan values (16-byte aligned) in one or two loads
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+    const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// a launch's directions as site steps, from Dirs and the lattice
+struct Hops {
+    int ndir;
+    int packed;             // checkerboard parity of packed operands; -1: none
+    int axis[kMaxDirs];     // 0..3 for X, Y, Z, T; -1 for the centre
+    int edge[kMaxDirs];     // the coordinate along axis whose step wraps
+    int step[kMaxDirs];     // flat-site offset of the step
+    int wrap[kMaxDirs];     // flat-site offset of the wrapped step
+};
+
+Hops hops_of(const Dirs& dirs, const Tile& g) {
+    Hops h{};
+    h.ndir = dirs.ndir;
+    h.packed = dirs.packed;
+    for (int d = 0; d < dirs.ndir; ++d) {
+        const int ax = dirs.sign[d] == 0 ? -1 : dirs.axis[d], sg = dirs.sign[d];
+        h.axis[d] = ax;
+        if (ax < 0) continue;
+        const int L = ax == 0 ? g.X : ax == 1 ? g.Y : ax == 2 ? g.Z : g.T;
+        const int st = ax == 0 ? g.sX : ax == 1 ? g.sY : ax == 2 ? g.T : 1;
+        h.edge[d] = sg > 0 ? L - 1 : 0;
+        h.step[d] = sg * st;
+        h.wrap[d] = -sg * (L - 1) * st;
+    }
+    return h;
+}
+
+// acc[a*BI+i] += sum_j B[i, j] z[a][j] for rows a < NA, in site_matvec's
+// order (one chain a sum over d, then j)
+template <int NA, int BI, int BD, typename A>
+__device__ __forceinline__ void colour_into(const A (&br)[BI * BD], const A (&bi)[BI * BD],
+                                            const A (&zr)[NA][BD], const A (&zi)[NA][BD],
+                                            A (&acc_re)[NA * BI], A (&acc_im)[NA * BI]) {
+#pragma unroll
+    for (int i = 0; i < BI; ++i) {
+#pragma unroll
+        for (int j = 0; j < BD; ++j) {
+#pragma unroll
+            for (int a = 0; a < NA; ++a) {
+                A& ar = acc_re[a * BI + i];
+                A& ai = acc_im[a * BI + i];
+                ar = fma_a(br[i * BD + j], zr[a][j], ar);
+                ar = fma_a(-bi[i * BD + j], zi[a][j], ar);
+                ai = fma_a(br[i * BD + j], zi[a][j], ai);
+                ai = fma_a(bi[i * BD + j], zr[a][j], ai);
+            }
+        }
+    }
+}
+
+// g[c][i] = sum_j B[i, j] h[c][j] for c < 2 (a chain from zero)
+template <int BI, int BD, typename A>
+__device__ __forceinline__ void colour_half(const A (&br)[BI * BD], const A (&bi)[BI * BD],
+                                            const A (&hr)[2][BD], const A (&hi)[2][BD],
+                                            A (&gr)[2][BI], A (&gi)[2][BI]) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int i = 0; i < BI; ++i) {
+            A r = A(0), m = A(0);
+#pragma unroll
+            for (int j = 0; j < BD; ++j) {
+                r = fma_a(br[i * BD + j], hr[c][j], r);
+                r = fma_a(-bi[i * BD + j], hi[c][j], r);
+                m = fma_a(br[i * BD + j], hi[c][j], m);
+                m = fma_a(bi[i * BD + j], hr[c][j], m);
+            }
+            gr[c][i] = r;
+            gi[c][i] = m;
+        }
+    }
+}
+
+// (zr, zi) = sum over the terms of (cr + i ci) (vr + i vi), a chain from zero
+template <typename A>
+__device__ __forceinline__ void cmac(A cr, A ci, A vr, A vi, A& zr, A& zi) {
+    zr = fma_a(cr, vr, zr);
+    zr = fma_a(-ci, vi, zr);
+    zi = fma_a(cr, vi, zi);
+    zi = fma_a(ci, vr, zi);
+}
+
+// the sparse form's four terms of x of one direction of one column, read
+// at the plan's slots (xp: the column's x at the neighbour site)
+template <int BD, bool kSh, typename FT, typename A>
+__device__ __forceinline__ void sparse_terms(const PlanDir<A>* __restrict__ p, const FT* xr,
+                                             const FT* xi, int V, A (&vr)[kS][BD],
+                                             A (&vi)[kS][BD]) {
+    const int slots = __ldg(&p->slots);
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+        const int off = ((slots >> (4 * k)) & 15) * BD * V;
+#pragma unroll
+        for (int j = 0; j < BD; ++j) {
+            vr[k][j] = load_x<kSh>(xr + (off + j * V));
+            vi[k][j] = load_x<kSh>(xi + (off + j * V));
+        }
+    }
+}
+
+// the sparse form's sums of one direction of one column at (4, 4, 3, 3)
+// on its terms v
+template <int BI, int BD, typename A>
+__device__ __forceinline__ void sparse_apply(const PlanDir<A>* __restrict__ p,
+                                             const A (&vr)[kS][BD], const A (&vi)[kS][BD],
+                                             const A (&br)[BI * BD], const A (&bi)[BI * BD],
+                                             A (&acc_re)[kS * BI], A (&acc_im)[kS * BI]) {
+    const int4 head = __ldg(reinterpret_cast<const int4*>(p));   // mode, rank, slots, rslots
+    const int mode = head.x;
+    A tr[kS], ti[kS];
+    load4(p->t[0], tr);
+    load4(p->t[1], ti);
+    if (mode == 0) {
+        // direct, one entry a row: z[a] = t_a x[slot a]
+        A zr[kS][BD], zi[kS][BD];
+#pragma unroll
+        for (int a = 0; a < kS; ++a) {
+#pragma unroll
+            for (int j = 0; j < BD; ++j) {
+                zr[a][j] = zi[a][j] = A(0);
+                cmac(tr[a], ti[a], vr[a][j], vi[a][j], zr[a][j], zi[a][j]);
+            }
+        }
+        colour_into<kS, BI, BD>(br, bi, zr, zi, acc_re, acc_im);
+        return;
+    }
+    // factored: h[c] = x[slot 2c] + t_2c+1 x[slot 2c+1] (P's rows scaled to
+    // a first coefficient of 1), the colour block on the two slots, then
+    // acc[a] += q_a g[rslot a] (q scaled back)
+    const int rslots = head.w;
+    A hr[2][BD], hi[2][BD];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int j = 0; j < BD; ++j) {
+            hr[c][j] = vr[2 * c][j];
+            hi[c][j] = vi[2 * c][j];
+            cmac(tr[2 * c + 1], ti[2 * c + 1], vr[2 * c + 1][j], vi[2 * c + 1][j], hr[c][j],
+                 hi[c][j]);
+        }
+    }
+    A gr[2][BI], gi[2][BI];
+    colour_half<BI, BD>(br, bi, hr, hi, gr, gi);
+    A qr[kS], qi[kS];
+    load4(p->q[0], qr);
+    load4(p->q[1], qi);
+#pragma unroll
+    for (int a = 0; a < kS; ++a) {
+        const bool second = ((rslots >> (4 * a)) & 15) != 0;
+#pragma unroll
+        for (int i = 0; i < BI; ++i)
+            cmac(qr[a], qi[a], second ? gr[1][i] : gr[0][i], second ? gi[1][i] : gi[0][i],
+                 acc_re[a * BI + i], acc_im[a * BI + i]);
+    }
+}
+
+// one direction of one column at (4, 4, 3, 3), sparse form
+template <int BI, int BD, bool kSh, typename FT, typename A>
+__device__ __forceinline__ void direction_sparse(const PlanDir<A>* __restrict__ p,
+                                                 const FT* xr, const FT* xi, int V,
+                                                 const A (&br)[BI * BD],
+                                                 const A (&bi)[BI * BD],
+                                                 A (&acc_re)[kS * BI],
+                                                 A (&acc_im)[kS * BI]) {
+    A vr[kS][BD], vi[kS][BD];
+    sparse_terms<BD, kSh>(p, xr, xi, V, vr, vi);
+    sparse_apply<BI, BD>(p, vr, vi, br, bi, acc_re, acc_im);
+}
+
+// one direction of one column at (4, 4, 3, 3), dense form: K_d, or P_d and
+// R_d, whole (every kron)
+template <int BI, int BD, bool kSh, typename FT, typename A>
+__device__ __forceinline__ void direction_dense(const PlanDir<A>* __restrict__ p,
+                                                const FT* xr, const FT* xi, int V,
+                                                const A (&br)[BI * BD],
+                                                const A (&bi)[BI * BD],
+                                                A (&acc_re)[kS * BI], A (&acc_im)[kS * BI]) {
+    const int mode = __ldg(&p->mode);
+    A vr[kS][BD], vi[kS][BD];
+#pragma unroll
+    for (int b = 0; b < kS; ++b) {
+#pragma unroll
+        for (int j = 0; j < BD; ++j) {
+            vr[b][j] = load_x<kSh>(xr + (b * BD + j) * V);
+            vi[b][j] = load_x<kSh>(xi + (b * BD + j) * V);
+        }
+    }
+    if (mode == 0) {
+        // direct: z[a][j] = sum_b K_d[a, b] x[b*BD + j], site_matvec's order
+        A zr[kS][BD], zi[kS][BD];
+#pragma unroll
+        for (int a = 0; a < kS; ++a) {
+#pragma unroll
+            for (int j = 0; j < BD; ++j) {
+                zr[a][j] = zi[a][j] = A(0);
+#pragma unroll
+                for (int b = 0; b < kS; ++b)
+                    cmac(__ldg(&p->k[0][a][b]), __ldg(&p->k[1][a][b]), vr[b][j], vi[b][j],
+                         zr[a][j], zi[a][j]);
+            }
+        }
+        colour_into<kS, BI, BD>(br, bi, zr, zi, acc_re, acc_im);
+        return;
+    }
+    // factored: h[c] = P_d[c, :] x (rows of P past the rank are zero)
+    A hr[2][BD], hi[2][BD];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int j = 0; j < BD; ++j) {
+            hr[c][j] = hi[c][j] = A(0);
+#pragma unroll
+            for (int b = 0; b < kS; ++b)
+                cmac(__ldg(&p->k[0][c][b]), __ldg(&p->k[1][c][b]), vr[b][j], vi[b][j],
+                     hr[c][j], hi[c][j]);
+        }
+    }
+    A gr[2][BI], gi[2][BI];
+    colour_half<BI, BD>(br, bi, hr, hi, gr, gi);
+#pragma unroll
+    for (int a = 0; a < kS; ++a) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            const A qr = __ldg(&p->r[0][a][c]), qi = __ldg(&p->r[1][a][c]);
+#pragma unroll
+            for (int i = 0; i < BI; ++i)
+                cmac(qr, qi, gr[c][i], gi[c][i], acc_re[a * BI + i], acc_im[a * BI + i]);
+        }
+    }
+}
+
+// one direction of one column at (1, 1, 3, 3): z = K_d x (K_d = 1 without
+// a kron), as site_matvec sums it, then the colour block
+template <int BI, int BD, bool kSh, typename FT, typename A>
+__device__ __forceinline__ void direction_one(const PlanDir<A>* __restrict__ p, const FT* xr,
+                                              const FT* xi, int V, const A (&br)[BI * BD],
+                                              const A (&bi)[BI * BD], A (&acc_re)[BI],
+                                              A (&acc_im)[BI]) {
+    A zr[1][BD], zi[1][BD];
+#pragma unroll
+    for (int j = 0; j < BD; ++j) {
+        const A vr = load_x<kSh>(xr + j * V), vi = load_x<kSh>(xi + j * V);
+        if (p == nullptr) {
+            zr[0][j] = vr;
+            zi[0][j] = vi;
+        } else {
+            zr[0][j] = zi[0][j] = A(0);
+            cmac(__ldg(&p->k[0][0][0]), __ldg(&p->k[1][0][0]), vr, vi, zr[0][j], zi[0][j]);
+        }
+    }
+    colour_into<1, BI, BD>(br, bi, zr, zi, acc_re, acc_im);
+}
+
+// one direction of one column in the form the shape and the plan take (x
+// at xr, xi with feature stride V; kSh: in shared memory)
+template <int KI, int BI, int BD, bool kSparse, bool kSh, typename FT, typename A>
+__device__ __forceinline__ void direction(const PlanDir<A>* __restrict__ plan, int d,
+                                          const FT* xr, const FT* xi, int V,
+                                          const A (&br)[BI * BD], const A (&bi)[BI * BD],
+                                          A (&acc_re)[KI * BI], A (&acc_im)[KI * BI]) {
+    if constexpr (KI == 1)
+        direction_one<BI, BD, kSh>(plan == nullptr ? nullptr : plan + d, xr, xi, V, br, bi,
+                                   acc_re, acc_im);
+    else if constexpr (kSparse)
+        direction_sparse<BI, BD, kSh>(plan + d, xr, xi, V, br, bi, acc_re, acc_im);
+    else
+        direction_dense<BI, BD, kSh>(plan + d, xr, xi, V, br, bi, acc_re, acc_im);
+}
+
+template <int KI, int KD, int BI, int BD, bool kSparse, typename ST, typename FT>
+__global__ void __launch_bounds__(256, kMinBlocks<KI, acc_t<ST, FT>>) stencil_tiled_kernel(
+    const ST* __restrict__ b_re, const ST* __restrict__ b_im,
+    const PlanDir<acc_t<ST, FT>>* __restrict__ plan, const FT* __restrict__ x_re,
+    const FT* __restrict__ x_im, FT* __restrict__ y_re, FT* __restrict__ y_im,
+    const __grid_constant__ Tile g, const __grid_constant__ Hops hops) {
+    using A = acc_t<ST, FT>;
+    static_assert(KI == KD && (KI == 1 || KI == kS), "the tiled kernel's spin shapes");
+    constexpr int F = KD * BD, KO = KI * BI, NB = BI * BD, CT = kCols<KI>;
+
+    // the block's tile and the thread's site in it, in 32 bits
+    const int cb = blockIdx.x % g.ncb, tt = blockIdx.x / g.ncb;
+    const int tz = blockIdx.y % g.nz, yi = blockIdx.y / g.nz;
+    const int cx = blockIdx.z % g.X, yo = blockIdx.z / g.X;
+    const int ct = tt * g.bt + threadIdx.x % g.bt;
+    const int cz = tz * g.bz + threadIdx.x / g.bt;
+    const int cy = yo * g.yc + yi;
+    const int col0 = (cb * blockDim.y + threadIdx.y) * CT;
+    const int s = cx * g.sX + cy * g.sY + cz * g.T + ct;
+    const int V = g.X * g.sX;   // in-plane offsets: kPlanes planes are < 2^31 values
+    if (ct >= g.T || cz >= g.Z || col0 >= g.n) return;
+    const int ncols = g.n - col0 < CT ? g.n - col0 : CT;
+
+    if constexpr (SBT_K1_PREFETCH == 2 || (SBT_K1_PREFETCH == 1 && KI != 1)) {
+        // every direction's links of the site into L2 first, shared out
+        // among the block's column groups: the loads of each direction then
+        // wait on L2 rather than on device memory
+        for (int d = threadIdx.y; d < hops.ndir; d += blockDim.y)
+            for (int ij = 0; ij < NB; ++ij) {
+                prefetch_l2(b_re + (int64_t)d * NB * V + (s + ij * V));
+                prefetch_l2(b_im + (int64_t)d * NB * V + (s + ij * V));
+            }
+    }
+
+    A acc_re[CT][KO], acc_im[CT][KO];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+        for (int o = 0; o < KO; ++o) acc_re[c][o] = acc_im[c][o] = A(0);
+
+    // the image parity m of a packed X step: +x moves where m = 1, -x where m = 0
+    const bool odd = ((hops.packed + cy + cz + ct) & 1) != 0;
+    // the neighbour s + o_d on the torus
+    auto nb_of = [&](int d) {
+        int nb = s;
+        const int ax = hops.axis[d];
+        if (ax >= 0 && !(ax == 0 && hops.packed >= 0 && odd != (hops.step[d] > 0))) {
+            const int c = ax == 0 ? cx : ax == 1 ? cy : ax == 2 ? cz : ct;
+            nb += c == hops.edge[d] ? hops.wrap[d] : hops.step[d];
+        }
+        return nb;
+    };
+    // one direction's sums
+    auto step = [&](int d) {
+        const int nb = nb_of(d);
+        // the colour block B_d(s), from the direction's base in 64 bits
+        A br[NB], bi[NB];
+        const ST* bdr = b_re + (int64_t)d * NB * V + s;
+        const ST* bdi = b_im + (int64_t)d * NB * V + s;
+#pragma unroll
+        for (int ij = 0; ij < NB; ++ij) {
+            br[ij] = load_link(bdr + ij * V);
+            bi[ij] = load_link(bdi + ij * V);
+        }
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+            if (c >= ncols) break;
+            const FT* xr = x_re + (int64_t)(col0 + c) * F * V + nb;   // the column's base
+            const FT* xi = x_im + (int64_t)(col0 + c) * F * V + nb;
+            direction<KI, BI, BD, kSparse, false>(plan, d, xr, xi, V, br, bi, acc_re[c],
+                                                  acc_im[c]);
+        }
+    };
+    if constexpr (KI == 1) {
+        SBT_UNROLL(SBT_K1_UNROLL_S)
+        for (int d = 0; d < hops.ndir; ++d) step(d);
+    } else {
+        SBT_UNROLL(SBT_K1_UNROLL_W)
+        for (int d = 0; d < hops.ndir; ++d) step(d);
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+        if (c >= ncols) break;
+        FT* yr = y_re + (int64_t)(col0 + c) * KO * V + s;
+        FT* yi = y_im + (int64_t)(col0 + c) * KO * V + s;
+#pragma unroll
+        for (int o = 0; o < KO; ++o) {
+            store_f(yr + o * V, acc_re[c][o]);
+            store_f(yi + o * V, acc_im[c][o]);
+        }
+    }
+}
+
+// the most values one in-plane offset spans: a column's x or y, or one
+// direction's links; the kernels take lattices where that is under 2^31
+// values (ops/stencil.py check_kernel_case raises above)
+template <int KI, int KD, int BI, int BD>
+constexpr int kPlanes = (KD * BD > KI * BI ? KD * BD : KI * BI) > BI * BD
+    ? (KD * BD > KI * BI ? KD * BD : KI * BI) : BI * BD;
+
+// the tile's T extent: 32 where T is a multiple of 32 (else 16 or 8 if T
+// is one of those, else 32 masked); below 32 the power of two >= T
+inline int tile_t(int T) {
+    if (T >= 32) return T % 32 == 0 ? 32 : T % 16 == 0 ? 16 : T % 8 == 0 ? 8 : 32;
+    int bt = 1;
+    while (bt < T) bt *= 2;
+    return bt;
+}
+
+// a launch's grid, block and tile; false where the grid cannot hold the
+// lattice (kPlanes values a site under 2^31, Y a multiple of yc, grid.y
+// and grid.z <= 65535); at most max_sites sites a block
+template <int KI, int KD, int BI, int BD>
+bool tiling(int n, int X, int Y, int Z, int T, int yc, dim3* grid, dim3* block, Tile* g,
+            int max_sites = 256) {
+    if (n < 1 || X < 1 || Y < 1 || Z < 1 || T < 1 || yc < 1 || Y % yc != 0) return false;
+    if ((int64_t)X * Y * Z * T * kPlanes<KI, KD, BI, BD> > INT32_MAX) return false;
+    constexpr int CT = kCols<KI>;
+    const int groups = (n + CT - 1) / CT;
+    const int cg = groups < SBT_K1_COL_GROUPS ? groups : SBT_K1_COL_GROUPS;
+    int sites = 256 / cg / 32 * 32;                      // column groups x sites a block
+    if (sites < 32) sites = 32;
+    if (sites > max_sites) sites = max_sites;
+    const int bt = tile_t(T), bz = sites / bt;
+    const int ncb = (groups + cg - 1) / cg, nt = (T + bt - 1) / bt, nz = (Z + bz - 1) / bz;
+    const int64_t gy = (int64_t)nz * yc, gz = (int64_t)X * (Y / yc);
+    if (gy > 65535 || gz > 65535 || (int64_t)ncb * nt > INT32_MAX) return false;
+    *grid = dim3((unsigned)(ncb * nt), (unsigned)gy, (unsigned)gz);
+    *block = dim3((unsigned)sites, (unsigned)cg);
+    *g = Tile{n, X, Y, Z, T, yc, bt, bz, ncb, nz, Z * T, Y * Z * T};
+    return true;
+}
+
+struct TiledArgs {
+    const void *b_re, *b_im, *plan;
+    const void *x_re, *x_im;
+    void *y_re, *y_im;
+    int n, X, Y, Z, T, yc;
+    bool sparse;
+};
+
+// the kernel of a launch: the sparse form where the plan takes it (only
+// at KI = 4), else the dense one
+template <int KI, int KD, int BI, int BD, typename ST, typename FT>
+auto tiled_kernel(bool sparse) {
+    if constexpr (KI == 1) {
+        return stencil_tiled_kernel<KI, KD, BI, BD, false, ST, FT>;
+    } else {
+        return sparse ? stencil_tiled_kernel<KI, KD, BI, BD, true, ST, FT>
+                      : stencil_tiled_kernel<KI, KD, BI, BD, false, ST, FT>;
+    }
+}
+
+template <int KI, int KD, int BI, int BD, typename ST, typename FT>
+struct LaunchTiled {
+    static cudaError_t run(const TiledArgs& a, const Dirs& dirs, cudaStream_t stream) {
+        dim3 grid, block;
+        Tile g;
+        if (!tiling<KI, KD, BI, BD>(a.n, a.X, a.Y, a.Z, a.T, a.yc, &grid, &block, &g))
+            return cudaErrorInvalidValue;
+        using A = acc_t<ST, FT>;
+        auto kernel = tiled_kernel<KI, KD, BI, BD, ST, FT>(a.sparse);
+        kernel<<<grid, block, 0, stream>>>(
+            static_cast<const ST*>(a.b_re), static_cast<const ST*>(a.b_im),
+            static_cast<const PlanDir<A>*>(a.plan), static_cast<const FT*>(a.x_re),
+            static_cast<const FT*>(a.x_im), static_cast<FT*>(a.y_re),
+            static_cast<FT*>(a.y_im), g, hops_of(dirs, g));
+        return cudaGetLastError();
+    }
+};
+
+// out: registers a thread, local (spill and stack) bytes a thread, threads
+// a block and resident blocks an SM of the launch ``a`` would make
+template <int KI, int KD, int BI, int BD, typename ST, typename FT>
+struct AttrsTiled {
+    static cudaError_t run(const TiledArgs& a, int* out) {
+        dim3 grid, block;
+        Tile g;
+        if (!tiling<KI, KD, BI, BD>(a.n, a.X, a.Y, a.Z, a.T, a.yc, &grid, &block, &g))
+            return cudaErrorInvalidValue;
+        auto kernel = tiled_kernel<KI, KD, BI, BD, ST, FT>(a.sparse);
+        cudaFuncAttributes attr;
+        cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return err;
+        const int threads = (int)(block.x * block.y);
+        int blocks = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+        out[0] = attr.numRegs;
+        out[1] = (int)attr.localSizeBytes;
+        out[2] = threads;
+        out[3] = blocks;
+        return err;
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+// The tiled route of K1: (KI, KD, BI, BD) in (4, 4, 3, 3), (1, 1, 3, 3);
+// pair: the kPair of (storage, field) types; plan: the device table of
+// PlanDir records in the pair's sum type (nullptr: no kron, K_d = 1;
+// needed at (4, 4, 3, 3)); sparse: the plan takes the sparse form;
+// offsets: host array [ndir, 4]; packed_parity: 0, 1 or -1; yc: Y rows a
+// block walk covers at one x (a divisor of Y).
+int sbt_stencil_tiled(int ki, int kd, int bi, int bd, int pair, const void* b_re,
+                      const void* b_im, const void* plan, const void* x_re,
+                      const void* x_im, void* y_re, void* y_im, int n, int X, int Y, int Z,
+                      int T, int ndir, const int* offsets, int packed_parity, int sparse,
+                      int yc, void* stream) {
+    Dirs dirs{};
+    const cudaError_t err = parse_dirs(ndir, offsets, packed_parity, &dirs);
+    if (err != cudaSuccess) return err;
+    if (ki == 4 && plan == nullptr) return cudaErrorInvalidValue;
+    const TiledArgs a{b_re, b_im, plan, x_re, x_im, y_re, y_im, n, X, Y, Z, T, yc,
+                      sparse != 0};
+    return dispatch<LaunchTiled, true>(ki, kd, bi, bd, pair, a, dirs,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// The registers, local bytes, threads a block and resident blocks an SM of
+// the tiled kernel a launch with these arguments would run (out[4]).
+int sbt_stencil_tiled_attrs(int ki, int kd, int bi, int bd, int pair, int sparse, int n,
+                            int X, int Y, int Z, int T, int yc, int* out) {
+    const TiledArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      n, X, Y, Z, T, yc, sparse != 0};
+    return dispatch<AttrsTiled, true>(ki, kd, bi, bd, pair, a, out);
+}
+
+}  // extern "C"

@@ -22,6 +22,7 @@ import torch
 from .. import cplx
 from ..bsr import BSROperator, apply_stencil_soa
 from ..cplx import CArray
+from ..ops.stencil import derive_kron
 from .even_odd import schur_cg
 from .wilson import adjoint_operator
 
@@ -88,6 +89,7 @@ def hopping_packed_soa(op: BSROperator, to_parity: int) -> BSROperator:
     kron = op.kron
     if kron is not None:
         kron = cplx.cmap(lambda v: v[kidx], kron)
+        derive_kron(op.kron, kron, lambda re, im: (re[keep], im[keep]))
     dim = (op.dim_d[0] // 2,) + tuple(op.dim_d[1:])
     return op.replace(blocks=blocks, kron=kron,
                       offsets=tuple(op.offsets[k] for k in keep), dim=dim)

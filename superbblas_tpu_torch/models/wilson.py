@@ -26,6 +26,7 @@ from ..bsr import (BSROperator, apply_stencil_soa, bsr_cast_storage, bsr_from_st
                    bsr_krylov)
 from ..cplx import CArray
 from ..labels import volume
+from ..ops.stencil import derive_kron
 
 __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets", "wilson_operator",
            "apply_wilson", "adjoint_operator", "apply_wilson_dagger",
@@ -201,6 +202,8 @@ def adjoint_operator(op: BSROperator) -> BSROperator:
         kron = kron.transpose(-1, -2).contiguous() if not cplx.is_carray(kron) else \
             CArray(kron.re.transpose(-1, -2).contiguous(),
                    -kron.im.transpose(-1, -2).contiguous())
+        derive_kron(op.kron, kron, lambda re, im: (re.transpose(0, 2, 1).copy(),
+                                                   -im.transpose(0, 2, 1)))
     return op.replace(blocks=blocks, kron=kron,
                       offsets=tuple(tuple(-o for o in off) for off in op.offsets))
 
@@ -288,4 +291,13 @@ def twisted_mass_operator(
     re, im = kron.re.clone(), kron.im.clone()
     re[0] += torch.as_tensor(tw.real, dtype=re.dtype, device=re.device)
     im[0] += torch.as_tensor(tw.imag, dtype=im.dtype, device=im.device)
+
+    def twist(hre, him):
+        """the same sums on the host, in the parts' dtype"""
+        hre, him = hre.copy(), him.copy()
+        hre[0] += tw.real.astype(hre.dtype)
+        him[0] += tw.imag.astype(him.dtype)
+        return hre, him
+
+    derive_kron(kron, CArray(re, im), twist)
     return op.replace(kron=CArray(re, im))

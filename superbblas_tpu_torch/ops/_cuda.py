@@ -23,8 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu", "stencil_schedules.cu", "permute.cu", "batched_gemm.cu",
-           "roll_add.cu")
+SOURCES = ("stencil_soa.cu", "stencil_tiled.cu", "stencil_schedules.cu", "permute.cu",
+           "batched_gemm.cu", "roll_add.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("stencil_soa.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,6 +93,13 @@ def library() -> ctypes.CDLL:
                         ("sbt_stencil_soa_xin", [i, i, i]), ("sbt_stencil_soa_stream", [])):
         getattr(lib, name).argtypes = head + extra + [p]
         getattr(lib, name).restype = i
+    # the tiled route: one plan pointer for the kron's two; parity, sparse
+    # form, yc
+    lib.sbt_stencil_tiled.argtypes = [i] * 5 + [p] * 7 + [i] * 6 + [p, i, i, i, p]
+    lib.sbt_stencil_tiled.restype = i
+    # (ki, kd, bi, bd, pair, sparse, n, X, Y, Z, T, yc, out[4])
+    lib.sbt_stencil_tiled_attrs.argtypes = [i] * 12 + [p]
+    lib.sbt_stencil_tiled_attrs.restype = i
     lib.sbt_permute_4d.argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
     lib.sbt_permute_4d.restype = i
     # (edge, rows, planes, mid_swap, X, Y, Z, T, strides, grid) + in, out, stream

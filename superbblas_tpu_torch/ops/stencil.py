@@ -8,19 +8,32 @@
 
 ``stencil_matvec_soa`` sends CPU tensors to the plain PyTorch version
 ``stencil_matvec_soa_reference`` and CUDA tensors to the hand-written
-kernel ``csrc/stencil_soa.cu``: its templated route at ``KERNEL_SHAPES``,
-its runtime-shape route (``stencil_matvec_soa_rt``) at every other shape
-with KI*KD*BI*BD <= 256, the TPU kernel's rule; a case no route takes
-raises.  ``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream``
-compute the same function with other schedules of the X neighbours
+kernel K1: at the Wilson and staggered shapes (``TILED_SHAPES``) its
+tiled kernel ``csrc/stencil_tiled.cu``, which runs the spin factors from
+a plan (``factor_kron``, the TPU kernel's ``_factor_kron``: rank-2
+half-spinor projection of the Wilson hops), at the clover term's shape
+the templated kernel of ``csrc/stencil_soa.cu``, and its runtime-shape
+route (``stencil_matvec_soa_rt``) at every other shape with
+KI*KD*BI*BD <= 256, the TPU kernel's rule; a case no route takes raises.
+``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream`` compute the
+same function with other schedules of the X neighbours
 (``csrc/stencil_schedules.cu``, at ``SCHEDULE_SHAPES``); no caller
 dispatches them.
+
+The tiled route's spin plan is built once per kron value (``spin_plan``,
+counted by ``stencil_matvec_soa.plan_builds``) from the kron's host value:
+one device-to-host read per kron tensor (``host_kron``,
+``stencil_matvec_soa.kron_reads``), none for a kron derived on the device
+from one whose value is known (``derive_kron``: the adjoint, the twist,
+the packed hops).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,11 +44,26 @@ from ..cplx import CArray
 
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
            "stencil_matvec_soa_xin", "stencil_matvec_soa_stream",
+           "stencil_matvec_soa_planned", "factor_kron", "spin_plan", "clear_plans",
+           "derive_kron", "host_kron",
            "soa_eligible", "aos_to_soa", "soa_to_aos"]
 
-#: (KI, KD, BI, BD) shapes of K1's templated route: Wilson, staggered and
+#: (KI, KD, BI, BD) shapes of K1's templated routes: Wilson, staggered and
 #: the clover term; every other shape takes the runtime-shape route
 KERNEL_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12))
+#: the shapes of KERNEL_SHAPES that run the tiled kernel with the spin plan
+#: (csrc/stencil_tiled.cu); the clover term's runs csrc/stencil_soa.cu
+TILED_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
+#: bytes of one direction's record of the tiled kernel's plan, by the type
+#: its sums run in (csrc/stencil_tiled.cu PlanDir: 4 int32, then 64 values)
+PLAN_DIR_BYTES = {torch.float32: 272, torch.float64: 528}
+#: most values one column's field, or one direction's blocks, may hold in
+#: the tiled kernel (its in-plane offsets are 32-bit; 178956970 sites at
+#: 12 values a site)
+TILED_MAX_VALUES = 2 ** 31 - 1
+#: traffic (bytes) within which a block finds its X neighbours still in L2:
+#: a third of the H100's 50 MB (``x_chunk``)
+L2_REUSE_BYTES = 16 << 20
 #: the shapes the X-inside and X-streaming schedules are instantiated at
 SCHEDULE_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
 #: most KI*KD*BI*BD a stencil takes (the TPU kernel's rule)
@@ -84,6 +112,33 @@ def soa_eligible(offsets, dim_lat, bi: int = 1, bd: int = 1, ki: int = 1,
     return all(int(v) > 0 for v in dim_lat)
 
 
+def _shifter(x: CArray, offsets, packed_parity: Optional[int], KD: int, bd: int):
+    """x [n, KD*BD, *lat] as [n, KD, BD, *lat], and a function of d giving
+    it shifted by offsets[d] (x(s + o_d) at s; with ``packed_parity`` the
+    checkerboard-packed X shift)."""
+    n = x.shape[0]
+    lat = tuple(x.shape[2:])
+    if packed_parity is not None:
+        rest = lat[1:]
+        coords = np.meshgrid(*[np.arange(d) for d in rest], indexing="ij")
+        m = (packed_parity + sum(coords)) % 2 == 1
+        img_x_odd = torch.from_numpy(m.reshape((1, 1, 1) + tuple(rest))).to(x.device)
+
+    def roll(a, off):
+        for ax, o in enumerate(off):
+            if o % (lat[ax] if packed_parity is None or ax != 0 else 10 ** 9) != 0:
+                if packed_parity is not None and ax == 0:
+                    sh = torch.roll(a, -o, dims=3)
+                    a = torch.where(img_x_odd, sh, a) if o > 0 else \
+                        torch.where(img_x_odd, a, sh)
+                else:
+                    a = torch.roll(a, -o, dims=3 + ax)
+        return a
+
+    xs4 = cplx.cmap(lambda a: a.reshape((n, KD, bd) + lat), x)
+    return lambda d: cplx.cmap(lambda a: roll(a, offsets[d]), xs4)
+
+
 def stencil_matvec_soa_reference(blocks: CArray, kron: Optional[CArray],
                                  x: CArray, offsets, bi: int, bd: int,
                                  packed_parity: Optional[int] = None) -> CArray:
@@ -103,35 +158,274 @@ def stencil_matvec_soa_reference(blocks: CArray, kron: Optional[CArray],
     KI, KD = kron.shape[1], kron.shape[2]
     n = x.shape[0]
     lat = tuple(x.shape[2:])
-    if packed_parity is not None:
-        rest = lat[1:]
-        coords = np.meshgrid(*[np.arange(d) for d in rest], indexing="ij")
-        m = (packed_parity + sum(coords)) % 2 == 1
-        img_x_odd = torch.from_numpy(m.reshape((1, 1, 1) + tuple(rest))).to(dev)
-
-    def roll(a, off):
-        for ax, o in enumerate(off):
-            if o % (lat[ax] if packed_parity is None or ax != 0 else 10 ** 9) != 0:
-                if packed_parity is not None and ax == 0:
-                    sh = torch.roll(a, -o, dims=3)
-                    a = torch.where(img_x_odd, sh, a) if o > 0 else \
-                        torch.where(img_x_odd, a, sh)
-                else:
-                    a = torch.roll(a, -o, dims=3 + ax)
-        return a
-
+    shifted = _shifter(xc, offsets, packed_parity, KD, bd)
     y = None
-    xs4 = cplx.cmap(lambda a: a.reshape((n, KD, bd) + lat), xc)
     for d in range(ndir):
-        xd = cplx.cmap(lambda a: roll(a, offsets[d]), xs4)
         kr = CArray(kron.re[d], kron.im[d])
         z = cplx.cbilinear(lambda K, V: torch.einsum("ab,nbj...->naj...", K, V),
-                           kr, xd)
+                           kr, shifted(d))
         blk = cplx.cmap(lambda a: a[d].reshape((bi, bd) + lat), blocks)
         t = cplx.cbilinear(lambda B, V: torch.einsum("ij...,naj...->nai...", B, V),
                            blk, z)
         y = t if y is None else cplx.add(y, t)
     return cplx.cmap(lambda a: a.reshape((n, KI * bi) + lat).to(x.dtype), y)
+
+
+def factor_kron(kre, kim):
+    """Per-direction spin-factor plan of ``kron`` [ndir, KI, KD] (numpy
+    parts): the TPU kernel's ``_factor_kron``
+    (``superbblas_tpu/ops/stencil_pallas.py``), copied line for line.
+
+    Each direction is ``("direct", rows)``, or, where K_d has rank r with
+    0 < r < KI and splits as K_d = R_d P_d, ``("factored", P rows, R
+    rows)``: the colour product then runs on r spin slots (the Wilson hops
+    r +- gamma_mu have rank 2 at r = 1).  A row lists its nonzero entries
+    as (slot, re, im); entries of R that are +-1 or +-i within 1e-9 are
+    snapped to them."""
+    K = np.asarray(kre).astype(np.float64) + 1j * np.asarray(kim)
+    ndir, KI, KD = K.shape
+
+    def rows_of(M, tol=1e-12):
+        return tuple(
+            tuple((s, float(M[r, s].real), float(M[r, s].imag))
+                  for s in range(M.shape[1]) if abs(M[r, s]) > tol)
+            for r in range(M.shape[0]))
+
+    specs = []
+    for d in range(ndir):
+        Kd = K[d]
+        idx = []
+        for r in range(KI):
+            cand = Kd[idx + [r]]
+            if np.linalg.matrix_rank(cand, tol=1e-9) > len(idx):
+                idx.append(r)
+        rank = len(idx)
+        if 0 < rank < KI:
+            P = Kd[idx]
+            R = Kd @ np.linalg.pinv(P)
+            R[np.abs(R) < 1e-10] = 0.0
+            # snap near-integers (gamma algebra produces exact +-1/+-i)
+            R = np.where(np.abs(R - np.round(R.real) - 1j * np.round(R.imag))
+                         < 1e-9, np.round(R.real) + 1j * np.round(R.imag), R)
+            if np.allclose(R @ P, Kd, atol=1e-10):
+                specs.append(("factored", rows_of(P), rows_of(R)))
+                continue
+        specs.append(("direct", rows_of(Kd)))
+    return tuple(specs)
+
+
+def stencil_matvec_soa_planned(blocks: CArray, specs, x: CArray, offsets, bi: int,
+                               bd: int, packed_parity: Optional[int] = None) -> CArray:
+    """The stencil matvec with the spin factors applied from ``specs``
+    (``factor_kron``'s plan): a direct direction multiplies the colour
+    block into its rows' sums of x, a factored one projects x onto its r
+    slots with P_d, multiplies those by the colour block, and adds R_d
+    times the result, as the TPU kernel's ``_matvec_body`` and the tiled
+    kernel do.  Plain PyTorch, in the promoted dtype of blocks and x (at
+    least f32); the output has x's dtype."""
+    cdt = torch.promote_types(torch.promote_types(blocks.dtype, x.dtype), torch.float32)
+    blocks, xc = blocks.to(cdt), x.to(cdt)
+    KD = x.shape[1] // bd
+    KI = len(specs[0][1]) if specs[0][0] == "direct" else len(specs[0][2])
+    n = x.shape[0]
+    lat = tuple(x.shape[2:])
+    shifted = _shifter(xc, offsets, packed_parity, KD, bd)
+
+    def combine(row, v):
+        """sum over (slot, re, im) of row of (re + i im) v[:, slot]"""
+        out = None
+        for sl, cr, ci in row:
+            t = CArray(cr * v.re[:, sl] - ci * v.im[:, sl], cr * v.im[:, sl] + ci * v.re[:, sl])
+            out = t if out is None else cplx.add(out, t)
+        return out if out is not None else cplx.cmap(torch.zeros_like, CArray(v.re[:, 0],
+                                                                               v.im[:, 0]))
+
+    def colour(d, v):
+        """B_d(s) v: [n, BD, *lat] -> [n, BI, *lat]"""
+        blk = cplx.cmap(lambda a: a[d].reshape((bi, bd) + lat), blocks)
+        return cplx.cbilinear(lambda B, V: torch.einsum("ij...,nj...->ni...", B, V), blk, v)
+
+    y = [None] * KI
+    for d, spec in enumerate(specs):
+        xd = shifted(d)
+        if spec[0] == "direct":
+            t = [colour(d, combine(row, xd)) for row in spec[1]]
+        else:
+            g = [colour(d, combine(row, xd)) for row in spec[1]]
+            gs = CArray(torch.stack([v.re for v in g], 1), torch.stack([v.im for v in g], 1))
+            t = [combine(row, gs) for row in spec[2]]
+        y = [v if acc is None else cplx.add(acc, v) for acc, v in zip(y, t)]
+    return CArray(*(torch.stack(parts, 1).reshape((n, KI * bi) + lat).to(x.dtype)
+                    for parts in ([v.re for v in y], [v.im for v in y])))
+
+
+def _plan_dtype(a) -> np.dtype:
+    """The tiled kernel's plan record (csrc/stencil_tiled.cu PlanDir) with
+    values of numpy type ``a``."""
+    return np.dtype([("mode", "<i4"), ("rank", "<i4"), ("slots", "<i4"), ("rslots", "<i4"),
+                     ("k", a, (2, 4, 4)), ("r", a, (2, 4, 2)), ("t", a, (2, 4)),
+                     ("q", a, (2, 4))])
+
+
+def kernel_plan(specs, K: np.ndarray, kdt) -> Tuple[np.ndarray, bool]:
+    """The tiled kernel's table of ``specs``, ``factor_kron``'s plan of
+    the kron ``K`` (complex [ndir, KI, KD], KI, KD <= 4), in the sum type
+    ``kdt``: one PlanDir record a direction, and whether every direction
+    takes the sparse form.
+
+    A record holds the dense coefficients (K_d itself for a direct
+    direction; P_d in rows < r and R_d for a factored one of rank r <= 2)
+    and, for the sparse form, four terms (slot, coefficient) and one
+    (slot, coefficient) of R a row: a direct direction whose rows have at
+    most one nonzero (term a is row a's), a factored one of rank <= 2
+    whose P rows have at most two nonzeros (terms 2c, 2c+1 are row c's)
+    and whose R rows at most one.  The sparse form scales each P row to a
+    first coefficient of 1 and its R column by the inverse, so a row's
+    projection is one complex multiply-add.  That is the Wilson family's
+    plan (centre diagonal, hops r +- gamma_mu at r = 1); the dense form
+    takes every kron.  A factored direction of rank 3 runs direct: no
+    operator has one, and it would save a quarter of the colour work."""
+    a = np.float64 if kdt == torch.float64 else np.float32
+    rec = np.zeros(len(specs), _plan_dtype(a))
+    sparse = True
+    for d, spec in enumerate(specs):
+        r = rec[d]
+        factored = spec[0] == "factored" and len(spec[1]) <= 2
+        rows = spec[1] if spec[0] == "direct" or factored else tuple(
+            tuple((sl, float(K[d, i, sl].real), float(K[d, i, sl].imag))
+                  for sl in range(K.shape[2]) if abs(K[d, i, sl]) > 1e-12)
+            for i in range(K.shape[1]))
+        r["mode"], r["rank"] = (1, len(spec[1])) if factored else (0, 0)
+        per = 2 if factored else 1
+        # the sparse form's scale of each P row: its first coefficient
+        first = [complex(row[0][1], row[0][2]) if factored and row else 1.0 for row in rows]
+        if factored:
+            for i, row in enumerate(rows):
+                for sl, cr, ci in row:
+                    r["k"][:, i, sl] = cr, ci
+            for i, row in enumerate(spec[2]):
+                for c, cr, ci in row:
+                    r["r"][:, i, c] = cr, ci
+                if len(row) > 1:
+                    sparse = False
+                elif row:
+                    r["rslots"] |= row[0][0] << (4 * i)
+                    q = complex(row[0][1], row[0][2]) * first[row[0][0]]
+                    r["q"][:, i] = q.real, q.imag
+        else:
+            r["k"][0, :K.shape[1], :K.shape[2]] = K[d].real
+            r["k"][1, :K.shape[1], :K.shape[2]] = K[d].imag
+        for i, row in enumerate(rows):
+            if len(row) > per:
+                sparse = False
+                continue
+            for e, (sl, cr, ci) in enumerate(row):
+                t = 1.0 if factored and e == 0 else complex(cr, ci) / first[i]
+                r["slots"] |= sl << (4 * (per * i + e))
+                r["t"][:, per * i + e] = t.real, t.imag
+    return rec, sparse
+
+
+class _Plan:
+    """The spin plan of one kron value: ``factor_kron``'s specs, the tiled
+    kernel's table on a device and whether it takes the sparse form."""
+    __slots__ = ("specs", "table", "sparse")
+
+
+#: host values of kron tensors: (id(re), id(im)) -> [weakrefs, versions,
+#: (re, im) numpy parts or None, derivation (parent CArray, fn) or None];
+#: an entry leaves when its real part is freed
+_HOST: dict = {}
+#: plans by (kron value, sum type, device), the most recent PLAN_CACHE
+_PLANS: "collections.OrderedDict" = collections.OrderedDict()
+#: plans kept
+PLAN_CACHE = 64
+
+
+def _host_entry(kron: CArray, create: bool):
+    key = (id(kron.re), id(kron.im))
+    e = _HOST.get(key)
+    versions = (kron.re._version, kron.im._version)
+    if e is not None and e[0][0]() is kron.re and e[0][1]() is kron.im and e[1] == versions:
+        return e
+    if not create:
+        return None
+    e = [(weakref.ref(kron.re), weakref.ref(kron.im)), versions, None, None]
+    _HOST[key] = e
+    weakref.finalize(kron.re, _HOST.pop, key, None)
+    return e
+
+
+def derive_kron(parent: Optional[CArray], child: Optional[CArray], fn) -> None:
+    """Record that the kron tensor ``child`` holds ``fn(re, im)`` of
+    ``parent``'s numpy parts (in the tensors' own dtype, so that ``fn``
+    gives the device's bits): its spin plan then comes from the parent's
+    host value, with no device-to-host read.  ``adjoint_operator``,
+    ``twisted_mass_operator`` and ``hopping_packed_soa`` record their
+    krons so; a solve that builds its adjoint on every call reads nothing.
+    No-op where either is None or not a CArray."""
+    if parent is None or child is None or not (cplx.is_carray(parent)
+                                               and cplx.is_carray(child)):
+        return
+    _host_entry(child, True)[3] = (parent, fn)
+
+
+def host_kron(kron: CArray) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy (re, im) parts of ``kron``: from its derivation or the
+    value kept for the tensor, else one device-to-host read (counted by
+    ``stencil_matvec_soa.kron_reads``), kept while the tensors live and are
+    not written."""
+    e = _host_entry(kron, True)
+    if e[2] is None:
+        if e[3] is not None:
+            parent, fn = e[3]
+            e[2] = fn(*host_kron(parent))
+        else:
+            e[2] = (kron.re.detach().cpu().numpy(), kron.im.detach().cpu().numpy())
+            stencil_matvec_soa.kron_reads += 1
+    return e[2]
+
+
+def spin_plan(kron: CArray, kdt) -> _Plan:
+    """The tiled kernel's plan of ``kron`` for sums in ``kdt``: built once
+    per kron value, device and sum type (``factor_kron`` and the table's
+    upload, counted by ``stencil_matvec_soa.plan_builds``), from the
+    kron's host value (``host_kron``)."""
+    kre, kim = host_kron(kron)
+    key = (kre.dtype.str, kre.shape, kre.tobytes(), kim.tobytes(), kdt, str(kron.re.device))
+    p = _PLANS.get(key)
+    if p is not None:
+        _PLANS.move_to_end(key)
+        return p
+    p = _Plan()
+    p.specs = factor_kron(kre, kim)
+    p.table, p.sparse = None, False
+    if kre.shape[1] <= 4 and kre.shape[2] <= 4:
+        rec, p.sparse = kernel_plan(p.specs, kre.astype(np.float64) + 1j * kim, kdt)
+        p.table = torch.from_numpy(rec.view(np.uint8).copy()).to(kron.re.device)
+    _PLANS[key] = p
+    if len(_PLANS) > PLAN_CACHE:
+        _PLANS.popitem(last=False)
+    stencil_matvec_soa.plan_builds += 1
+    return p
+
+
+def clear_plans() -> None:
+    """Drop every kept plan: the next launch on each kron value builds its
+    plan again (so a run can count the plans one solve builds).  Host
+    values stay."""
+    _PLANS.clear()
+
+
+def x_chunk(Y: int, Z: int, T: int, site_bytes: int) -> int:
+    """Y rows the tiled kernel's blocks cover at one x before they step X:
+    the largest divisor of Y whose rows (``site_bytes`` of traffic a site)
+    fit in L2_REUSE_BYTES, so a block's X neighbours are still in L2 when
+    their own blocks run; at least 1."""
+    for yc in range(Y, 0, -1):
+        if Y % yc == 0 and yc * Z * T * site_bytes <= L2_REUSE_BYTES:
+            return yc
+    return 1
 
 
 def aos_to_soa(x: CArray, nlat: int) -> CArray:
@@ -231,36 +525,71 @@ def xin_tile(n: int, X: int, F: int, itemsize: int, nk: int) -> Tuple[int, int, 
     return S, C, max(1, min(X, 256 // (S * C)))
 
 
-def _launch(entry: str, blocks, kron, x, offsets, bi, bd, KI, KD, *extra) -> CArray:
-    """Run C entry ``entry`` on the operands; returns y."""
+@functools.lru_cache(maxsize=64)
+def _offsets_array(offsets: Tuple[Tuple[int, ...], ...]):
+    """The C entries' offsets argument, [ndir, 4] ints, one per offsets."""
+    flat = [int(v) for off in offsets for v in off]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _offsets_key(offsets) -> Tuple[Tuple[int, ...], ...]:
+    if isinstance(offsets, tuple) and all(type(o) is tuple for o in offsets):
+        return offsets
+    return tuple(tuple(int(v) for v in off) for off in offsets)
+
+
+def _sum_dtype(x: CArray):
+    """The type the kernels sum in, and take their kron factors in."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _kron_ptrs(kron: Optional[CArray]) -> tuple:
+    """The kron arguments of the C entries but the tiled one."""
+    return (None, None) if kron is None else (kron.re.data_ptr(), kron.im.data_ptr())
+
+
+def _launch(entry: str, blocks, kptrs: tuple, x, offsets, bi, bd, KI, KD, *extra) -> CArray:
+    """Run C entry ``entry`` on the operands with its kron or plan
+    arguments ``kptrs``; returns y."""
     from . import _cuda
 
     dev = x.device
-    for c in (blocks, kron):
-        if c is not None and (c.re.device != dev or c.im.device != dev):
-            raise ValueError(f"operands on {c.re.device}/{c.im.device} and {dev}")
-    # the kron factors in the type the pair sums in
-    kdt = torch.float64 if x.dtype == torch.float64 else torch.float32
-    if kron is not None:
-        kron = cplx.cmap(lambda a: a.to(kdt).contiguous(), kron)
+    if blocks.re.device != dev or blocks.im.device != dev:
+        raise ValueError(f"operands on {blocks.re.device}/{blocks.im.device} and {dev}")
     n = x.shape[0]
     lat = tuple(x.shape[2:])
-    y = CArray(torch.empty((n, KI * bi) + lat, dtype=x.dtype, device=dev),
-               torch.empty((n, KI * bi) + lat, dtype=x.dtype, device=dev))
-    flat = [int(v) for off in offsets for v in off]
-    offs = (ctypes.c_int * len(flat))(*flat)
+    y = CArray(x.re.new_empty((n, KI * bi) + lat), x.re.new_empty((n, KI * bi) + lat))
+    key = _offsets_key(offsets)
     with torch.cuda.device(dev):
         err = getattr(_cuda.library(), entry)(
             KI, KD, bi, bd, KERNEL_DTYPES.index((blocks.dtype, x.dtype)),
-            blocks.re.data_ptr(), blocks.im.data_ptr(),
-            None if kron is None else kron.re.data_ptr(),
-            None if kron is None else kron.im.data_ptr(),
+            blocks.re.data_ptr(), blocks.im.data_ptr(), *kptrs,
             x.re.data_ptr(), x.im.data_ptr(), y.re.data_ptr(), y.im.data_ptr(),
-            n, *lat, len(offsets), offs, *extra,
+            n, *lat, len(key), _offsets_array(key), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     return y
+
+
+def _kron_for(kron: Optional[CArray], x: CArray) -> Optional[CArray]:
+    """``kron`` in the sum type of x's kernels but the tiled one (a no-op
+    where it is that type already); None stays None; raises on another
+    device."""
+    if kron is None:
+        return None
+    if kron.re.device != x.device or kron.im.device != x.device:
+        raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
+    kdt = _sum_dtype(x)
+    return cplx.cmap(lambda v: v.to(kdt).contiguous(), kron)
+
+
+def tiled_site_bytes(blocks: CArray, x: CArray, KI: int, bi: int) -> int:
+    """Device-memory traffic of one site in the tiled kernel: its blocks,
+    x read and y written, every column."""
+    ndir, nb = blocks.shape[0], blocks.shape[1]
+    return 2 * (ndir * nb * blocks.re.element_size()
+                + x.shape[0] * (x.shape[1] + KI * bi) * x.re.element_size())
 
 
 def _on_cpu(blocks: CArray, x: CArray, name: str) -> bool:
@@ -280,11 +609,11 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     (0 or 1) the operands hold one checkerboard parity with X halved.
 
     CPU operands run the plain version.  CUDA operands run the kernel:
-    its templated route at KERNEL_SHAPES (``stencil_matvec_soa.launches``
-    counts those launches, ``.by_shape`` them by shape),
-    :func:`stencil_matvec_soa_rt` at the other
-    shapes; a case neither takes raises.  Above MAX_BLOCK it raises
-    ValueError on every device."""
+    the tiled kernel with the kron's spin plan at TILED_SHAPES, the
+    templated one at the clover term's shape (``stencil_matvec_soa.launches``
+    counts the launches of both, ``.by_shape`` them by shape),
+    :func:`stencil_matvec_soa_rt` at the other shapes; a case none takes
+    raises.  Above MAX_BLOCK it raises ValueError on every device."""
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     check_block(KI, KD, bi, bd)
     if _on_cpu(blocks, x, "stencil_matvec_soa"):
@@ -293,9 +622,25 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     if (KI, KD, bi, bd) not in KERNEL_SHAPES:
         return stencil_matvec_soa_rt(blocks, kron, x, offsets, bi, bd,
                                      packed_parity=packed_parity)
+    if (KI, KD, bi, bd) in TILED_SHAPES and \
+            max(KD * bd, KI * bi, bi * bd) * x.shape[2:].numel() > TILED_MAX_VALUES:
+        raise ValueError(f"lattice {tuple(x.shape[2:])}: the tiled stencil kernel indexes one "
+                         f"column's field and one direction's blocks in 32 bits, at most "
+                         f"{TILED_MAX_VALUES} values ({max(KD * bd, KI * bi, bi * bd)} a site)")
     check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
-    y = _launch("sbt_stencil_soa", blocks, kron, x, offsets, bi, bd, KI, KD,
-                -1 if packed_parity is None else int(packed_parity))
+    parity = -1 if packed_parity is None else int(packed_parity)
+    if (KI, KD, bi, bd) in TILED_SHAPES:
+        X, Y, Z, T = x.shape[2:]
+        if kron is not None and (kron.re.device != x.device or kron.im.device != x.device):
+            raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
+        p = None if kron is None else spin_plan(kron, _sum_dtype(x))
+        table, sparse = (None, 0) if p is None else (p.table.data_ptr(), int(p.sparse))
+        yc = x_chunk(Y, Z, T, tiled_site_bytes(blocks, x, KI, bi))
+        y = _launch("sbt_stencil_tiled", blocks, (table,), x, offsets, bi, bd, KI, KD,
+                    parity, sparse, yc)
+    else:
+        y = _launch("sbt_stencil_soa", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
+                    bi, bd, KI, KD, parity)
     stencil_matvec_soa.launches += 1
     stencil_matvec_soa.by_shape[KI, KD, bi, bd] += 1
     return y
@@ -319,7 +664,8 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
     if x.shape[0] > 65535:
         raise ValueError(f"{x.shape[0]} columns: the runtime-shape stencil kernel takes "
                          "at most 65535")
-    y = _launch("sbt_stencil_soa_rt", blocks, kron, x, offsets, bi, bd, KI, KD,
+    y = _launch("sbt_stencil_soa_rt", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
+                bi, bd, KI, KD,
                 -1 if packed_parity is None else int(packed_parity))
     stencil_matvec_soa_rt.launches += 1
     stencil_matvec_soa_rt.by_shape[KI, KD, bi, bd] += 1
@@ -340,7 +686,8 @@ def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
     if _on_cpu(blocks, x, "stencil_matvec_soa_xin"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
     check_kernel_case(blocks, kron, x, offsets, bi, bd, shapes=SCHEDULE_SHAPES)
-    y = _launch("sbt_stencil_soa_xin", blocks, kron, x, offsets, bi, bd, KI, KD, *tile)
+    y = _launch("sbt_stencil_soa_xin", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
+                bi, bd, KI, KD, *tile)
     stencil_matvec_soa_xin.launches += 1
     return y
 
@@ -356,14 +703,19 @@ def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
     if _on_cpu(blocks, x, "stencil_matvec_soa_stream"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
     KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, shapes=SCHEDULE_SHAPES)
-    y = _launch("sbt_stencil_soa_stream", blocks, kron, x, offsets, bi, bd, KI, KD)
+    y = _launch("sbt_stencil_soa_stream", blocks, _kron_ptrs(_kron_for(kron, x)), x,
+                offsets, bi, bd, KI, KD)
     stencil_matvec_soa_stream.launches += 1
     return y
 
 
-#: launches of each route, and of each route by (KI, KD, BI, BD)
+#: launches of each route, and of each route by (KI, KD, BI, BD); the
+#: tiled route's spin plans built (``spin_plan``) and kron tensors read to
+#: the host for them (``host_kron``)
 stencil_matvec_soa.launches = 0
 stencil_matvec_soa.by_shape = collections.Counter()
+stencil_matvec_soa.plan_builds = 0
+stencil_matvec_soa.kron_reads = 0
 stencil_matvec_soa_rt.launches = 0
 stencil_matvec_soa_rt.by_shape = collections.Counter()
 stencil_matvec_soa_xin.launches = 0

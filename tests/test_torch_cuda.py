@@ -1,8 +1,11 @@
 """The CUDA kernels on the card: the cases each refuses; the stencil
-kernel with packed parity, on both its routes at every new block shape,
-and its X-inside and X-streaming schedules against the plain version (and
-the schedules and the runtime-shape route against the templated kernel,
-bit for bit); the bf16 roll-plus-add (E2) in both variants and the
+kernel with packed parity, its tiled route at the Wilson and staggered
+shapes with factored (Wilson projector) and direct (random) spin factors
+at every type pair, its registers and spills, its plan built once per
+operator, on both its other routes at every new block shape, and its
+X-inside and X-streaming schedules against the plain version (and the
+schedules and the tiled route where no direction factors against the
+runtime-shape route, bit for bit); the bf16 roll-plus-add (E2) in both variants and the
 transpose tile sweep (E3) at each tile; every operator family's apply on
 the card, in both layouts, against the same apply on the CPU; the CG and even-odd solves through the stencil kernel against the
 same solves on the CPU; the permute kernel against its plain version,
@@ -129,9 +132,10 @@ def test_packed_kernel_matches_plain_version(cuda_device, parity, st, ft):
 @pytest.mark.parametrize("st,ft", DTYPES)
 @pytest.mark.parametrize("schedule", ["xin", "stream"])
 def test_schedules_match_plain_version_and_kernel(cuda_device, schedule, st, ft):
-    """K4a and K4b against the plain version, and against K1 bit for bit
-    (they share K1's per-site math and its order of sums), with X of 1, 2
-    and 3 among the lattices."""
+    """K4a and K4b against the plain version, and against K1's
+    runtime-shape route bit for bit (they share its per-site math and its
+    order of sums; K1's tiled route sums a factored direction in another
+    order), with X of 1, 2 and 3 among the lattices."""
     wrapper = WRAPPERS[schedule]
     before = wrapper.launches
     cases = [((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 2, 5, 7), 3), ((4, 4, 8, 32), 8)]
@@ -141,9 +145,155 @@ def test_schedules_match_plain_version_and_kernel(cuda_device, schedule, st, ft)
             args = (blocks, k, x, OFFSETS, 3, 3)
             got = wrapper(*args)
             _close(got, S.stencil_matvec_soa_reference(*args), f"{schedule} {lat} n={n}")
-            k1 = S.stencil_matvec_soa(*args)
-            assert all(torch.equal(g, w) for g, w in zip(got, k1)), (schedule, lat, n)
+            rt = S.stencil_matvec_soa_rt(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, rt)), (schedule, lat, n)
     assert wrapper.launches == before + 2 * len(cases)
+
+
+#: every (storage, field) pair of K1, and the relative tolerance against
+#: the plain version: f32 rounding, one bf16 ulp (2^-7) for bf16 fields,
+#: f64 rounding of sums of a few hundred products
+ALL_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+             (torch.float64, torch.float64)]
+PLAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float64: 1e-12}
+#: ragged lattices (X of 1-3, T of 5-10), columns and parities of the
+#: tiled route's tests
+TILED_CASES = (((3, 5, 6, 10), 3, None), ((1, 3, 2, 5), 9, None), ((2, 4, 3, 8), 2, 0),
+               ((3, 5, 4, 7), 1, 1), ((2, 2, 3, 9), 5, 1))
+
+
+def _spin_factors(kind, ndir, dtype):
+    """Wilson's (r = 1: every hop factored) or random (every direction
+    direct) spin factors, the centre dropped for 8 directions."""
+    if kind == "random":
+        return crand((ndir, 4, 4), 7, "cuda", dtype)
+    kron = W.wilson_operator((2, 2, 2, 2), layout="soa", device="cpu",
+                             dtype=torch.complex128).kron
+    keep = slice(9 - ndir, 9)
+    return CArray(kron.re[keep].to("cuda", dtype), kron.im[keep].to("cuda", dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", ALL_PAIRS)
+@pytest.mark.parametrize("kind", ["wilson", "random"])
+def test_tiled_k1_matches_plain_version(cuda_device, kind, st, ft):
+    """K1's tiled route at (4, 4, 3, 3) with Wilson projector factors (the
+    sparse form of the plan, rank-2 projection) and random ones (direct,
+    dense form), and at (1, 1, 3, 3) with no kron, on ragged lattices and
+    both packed parities, against the plain version; where no direction
+    factors, bit for bit against the runtime-shape route."""
+    before = S.stencil_matvec_soa.by_shape.copy()
+    kdt = torch.float64 if ft == torch.float64 else torch.float32
+    for i, (lat, n, parity) in enumerate(TILED_CASES):
+        offsets = OFFSETS if parity is None else OFFSETS[1:]
+        kron = _spin_factors(kind, len(offsets), kdt)
+        plan = S.spin_plan(kron, kdt)
+        assert plan.sparse == (kind == "wilson")
+        assert all(spec[0] == ("direct" if kind == "random" or not any(offsets[d])
+                               else "factored") for d, spec in enumerate(plan.specs))
+        for k, bd_kd in ((kron, 12), (None, 3)):
+            blocks = crand((len(offsets), 9) + lat, 10 * i, "cuda", st)
+            x = crand((n, bd_kd) + lat, 10 * i + 2, "cuda", ft)
+            args = (blocks, k, x, offsets, 3, 3)
+            got = S.stencil_matvec_soa(*args, packed_parity=parity)
+            want = S.stencil_matvec_soa_reference(*args, packed_parity=parity)
+            assert got.re.dtype == ft and got.re.shape == want.re.shape
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            scale = max(float(w.double().abs().max()) for w in want)
+            assert err <= PLAN_TOL[ft] * scale, (kind, lat, parity, k is None, err, scale)
+            if kind == "random" or k is None:
+                rt = S.stencil_matvec_soa_rt(*args, packed_parity=parity)
+                assert all(torch.equal(g, w) for g, w in zip(got, rt)), (lat, parity)
+    after = S.stencil_matvec_soa.by_shape
+    assert after[4, 4, 3, 3] - before[4, 4, 3, 3] == len(TILED_CASES)
+    assert after[1, 1, 3, 3] - before[1, 1, 3, 3] == len(TILED_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", ALL_PAIRS)
+def test_tiled_k1_registers_and_spills(cuda_device, st, ft):
+    """The tiled kernel's forms at both shapes, from cudaFuncGetAttributes:
+    no local memory (spills) at the f32-summed pairs, within 128 registers
+    there so that two blocks of 256 threads share an SM; at f64 at most
+    255 registers."""
+    import ctypes
+    from superbblas_tpu_torch.ops import _cuda
+
+    pair = S.KERNEL_DTYPES.index((st, ft))
+    for ki, sparse in ((4, 1), (4, 0), (1, 0)):
+        out = (ctypes.c_int * 4)()
+        assert _cuda.library().sbt_stencil_tiled_attrs(ki, ki, 3, 3, pair, sparse, 8, 32, 32,
+                                                       32, 64, 4, out) == 0
+        regs, local, threads, blocks = list(out)
+        if ft == torch.float64:
+            assert regs <= 255 and blocks >= 1, (ki, sparse, regs, blocks)
+        else:
+            assert local == 0 and regs <= 128 and threads * blocks >= 512, \
+                (ki, sparse, regs, local, threads, blocks)
+
+
+@pytest.mark.cuda
+def test_plan_built_once_per_operator(cuda_device):
+    """A CG solve builds the spin plans of its operator and its adjoint
+    once each and reads the operator's kron to the host once, the
+    adjoint's derived from it: no
+    device-to-host read in its iterations, nor in a loop that builds the
+    adjoint on every call (``apply_wilson_dagger``).  The twisted-mass
+    operator and the packed hoppings, made with ``op.replace``, get plans
+    of their own."""
+    op = W.wilson_operator((4, 4, 4, 8), mass=0.2, layout="soa", device="cuda")
+    b = crand((2, 12, 4, 4, 4, 8), 3, "cuda", torch.float32)
+    S.clear_plans()
+    builds, reads = S.stencil_matvec_soa.plan_builds, S.stencil_matvec_soa.kron_reads
+    W.cg_solve(op, b, n_iters=5)
+    assert S.stencil_matvec_soa.plan_builds == builds + 2
+    assert S.stencil_matvec_soa.kron_reads == reads + 1
+    W.cg_solve(op, b, n_iters=5)
+    for _ in range(5):
+        W.apply_wilson_dagger(op, b)
+    assert S.stencil_matvec_soa.plan_builds == builds + 2
+    assert S.stencil_matvec_soa.kron_reads == reads + 1
+    tm = W.twisted_mass_operator((4, 4, 4, 8), mass=0.2, layout="soa", device="cuda")
+    hop = E.hopping_packed_soa(op, 0)
+    for o in (tm, hop):
+        p = S.spin_plan(o.kron, torch.float32)
+        assert p is not S.spin_plan(op.kron, torch.float32)
+    assert S.stencil_matvec_soa.plan_builds == builds + 4
+    # the twisted operator's own Wilson kron is read once; the hops derive
+    assert S.stencil_matvec_soa.kron_reads == reads + 2
+    assert S.spin_plan(tm.kron, torch.float32).specs[0] != \
+        S.spin_plan(op.kron, torch.float32).specs[0]
+
+
+@pytest.mark.cuda
+def test_tiled_k1_lattice_limit(cuda_device):
+    """The tiled route indexes one column's field and one direction's
+    blocks in 32 bits from 64-bit bases: a lattice whose nine directions'
+    blocks pass 2^31 values (where a 32-bit block index would wrap) gives
+    the runtime-shape route's bits at random (direct) spin factors; one
+    whose column passes 2^31 values raises a ValueError naming the
+    limit."""
+    lat = (48, 48, 48, 256)   # 28.3M sites: 9 x 81 values a site > 2^31
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(shape, dt=torch.bfloat16):
+        return CArray(*(torch.randn(shape, generator=gen, device="cuda").to(dt)
+                        for _ in range(2)))
+
+    blocks, x = rnd((9, 9) + lat), rnd((1, 12) + lat, torch.float32)
+    kron = rnd((9, 4, 4), torch.float32)
+    got = S.stencil_matvec_soa(blocks, kron, x, OFFSETS, 3, 3)
+    want = S.stencil_matvec_soa_rt(blocks, kron, x, OFFSETS, 3, 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    del got, want, x
+    big = (64, 64, 64, 2 ** 31 // (12 * 64 ** 3) + 1)
+    b1 = CArray(*(torch.empty((9, 9, 1, 1, 1, 1), device="cuda").expand((9, 9) + big)
+                  for _ in range(2)))
+    x1 = CArray(*(torch.empty((1, 12, 1, 1, 1, 1), device="cuda").expand((1, 12) + big)
+                  for _ in range(2)))
+    with pytest.raises(ValueError, match="32 bits"):
+        S.stencil_matvec_soa(b1, kron, x1, OFFSETS, 3, 3)
 
 
 #: (KI, KD, BI, BD) of K1 beyond the Wilson and staggered shapes: the
