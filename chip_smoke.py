@@ -47,7 +47,8 @@ on the packed Schur operator built from ``hopping_packed_soa``,
 <= 2e-5.
 
 Dense path: checks the permute kernel against its plain version at small,
-ragged and strided shapes and a small box copy against a numpy oracle.
+ragged and strided shapes on both its routes (16-byte and 4-byte words)
+and a small box copy against a numpy oracle.
 Then it drives the dense engine once at full width through
 ``local_permute``, ``local_copy`` and ``local_contraction``: 128x64x64x128
 f32 permutes of a tensor and of a split-complex pair, a wrapped box copy,
@@ -55,7 +56,8 @@ a masked checkerboard compaction of a 32x32x32x64 field, a bf16 batched
 contraction (T=8, 1024^3) and the Gram matrix and rotation of a 64-vector
 split-complex Krylov basis of 12x16x16x16x32 sites; each result is held
 against a plain version, a numpy oracle or a float64 product on the card,
-and the kernel launches of the run are counted.  Then it times the permute
+and the kernel launches of the run are counted (all seven on the 16-byte
+route).  Then it times the permute
 kernel against the plain version (``x.permute(perm).contiguous()``, which
 is also the one PyTorch call computing the same function).
 
@@ -98,14 +100,17 @@ kernels.  The operands of one apply of each coarse level, taken from the
 apply itself, go through K3 and E1 again, held against the plain version
 and a float64 product.
 
-K1-shape path: K1 at the clover term's templated (1,1,12,12) and on its
-runtime-shape route at (2,2,3,3), (1,1,2,2) and (2,1,4,2), each against
-the plain version on full and packed parity (three dtype pairs), the
-runtime route against the templated one bit for bit at (4,4,3,3) and
-(1,1,3,3); then each shape driven once at 16^3x32 x 8 and timed beside
-its bound.  Families' AoS check: every family's AoS apply (twisted mass,
-staggered and the clover term on K3, Shamir and Moebius on E1) against
-its SoA apply at 4x4x8x8, Ls 4.  Default-call check (fault P3): the
+K1-shape path: K1 at the clover term's (1,1,12,12) (the block-streaming
+kernel, both forms) and on its runtime-shape route at (2,2,3,3),
+(1,1,2,2) and (2,1,4,2), each against the plain version on full and
+packed parity (three dtype pairs), the runtime route against the tiled
+one bit for bit at (4,4,3,3) and (1,1,3,3) and against the
+block-streaming one at (1,1,12,12) (odd and 16-byte volumes, 1 and 9
+columns); then each shape driven once at 16^3x32 x 8 and timed beside
+its bound, the clover term also beside ``torch.einsum`` on complex64.
+Families' AoS check: every family's AoS apply (twisted mass, staggered
+and the clover term on K3, Shamir and Moebius on E1) against its SoA
+apply at 4x4x8x8, Ls 4.  Default-call check (fault P3): the
 default ``mobius_operator(DEFAULT_LAT)``, AoS at complex128 on the card,
 applied through E1 at f64 against its SoA twin.
 
@@ -113,7 +118,8 @@ Family paths (f32, SoA, CGNE to 1e-5 on the normal residual, each solve
 checked by its true normal and unsquared residuals and by one K1 launch
 of each of its shapes an apply): clover at 24x24x24x48 x 8 rhs (mass 0.1,
 c_sw 1.0, key 0; A^H = gamma5 A gamma5; its (1,1,12,12) term checked and
-timed); Moebius at 16x16x16x32 x Ls 16 x 4 rhs (M5 1.4, m_f 0.3, b5 1.5,
+timed beside ``torch.einsum("ijs,njs->nis")`` on complex64, every launch
+of it in the solve on the block-streaming kernel's 16-byte form); Moebius at 16x16x16x32 x Ls 16 x 4 rhs (M5 1.4, m_f 0.3, b5 1.5,
 c5 0.5; A^H = (Gamma5 R5) D_left (Gamma5 R5), the adjoint identity
 first; K1 at the 64 kernel columns checked and timed); and, on the
 Wilson path's lattice and links, twisted mass (mu 0.05, cg_solve, 25
@@ -147,6 +153,7 @@ the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import itertools
 import json
@@ -352,6 +359,8 @@ def reset_counts():
         fn.launches = 0
     for fn in (stencil_matvec_soa, stencil_matvec_soa_rt):
         fn.by_shape.clear()
+    stencil_matvec_soa.by_route.clear()
+    permute_4d.by_route.clear()
     stencil_matvec_soa.plan_builds = 0
     stencil_matvec_soa.kron_reads = 0
 
@@ -525,6 +534,26 @@ def tiled_attrs() -> dict:
             if err != 0:
                 raise AssertionError(f"tiled kernel attributes: cudaError {err}")
             out[f"{ki},{ki},3,3 {form} {str(st)[6:]}/{str(ft)[6:]}"] = list(got)
+    return out
+
+
+def kernel_attrs() -> dict:
+    """{"kernel form pair": [registers, local bytes, threads, blocks an
+    SM]} of K1's block-streaming kernel at 8 columns (both forms, every
+    f32-summed pair) and of K2's 16-byte route (cudaFuncGetAttributes)."""
+    import ctypes
+
+    lib, out = _cuda.library(), {}
+    for wide, form in ((1, "site16"), (0, "site")):
+        for pair, (st, ft) in enumerate(stencil_ops.KERNEL_DTYPES[:4]):
+            got = (ctypes.c_int * 4)()
+            if lib.sbt_stencil_site_attrs(pair, wide, MAIN_COLS, got) != 0:
+                raise AssertionError("block-streaming kernel attributes failed")
+            out[f"K1 1,1,12,12 {form} {str(st)[6:]}/{str(ft)[6:]}"] = list(got)
+    got = (ctypes.c_int * 4)()
+    if lib.sbt_permute_4d_vec_attrs(got) != 0:
+        raise AssertionError("permute kernel attributes failed")
+    out["K2 vec16"] = list(got)
     return out
 
 
@@ -798,22 +827,31 @@ def numpy_copy_oracle(alpha, x, o0, y, o1, from0, size0, from1, copy_add):
 
 
 def permute_checks(gen):
-    """The permute kernel against its plain version off the dense path:
-    ragged tiles, a strided view, int32 words; a small wrapped box copy
-    against the numpy oracle.  Returns the max abs error."""
+    """The permute kernel against its plain version off the dense path, on
+    both routes: ragged tiles, strided views, int32 words; a small wrapped
+    box copy against the numpy oracle.  Returns the max abs error."""
     err = 0.0
     x = torch.randn((45, 6, 7, 70), generator=gen, device="cuda")
+    w = torch.randn((72, 6, 7, 80), generator=gen, device="cuda")
     for perm in PERMS.values():
-        for label, v in (("ragged", x), ("strided view", x[3:40, 1:5, 2:7, 5:66]),
-                         ("int32", x.view(torch.int32))):
-            before = permute_4d.launches
+        for label, v, route in (("ragged", x, "word"),
+                                ("strided view", x[3:40, 1:5, 2:7, 5:66], "word"),
+                                ("int32", x.view(torch.int32), "word"),
+                                ("ragged 16-byte", w, "vec16"),
+                                ("strided view 16-byte", w[4:68, 1:5, 2:7, 8:72], "vec16"),
+                                ("view one word off 16 bytes", w[4:68, 1:5, 2:7, 1:65], "word"),
+                                ("int32 16-byte", w.view(torch.int32), "vec16")):
+            before = permute_4d.launches, permute_4d.by_route[route]
             got = maybe_permute(v, perm)
             torch.cuda.synchronize()
-            if permute_4d.launches != before + 1:
-                raise AssertionError(f"permute {label}: the kernel was not launched")
+            if (permute_4d.launches, permute_4d.by_route[route]) != (before[0] + 1,
+                                                                     before[1] + 1):
+                raise AssertionError(f"permute {label}: the kernel's {route} route was not "
+                                     "launched")
             err = max(err, exact(got, permute_4d_reference(v, perm),
                                  f"permute {tuple(v.shape)} {label} {perm}"))
-    print("check permute kernel: ragged, strided and int32 cases bit-exact", flush=True)
+    print("check permute kernel: ragged, strided and int32 cases bit-exact on the 4-byte "
+          "and 16-byte routes", flush=True)
     rng = np.random.default_rng(0)
     xs = rng.standard_normal((12, 4, 4, 12)).astype(np.float32)
     ys = rng.standard_normal((12, 4, 4, 12)).astype(np.float32)
@@ -923,9 +961,13 @@ def dense_path(gen, profile: bool):
     counts = read_counts()
     print(f"dense path {wall:.3f} s, kernel launches {counts} (after the permutes "
           f"{steps[0]}, after the box copy {steps[1]})", flush=True)
-    if counts != {k: 7 if k == "permute_4d" else 0 for k in counts} or steps != [2 + 4, 7]:
-        raise AssertionError(f"dense path launches {counts} {steps}, expected 2 + 4 "
-                             "for the permutes and 1 for the box copy")
+    routes = dict(permute_4d.by_route)
+    print(f"dense path permute launches by route {routes}", flush=True)
+    if counts != {k: 7 if k == "permute_4d" else 0 for k in counts} or steps != [2 + 4, 7] \
+            or routes != {"vec16": 7}:
+        raise AssertionError(f"dense path launches {counts} {steps} {routes}, expected 2 + "
+                             "4 for the permutes and 1 for the box copy, all on the 16-byte "
+                             "route")
 
     x, xc, V, C = d["x"], d["xc"], d["V"], d["C"]
     err = 0.0
@@ -990,10 +1032,12 @@ def time_permute(gen):
     shape, in turns.  The plain version, ``x.permute(perm).contiguous()``,
     is also the one PyTorch call computing the same function, so its time
     serves as the library time too.  Returns {perm name: (kernel ms, plain
-    ms)}."""
+    ms)}, the bound and the route the kernel took (raises unless every
+    timed launch took the 16-byte route)."""
     x = torch.randn(DENSE_SHAPE, generator=gen, device="cuda")
     nbytes = 2 * x.numel() * x.element_size()
     out = {}
+    before = dict(permute_4d.by_route)
     for o1, perm in PERMS.items():
         ms = time_turns({"kernel": lambda: permute_4d(x, perm),
                          "plain": lambda: permute_4d_reference(x, perm)}, reps=15)
@@ -1002,7 +1046,11 @@ def time_permute(gen):
               f"({nbytes / ms['kernel'] / 1e6:.1f} GB/s), plain = library call "
               f"median {ms['plain']:.4f} ms ({nbytes / ms['plain'] / 1e6:.1f} GB/s) over 15",
               flush=True)
-    return out, bound(nbytes, 0)
+    routes = {k: v - before.get(k, 0) for k, v in permute_4d.by_route.items()
+              if v != before.get(k, 0)}
+    if set(routes) != {"vec16"}:
+        raise AssertionError(f"timed permute launches by route {routes}")
+    return out, bound(nbytes, 0), "vec16"
 
 
 def summed_bound(b, x, factor=1.0):
@@ -1440,7 +1488,7 @@ UNSQUARED_TOL = 1e-3
 #: features (spin-major, colour repeated)
 G5_SIGNS = (1.0,) * 6 + (-1.0,) * 6
 #: K1's runtime-shape route at the JAX package's test shapes and an
-#: asymmetric one; the clover term's templated shape; the lattice and
+#: asymmetric one; the clover term's shape; the lattice and
 #: columns they are timed at
 K1_RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2))
 CLOVER_SHAPE = (1, 1, 12, 12)
@@ -1508,18 +1556,43 @@ def stencil_bound(blocks, kron, x, offsets, bi, bd):
     return ms, by, bound(nbytes, op.flops_per_matvec(n), peak)[0]
 
 
-def time_stencil(blocks, kron, x, offsets, bi, bd, reps, label):
-    """K1 (the route of its shape) and the plain version on one matvec, in
-    turns, beside the bound.  Returns ({"kernel", "plain"}: median ms,
-    (bound ms, by, reference-model bound ms))."""
+def time_stencil(blocks, kron, x, offsets, bi, bd, reps, label, library=None):
+    """K1 (the route of its shape), the plain version and, where given, the
+    one PyTorch call ``library`` computing the same function, on one
+    matvec, in turns, beside the bound.  Returns ({"kernel", "plain"[,
+    "library"]}: median ms, (bound ms, by, reference-model bound ms))."""
     args = (blocks, kron, x, offsets, bi, bd)
-    ms = time_turns({"kernel": lambda: stencil_matvec_soa(*args),
-                     "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
+    fns = {"kernel": lambda: stencil_matvec_soa(*args),
+           "plain": lambda: stencil_matvec_soa_reference(*args)}
+    if library is not None:
+        fns["library"] = library
+    ms = time_turns(fns, reps)
     bd_ = stencil_bound(*args)
-    print(f"time {label}: kernel median {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms "
-          f"over {reps} in turns; bound {bd_[0]:.4f} ms ({bd_[1]}), reference-model bound "
-          f"{bd_[2]:.4f} ms", flush=True)
+    lib = f", library call {ms['library']:.4f} ms" if library is not None else ""
+    print(f"time {label}: kernel median {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms"
+          f"{lib} over {reps} in turns; bound {bd_[0]:.4f} ms ({bd_[1]}), reference-model "
+          f"bound {bd_[2]:.4f} ms", flush=True)
     return ms, bd_
+
+
+def clover_einsum(blocks, x):
+    """The one PyTorch call computing the site-local term (one centre
+    direction, no kron): ``torch.einsum("ijs,njs->nis", Bc, xc)`` on
+    complex64 copies of the blocks [12, 12, V] and of x [n, 12, V], made
+    here, outside the timing; the call is checked against K1 first.
+    Returns the call."""
+    n, V = x.re.shape[0], x.re[0, 0].numel()
+    bc = torch.complex(blocks.re.float(), blocks.im.float()).reshape(12, 12, V)
+    xc = torch.complex(x.re.float(), x.im.float()).reshape(n, 12, V)
+    got = torch.einsum("ijs,njs->nis", bc, xc)
+    want = stencil_matvec_soa(blocks, None, x, ((0, 0, 0, 0),), 12, 12)
+    err = max(float((got.real - want.re.reshape(n, 12, V).float()).abs().max()),
+              float((got.imag - want.im.reshape(n, 12, V).float()).abs().max()))
+    scale = float(want.re.abs().max())
+    if not err <= TOL[x.re.dtype] * scale:
+        raise AssertionError(f"torch.einsum clover term disagrees with K1: {err} of {scale}")
+    del got, want
+    return lambda: torch.einsum("ijs,njs->nis", bc, xc)
 
 
 def shape_operands(shape, lat, n, ndir, gen, st=torch.float32, ft=torch.float32):
@@ -1533,13 +1606,14 @@ def k1_shape_path(gen):
     """K1 at the clover term's shape and on its runtime-shape route: each
     against the plain version at small shapes on full and packed parity
     (three dtype pairs), and at the Moebius column count (f32); the
-    runtime-shape route against the templated
-    one, bit for bit, at the templated Wilson and staggered shapes; then
-    each shape driven once through ``stencil_matvec_soa`` at K1_TIME_LAT x
-    K1_TIME_COLS (the counts set to 0 just before and read just after),
-    checked there and timed in turns with the plain version.  Returns
-    {shape: (launches, max error, ms, bound)} and the max error at the
-    Moebius column count."""
+    runtime-shape route against the tiled one, bit for bit, at the Wilson
+    and staggered shapes, and against the block-streaming one at the clover
+    term's (both forms); then each shape driven once through
+    ``stencil_matvec_soa`` at K1_TIME_LAT x K1_TIME_COLS (the counts set to
+    0 just before and read just after), checked there and timed in turns
+    with the plain version (the clover term also with ``torch.einsum``).
+    Returns {shape: (launches, max error, ms, bound)} and the max error at
+    the Moebius column count."""
     err = {}
     for shape in (CLOVER_SHAPE,) + K1_RT_SHAPES:
         err[shape] = 0.0
@@ -1568,9 +1642,27 @@ def k1_shape_path(gen):
             rt = stencil_matvec_soa_rt(*args, packed_parity=parity)
             if not all(torch.equal(g, w) for g, w in zip(k1, rt)):
                 raise AssertionError(f"runtime-shape route {shape} p={parity} differs from "
-                                     "the templated route")
+                                     "the tiled route")
+    forms = collections.Counter()
+    for lat, n, offsets, parity in (((3, 3, 3, 5), 1, WILSON_OFFSETS[:1], None),
+                                    ((3, 3, 3, 5), 9, WILSON_OFFSETS, None),
+                                    ((2, 4, 4, 8), 8, WILSON_OFFSETS[:1], None),
+                                    ((3, 5, 4, 7), 9, HOPPING, 1)):
+        blocks, kron, x = shape_operands(CLOVER_SHAPE, lat, n, len(offsets), gen)
+        args = (blocks, kron, x, offsets, 12, 12)
+        before = dict(stencil_matvec_soa.by_route)
+        k1 = stencil_matvec_soa(*args, packed_parity=parity)
+        forms.update({k: v - before.get(k, 0) for k, v in stencil_matvec_soa.by_route.items()})
+        rt = stencil_matvec_soa_rt(*args, packed_parity=parity)
+        if not all(torch.equal(g, w) for g, w in zip(k1, rt)):
+            raise AssertionError(f"block-streaming kernel {lat} n={n} p={parity} differs "
+                                 "from the runtime-shape route")
+    forms = +forms
+    if forms != collections.Counter({"site16": 2, "site": 2}):
+        raise AssertionError(f"block-streaming kernel forms {dict(forms)}")
     print("check K1 runtime-shape route at (4,4,3,3) and (1,1,3,3), full and packed: equal "
-          "to the templated route bit for bit", flush=True)
+          "to the tiled route bit for bit; at (1,1,12,12) equal to the block-streaming "
+          f"kernel bit for bit, forms {dict(forms)}", flush=True)
 
     path = {shape: shape_operands(shape, K1_TIME_LAT, K1_TIME_COLS,
                                   1 if shape == CLOVER_SHAPE else 9, gen)
@@ -1581,17 +1673,19 @@ def k1_shape_path(gen):
     for shape, (blocks, kron, x) in path.items():
         stencil_matvec_soa(blocks, kron, x, offsets[shape], shape[2], shape[3])
     torch.cuda.synchronize()
-    routes = (dict(stencil_matvec_soa.by_shape), dict(stencil_matvec_soa_rt.by_shape))
-    print(f"K1 shape path {K1_TIME_LAT} n={K1_TIME_COLS}: launches by shape, templated "
-          f"{routes[0]}, runtime {routes[1]}", flush=True)
-    if routes != ({CLOVER_SHAPE: 1}, {shape: 1 for shape in K1_RT_SHAPES}):
+    routes = (dict(stencil_matvec_soa.by_shape), dict(stencil_matvec_soa_rt.by_shape),
+              dict(stencil_matvec_soa.by_route))
+    print(f"K1 shape path {K1_TIME_LAT} n={K1_TIME_COLS}: launches by shape, K1 "
+          f"{routes[0]}, runtime {routes[1]}; K1 by route {routes[2]}", flush=True)
+    if routes != ({CLOVER_SHAPE: 1}, {shape: 1 for shape in K1_RT_SHAPES}, {"site16": 1}):
         raise AssertionError("a K1 shape did not launch its route once")
     out = {}
     for shape, (blocks, kron, x) in path.items():
         e = compare(blocks, kron, x, offsets[shape], f"K1 {shape} {K1_TIME_LAT} "
                     f"n={K1_TIME_COLS}", bi=shape[2], bd=shape[3])
         ms, bd_ = time_stencil(blocks, kron, x, offsets[shape], shape[2], shape[3], 7,
-                               f"K1 {shape} {K1_TIME_LAT} n={K1_TIME_COLS}")
+                               f"K1 {shape} {K1_TIME_LAT} n={K1_TIME_COLS}",
+                               clover_einsum(blocks, x) if shape == CLOVER_SHAPE else None)
         out[shape] = 1, max(err[shape], e), ms, bd_
     return out, err[MOEBIUS_SHAPE]
 
@@ -1611,7 +1705,8 @@ def family_solve(label, A, Ah, b, maxiter, plans):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    shapes = {"templated": dict(stencil_matvec_soa.by_shape),
+    shapes = {"k1": dict(stencil_matvec_soa.by_shape),
+              "routes": dict(stencil_matvec_soa.by_route),
               "runtime": dict(stencil_matvec_soa_rt.by_shape)}
     peak = torch.cuda.max_memory_allocated()
     ax = A(x)
@@ -1639,8 +1734,10 @@ def clover_path(gen, profile: bool):
     numpy seed 0, field strength and blocks formed on the card), the
     clover term's K1 (1, 1, 12, 12) held against the plain version on its
     operands and timed, then CGNE with A^H = gamma5 A gamma5 to 1e-5 on 8
-    rhs, every apply one K1 launch of each shape.  Returns (the clover
-    term's launches in the solve, its max error, ms, bound)."""
+    rhs, every apply one K1 launch of each shape, the clover term's on the
+    block-streaming kernel with 16-byte copies.  Returns (the clover
+    term's launches in the solve, its max error, ms (kernel, plain and
+    ``torch.einsum``), bound)."""
     t0 = time.perf_counter()
     op = wilson_clover_operator(CLOVER_LAT, mass=CLOVER_MASS, c_sw=CLOVER_CSW, key=0,
                                 layout="soa", device="cuda")
@@ -1653,7 +1750,8 @@ def clover_path(gen, profile: bool):
     err = compare(cl.blocks, None, b, cl.offsets, f"K1 {CLOVER_SHAPE} clover term "
                   f"{CLOVER_LAT} n={MAIN_COLS}", bi=12, bd=12)
     ms, bd_ = time_stencil(cl.blocks, None, b, cl.offsets, 12, 12, 5,
-                           f"K1 {CLOVER_SHAPE} clover term {CLOVER_LAT} n={MAIN_COLS}")
+                           f"K1 {CLOVER_SHAPE} clover term {CLOVER_LAT} n={MAIN_COLS}",
+                           clover_einsum(cl.blocks, b))
 
     def A(v):
         return apply_clover(op, v)
@@ -1665,9 +1763,11 @@ def clover_path(gen, profile: bool):
     it, shapes = family_solve(f"clover path {CLOVER_LAT} x {MAIN_COLS} rhs", A, Ah, b,
                               CLOVER_MAXITER, plans=1)
     applies = 1 + 2 * it
-    if shapes["templated"] != {(4, 4, 3, 3): applies, CLOVER_SHAPE: applies}:
+    if shapes["k1"] != {(4, 4, 3, 3): applies, CLOVER_SHAPE: applies} \
+            or shapes["routes"] != {"tiled": applies, "site16": applies}:
         raise AssertionError(f"clover path launches {shapes}, expected {applies} of each "
-                             "shape")
+                             "shape, the clover term's on the block-streaming kernel "
+                             "with 16-byte copies")
     if profile:
         profile_run("clover cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
                                                         maxiter=CLOVER_MAXITER))
@@ -1722,7 +1822,7 @@ def moebius_path(gen, profile: bool):
     it, shapes = family_solve(f"moebius path {MOEBIUS_LAT} Ls {MOEBIUS_LS} x {MOEBIUS_COLS} "
                               "rhs", A, Ah, b, MOEBIUS_MAXITER, plans=2)
     applies = 1 + 2 * it
-    if shapes["templated"] != {(4, 4, 3, 3): applies}:
+    if shapes["k1"] != {(4, 4, 3, 3): applies}:
         raise AssertionError(f"moebius path launches {shapes}, expected {applies}")
     if profile:
         profile_run("moebius cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
@@ -1754,7 +1854,7 @@ def staggered_path(links, gen):
                               lambda v: apply_staggered(op_h, v), b, STAGGERED_MAXITER,
                               plans=0)
     applies = 1 + 2 * it
-    if shapes["templated"] != {(1, 1, 3, 3): applies}:
+    if shapes["k1"] != {(1, 1, 3, 3): applies}:
         raise AssertionError(f"staggered path launches {shapes}, expected {applies}")
     return applies, err, ms, bd_
 
@@ -2073,8 +2173,9 @@ def main():
     print(f"device-to-device copy {rate / 1e12:.3f} TB/s measured (1 GiB, read and write "
           f"counted); the bounds take the data sheet's {HBM_BYTES_PER_S / 1e12:.2f} TB/s",
           flush=True)
-    for key, (regs, local, threads, blocks) in tiled_attrs().items():
-        print(f"tiled K1 {key}: {regs} registers, {local} B local (spills), {threads} "
+    attrs = {f"tiled K1 {k}": v for k, v in tiled_attrs().items()} | kernel_attrs()
+    for key, (regs, local, threads, blocks) in attrs.items():
+        print(f"{key}: {regs} registers, {local} B local (spills), {threads} "
               f"threads a block, {blocks} blocks an SM", flush=True)
 
     gen = torch.Generator(device="cuda")
@@ -2117,7 +2218,7 @@ def main():
     p_launches, d_err = dense_path(gen, args.profile)
     if p_launches == 0:
         raise AssertionError("the dense path launched no permute kernel")
-    p_ms, (p_bound_ms, p_bound_by) = time_permute(gen)
+    p_ms, (p_bound_ms, p_bound_by), p_route = time_permute(gen)
     e2 = e2_path(gen)
     e3, e3_call_ms, e3_bound = e3_path(gen)
 
@@ -2129,6 +2230,13 @@ def main():
                "replaces": "superbblas_tpu/ops/stencil_pallas.py:368"}
     tiled_src = {"source": "superbblas_tpu_torch/csrc/stencil_tiled.cu"}
     soa_src = {"source": "superbblas_tpu_torch/csrc/stencil_soa.cu"}
+    # the clover term: the block-streaming kernel, its launches in the solve
+    # by form, and torch.einsum beside it
+    site_src = {"source": "superbblas_tpu_torch/csrc/stencil_site.cu",
+                "launches_by_form": {"site16": clover[0]}, "library_ms": clover[2]["library"],
+                "ms_16x16x16x32": k1_shapes[CLOVER_SHAPE][2]["kernel"],
+                "library_ms_16x16x16x32": k1_shapes[CLOVER_SHAPE][2]["library"],
+                "bound_ms_16x16x16x32": k1_shapes[CLOVER_SHAPE][3][0]}
     print(json.dumps({"kernels": [{
         "name": "stencil_matvec_soa", **stencil, **tiled_src,
         "launches": launches, "max_abs_err": err, "ms": ms["k1"], "plain_ms": ms["plain"],
@@ -2151,7 +2259,7 @@ def main():
         "bound_ms": bd_[0], "bound_by": bd_[1], "bound_ref_ms": bd_[2],
         **({"plan_builds": PLANS_BUILT[path]} if path else {})}
         for name, src, path, (n_launch, e, t, bd_) in (
-            ("stencil_matvec_soa[1,1,12,12 clover term]", soa_src, None, clover),
+            ("stencil_matvec_soa[1,1,12,12 clover term]", site_src, None, clover),
             ("stencil_matvec_soa[4,4,3,3 Moebius, 64 columns]", tiled_src, "moebius",
              moebius),
             ("stencil_matvec_soa[1,1,3,3 staggered]", tiled_src, "staggered", staggered),
@@ -2170,7 +2278,7 @@ def main():
         "launches": p_launches, "max_abs_err": max(p_err, d_err),
         "ms": p_ms["tzyx"][0], "plain_ms": p_ms["tzyx"][1],
         "bound_ms": p_bound_ms, "bound_by": p_bound_by,
-        "library_ms": p_ms["tzyx"][1]}] + [{
+        "library_ms": p_ms["tzyx"][1], "form": p_route, "ms_tyzx": p_ms["tyzx"][0]}] + [{
         "name": fn.__name__, "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/batched_gemm.cu", "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times["kernel"],

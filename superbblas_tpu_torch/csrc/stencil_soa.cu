@@ -1,10 +1,11 @@
 // SoA nearest-neighbour Kron-BSR stencil matvec for Hopper (sm_90a), K1,
-// at the clover term's shape and on the runtime-shape route.
+// at the clover term's shape in f64 and on the runtime-shape route.
 //
 // Replaces the Pallas TPU kernel superbblas_tpu/ops/stencil_pallas.py
 // stencil_matvec_soa (_kernel, _matvec_body) at every shape but the
 // Wilson and staggered ones, which run the tiled kernel with the spin
-// plan (stencil_tiled.cu).  It computes the sum of stencil_soa.cuh over a
+// plan (stencil_tiled.cu), and the clover term's at the f32-summed pairs,
+// which runs the block-streaming kernel (stencil_site.cu).  It computes the sum of stencil_soa.cuh over a
 // periodic 4-D lattice, in split complex:
 //   x       [n, KD*BD, X, Y, Z, T]   field dtype FT
 //   blocks  [ndir, BI*BD, X, Y, Z, T] storage dtype ST
@@ -19,8 +20,9 @@
 //
 // Two routes: the templated kernel, with the sums unrolled for
 // (1, 1, 12, 12) (the clover term: 12 inputs, 12 outputs, 144 block loads
-// a site), and the runtime-shape kernel stencil_soa_rt_kernel for every
-// shape other than the three templated ones with KI*KD*BI*BD <= 256.
+// a site), instantiated for the f64/f64 pair only, and the runtime-shape
+// kernel stencil_soa_rt_kernel for every shape other than the three of
+// the other kernels with KI*KD*BI*BD <= 256.
 //
 // Packed parity.  With packed_parity p in {0, 1} the operands hold one
 // checkerboard parity with X halved (site (x, y, z, t) at xh = x / 2), and
@@ -31,8 +33,9 @@
 // (stencil_pallas.py _kernel, packed_parity) and of the plain version.
 //
 // What bounds it on the H100.  The clover term by bytes (144 block
-// entries a site against 12 inputs and 12 outputs a column); as measured
-// (PERF.md) it runs at 3.6x that bound, bound by issue and latency.
+// entries a site against 12 inputs and 12 outputs a column); at f32 the
+// templated kernel ran at 3.3-4.5x that bound (PERF.md), which is why the
+// f32-summed pairs moved to stencil_site.cu.
 //
 // What the design does about the traffic:
 //  * one thread per (site, column); the flat site index is T-fastest, so
@@ -214,8 +217,8 @@ extern "C" {
 // pair: the kPair of (storage, field) types; offsets: host array [ndir,
 // 4] of one-hot +-1 (or all-zero) offsets; packed_parity: 0 or 1 for
 // checkerboard-packed operands, -1 for none.  The templated route: (KI,
-// KD, BI, BD) = (1, 1, 12, 12); stencil_tiled.cu takes (4, 4, 3, 3) and
-// (1, 1, 3, 3).
+// KD, BI, BD) = (1, 1, 12, 12) at f64/f64 (stencil_site.cu takes the
+// other pairs); stencil_tiled.cu takes (4, 4, 3, 3) and (1, 1, 3, 3).
 int sbt_stencil_soa(int ki, int kd, int bi, int bd, int pair,
                     const void* b_re, const void* b_im,
                     const void* k_re, const void* k_im, const void* x_re,
@@ -227,8 +230,8 @@ int sbt_stencil_soa(int ki, int kd, int bi, int bd, int pair,
     if (err != cudaSuccess) return err;
     const Operands a{b_re, b_im, k_re, k_im, x_re, x_im, y_re, y_im, n, X, Y, Z, T};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (ki == 1 && kd == 1 && bi == 12 && bd == 12)
-        return dispatch_types<LaunchK1, 1, 1, 12, 12, true>(pair, a, dirs, st);
+    if (ki == 1 && kd == 1 && bi == 12 && bd == 12 && pair == kF64F64)
+        return LaunchK1<1, 1, 12, 12, double, double>::run(a, dirs, st);
     return cudaErrorInvalidValue;
 }
 

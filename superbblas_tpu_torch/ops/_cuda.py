@@ -10,6 +10,7 @@ CUDA; on a machine with a card but no ``nvcc`` the build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,10 +24,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu", "stencil_tiled.cu", "stencil_schedules.cu", "permute.cu",
-           "batched_gemm.cu", "roll_add.cu")
+SOURCES = ("stencil_soa.cu", "stencil_tiled.cu", "stencil_site.cu", "stencil_schedules.cu",
+           "permute.cu", "batched_gemm.cu", "roll_add.cu")
 #: headers the sources include (part of the build's hash)
-HEADERS = ("stencil_soa.cuh",)
+HEADERS = ("stencil_soa.cuh", "kernel_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -50,6 +51,17 @@ def _digest() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def on_device(dev):
+    """A context that makes ``dev`` current for a launch: a no-op where it
+    is current already (entering ``torch.cuda.device`` costs microseconds
+    of host time a launch)."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 @functools.cache
@@ -90,7 +102,8 @@ def library() -> ctypes.CDLL:
     #  ndir, offsets) + each kernel's own trailing ints + stream
     head = [i] * 5 + [p] * 8 + [i] * 6 + [p]
     for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_rt", [i]),
-                        ("sbt_stencil_soa_xin", [i, i, i]), ("sbt_stencil_soa_stream", [])):
+                        ("sbt_stencil_site", [i, i]), ("sbt_stencil_soa_xin", [i, i, i]),
+                        ("sbt_stencil_soa_stream", [])):
         getattr(lib, name).argtypes = head + extra + [p]
         getattr(lib, name).restype = i
     # the tiled route: one plan pointer for the kron's two; parity, sparse
@@ -100,8 +113,14 @@ def library() -> ctypes.CDLL:
     # (ki, kd, bi, bd, pair, sparse, n, X, Y, Z, T, yc, out[4])
     lib.sbt_stencil_tiled_attrs.argtypes = [i] * 12 + [p]
     lib.sbt_stencil_tiled_attrs.restype = i
-    lib.sbt_permute_4d.argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
-    lib.sbt_permute_4d.restype = i
+    # (pair, wide, n, out[4])
+    lib.sbt_stencil_site_attrs.argtypes = [i, i, i, p]
+    lib.sbt_stencil_site_attrs.restype = i
+    for name in ("sbt_permute_4d", "sbt_permute_4d_vec"):
+        getattr(lib, name).argtypes = [i, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p]
+        getattr(lib, name).restype = i
+    lib.sbt_permute_4d_vec_attrs.argtypes = [p]
+    lib.sbt_permute_4d_vec_attrs.restype = i
     # (edge, rows, planes, mid_swap, X, Y, Z, T, strides, grid) + in, out, stream
     lib.sbt_permute_4d_tiled.argtypes = [i] * 4 + [i64] * 11 + [p, p, p]
     lib.sbt_permute_4d_tiled.restype = i

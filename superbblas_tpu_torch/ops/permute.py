@@ -6,7 +6,10 @@ CUDA tensor with an eligible permutation goes to the hand-written kernel
 ``csrc/permute.cu`` through ``permute_4d``; every other case, CPU tensors
 included, is ``x.permute(perm).contiguous()``, where the JAX package falls
 to ``jnp.transpose``.  The choice is made from shape, permutation, dtype
-and device alone.
+and device alone.  ``permute_4d`` then takes one of two routes of the
+kernel (``permute_route``): 16-byte words through a ring of shared-memory
+tiles where the view's strides and pointers allow them, else 4-byte
+words.
 
 ``permute_4d_tiled`` is the tile sweep E3 (counterpart of the probe
 ``experiments/permute_pallas.py``): the same transpose through the
@@ -16,12 +19,13 @@ instantiation of ``csrc/permute.cu`` at one tile of ``TILES``, on the grid
 
 from __future__ import annotations
 
+import collections
 from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["permute_eligible", "permute_4d", "permute_4d_reference", "maybe_permute",
-           "permute_4d_tiled", "tiled_grid", "TILES"]
+__all__ = ["permute_eligible", "permute_route", "permute_4d", "permute_4d_reference",
+           "maybe_permute", "permute_4d_tiled", "tiled_grid", "TILES"]
 
 #: permutations the kernel takes -> whether it swaps the middle axes
 SUPPORTED = {(3, 1, 2, 0): False, (3, 2, 1, 0): True}
@@ -42,31 +46,52 @@ def permute_eligible(shape: Tuple[int, ...], perm: Tuple[int, ...], dtype) -> bo
     return min(shape) >= 1 and shape[0] > 1 and shape[3] > 1
 
 
+def permute_route(shape: Tuple[int, ...], strides: Tuple[int, ...], in_ptr: int,
+                  out_ptr: int = 0) -> str:
+    """The route of the kernel for an eligible input of ``shape`` [X, Y, Z,
+    T] and ``strides`` (in words) at data pointer ``in_ptr``, into a
+    contiguous output at ``out_ptr``: "vec16" (16-byte words) where T's
+    stride is 1, X, T and the other strides are multiples of 4 words (the
+    strides of axes of extent 1 aside), both pointers are 16-byte aligned
+    and its tiles number fewer than 2^31 - 1 (counted at 64 x 64, at most
+    as many as the kernel's), else "word" (4-byte words).  The keys of
+    ``permute_4d.by_route``."""
+    X, Y, Z, T = shape
+    sx, sy, sz, st = strides
+    vec = (st == 1 or T == 1) and X % 4 == 0 and T % 4 == 0 \
+        and all(s % 4 == 0 for n, s in ((X, sx), (Y, sy), (Z, sz)) if n > 1) \
+        and in_ptr % 16 == 0 and out_ptr % 16 == 0 \
+        and Y * Z * -(-X // 64) * -(-T // 64) < 2 ** 31 - 1
+    return "vec16" if vec else "word"
+
+
 def permute_4d_reference(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     """Plain PyTorch version: the transposed copy, contiguous."""
     return x.permute(tuple(perm)).contiguous()
 
 
-def _launch(x: torch.Tensor, perm: Tuple[int, ...]) -> torch.Tensor:
+def _launch(x: torch.Tensor, perm: Tuple[int, ...]) -> Tuple[torch.Tensor, str]:
     from . import _cuda
 
     out = torch.empty(tuple(x.shape[p] for p in perm), dtype=x.dtype, device=x.device)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        err = lib.sbt_permute_4d(int(SUPPORTED[perm]), *x.shape, *x.stride(),
-                                 x.data_ptr(), out.data_ptr(),
-                                 torch.cuda.current_stream(x.device).cuda_stream)
+    route = permute_route(tuple(x.shape), x.stride(), x.data_ptr(), out.data_ptr())
+    entry = getattr(_cuda.library(), "sbt_permute_4d_vec" if route == "vec16"
+                    else "sbt_permute_4d")
+    with _cuda.on_device(x.device):
+        err = entry(int(SUPPORTED[perm]), *x.shape, *x.stride(), x.data_ptr(),
+                    out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"permute_4d kernel launch failed: cudaError {err}")
-    return out
+        raise RuntimeError(f"permute_4d kernel launch failed ({route}): cudaError {err}")
+    return out, route
 
 
 def permute_4d(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     """``x.permute(perm)`` as a new contiguous tensor.
 
     A CPU tensor runs the plain version.  A CUDA tensor runs the kernel
-    (``permute_4d.launches`` counts its launches), reading ``x`` through
-    its strides, or raises when the kernel does not take the case."""
+    (``permute_4d.launches`` counts its launches, ``.by_route`` them by
+    ``permute_route``'s name), reading ``x`` through its strides, or raises
+    when the kernel does not take the case."""
     perm = tuple(int(p) for p in perm)
     if x.device.type == "cpu":
         return permute_4d_reference(x, perm)
@@ -77,12 +102,14 @@ def permute_4d(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
             f"permute_4d: shape {tuple(x.shape)} {x.dtype} perm {perm}: the kernel "
             f"takes 4-D perms {tuple(SUPPORTED)} of 4-byte data with X, T > 1 "
             "(maybe_permute sends other cases to x.permute(perm).contiguous())")
-    out = _launch(x, perm)
+    out, route = _launch(x, perm)
     permute_4d.launches += 1
+    permute_4d.by_route[route] += 1
     return out
 
 
 permute_4d.launches = 0
+permute_4d.by_route = collections.Counter()
 
 
 def maybe_permute(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:

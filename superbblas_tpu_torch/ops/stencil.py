@@ -12,9 +12,15 @@ kernel K1: at the Wilson and staggered shapes (``TILED_SHAPES``) its
 tiled kernel ``csrc/stencil_tiled.cu``, which runs the spin factors from
 a plan (``factor_kron``, the TPU kernel's ``_factor_kron``: rank-2
 half-spinor projection of the Wilson hops), at the clover term's shape
-the templated kernel of ``csrc/stencil_soa.cu``, and its runtime-shape
-route (``stencil_matvec_soa_rt``) at every other shape with
-KI*KD*BI*BD <= 256, the TPU kernel's rule; a case no route takes raises.
+(``SITE_SHAPE``) the block-streaming kernel ``csrc/stencil_site.cu``
+(each block entry streamed into shared memory once for all the columns;
+16-byte copies, or element copies where the volume or the pointers are
+not aligned for them) at the f32-summed pairs and the templated kernel of
+``csrc/stencil_soa.cu`` at f64, and its runtime-shape route
+(``stencil_matvec_soa_rt``) at every other shape with KI*KD*BI*BD <= 256,
+the TPU kernel's rule; a case no route takes raises.  ``k1_route`` names
+the route of a case (``stencil_matvec_soa.by_route`` counts launches by
+it).
 ``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream`` compute the
 same function with other schedules of the X neighbours
 (``csrc/stencil_schedules.cu``, at ``SCHEDULE_SHAPES``); no caller
@@ -45,15 +51,19 @@ from ..cplx import CArray
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
            "stencil_matvec_soa_xin", "stencil_matvec_soa_stream",
            "stencil_matvec_soa_planned", "factor_kron", "spin_plan", "clear_plans",
-           "derive_kron", "host_kron",
+           "derive_kron", "host_kron", "k1_route",
            "soa_eligible", "aos_to_soa", "soa_to_aos"]
 
-#: (KI, KD, BI, BD) shapes of K1's templated routes: Wilson, staggered and
+#: (KI, KD, BI, BD) shapes with kernels of their own: Wilson, staggered and
 #: the clover term; every other shape takes the runtime-shape route
 KERNEL_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12))
 #: the shapes of KERNEL_SHAPES that run the tiled kernel with the spin plan
-#: (csrc/stencil_tiled.cu); the clover term's runs csrc/stencil_soa.cu
+#: (csrc/stencil_tiled.cu)
 TILED_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
+#: the clover term's shape: the block-streaming kernel (csrc/stencil_site.cu)
+#: at the f32-summed pairs, the templated kernel of csrc/stencil_soa.cu at
+#: f64/f64
+SITE_SHAPE = (1, 1, 12, 12)
 #: bytes of one direction's record of the tiled kernel's plan, by the type
 #: its sums run in (csrc/stencil_tiled.cu PlanDir: 4 int32, then 64 values)
 PLAN_DIR_BYTES = {torch.float32: 272, torch.float64: 528}
@@ -447,6 +457,27 @@ def soa_to_aos(y: CArray, nlat: int, ki: int, bi: int) -> CArray:
     return cplx.cmap(t, y)
 
 
+def k1_route(shape: Sequence[int], storage, field, volume: int,
+             ptrs: Sequence[int] = ()) -> str:
+    """The route of K1 for (KI, KD, BI, BD) ``shape``, (storage, field)
+    dtypes, ``volume`` sites and the blocks' data pointers ``ptrs``:
+    "tiled" at TILED_SHAPES; at SITE_SHAPE "site16" (the block-streaming
+    kernel with 16-byte copies: volume x element size a multiple of 16
+    bytes and every pointer 16-byte aligned), "site" (the same kernel with
+    element copies) at the other f32-summed pairs and "templated" at
+    f64/f64; "runtime" at every other shape.  The keys of
+    ``stencil_matvec_soa.by_route``."""
+    shape = tuple(shape)
+    if shape in TILED_SHAPES:
+        return "tiled"
+    if shape != SITE_SHAPE:
+        return "runtime"
+    if storage == torch.float64 or field == torch.float64:
+        return "templated"
+    aligned = volume * storage.itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "site16" if aligned else "site"
+
+
 def check_block(KI: int, KD: int, bi: int, bd: int) -> None:
     """Raise ValueError above the MAX_BLOCK rule, on every device."""
     if min(KI, KD, bi, bd) < 1 or KI * KD * bi * bd > MAX_BLOCK:
@@ -483,7 +514,7 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
             f"storage/field dtypes {blocks.dtype}/{x.dtype} in the X-inside and "
             f"X-streaming stencil kernels, which take {SCHEDULE_DTYPES} ({_TODO}); "
             "stencil_matvec_soa takes every pair of KERNEL_DTYPES")
-    if not soa_eligible(offsets, tuple(blocks.shape[2:])) \
+    if not _offsets_ok(_offsets_key(offsets), tuple(blocks.shape[2:])) \
             or len(offsets) != ndir:
         raise ValueError(f"{len(offsets)} offsets {offsets} for {ndir} directions: "
                          f"need <= {MAX_DIRS} one-hot +-1 offsets on a 4-D lattice")
@@ -503,6 +534,13 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
     if n < 1 or n > 8 * 65535 or any(v > 2 ** 31 - 1 for v in lat):
         raise ValueError(f"{n} columns on lattice {lat}: outside the kernel's grid")
     return KI, KD
+
+
+@functools.lru_cache(maxsize=256)
+def _offsets_ok(offsets: Tuple[Tuple[int, ...], ...], lat: Tuple[int, ...]) -> bool:
+    """``soa_eligible`` of these offsets on this lattice, kept per value (a
+    launch checks it on the host every call)."""
+    return soa_eligible(offsets, lat)
 
 
 def xin_tile(n: int, X: int, F: int, itemsize: int, nk: int) -> Tuple[int, int, int]:
@@ -560,7 +598,7 @@ def _launch(entry: str, blocks, kptrs: tuple, x, offsets, bi, bd, KI, KD, *extra
     lat = tuple(x.shape[2:])
     y = CArray(x.re.new_empty((n, KI * bi) + lat), x.re.new_empty((n, KI * bi) + lat))
     key = _offsets_key(offsets)
-    with torch.cuda.device(dev):
+    with _cuda.on_device(dev):
         err = getattr(_cuda.library(), entry)(
             KI, KD, bi, bd, KERNEL_DTYPES.index((blocks.dtype, x.dtype)),
             blocks.re.data_ptr(), blocks.im.data_ptr(), *kptrs,
@@ -610,8 +648,9 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
 
     CPU operands run the plain version.  CUDA operands run the kernel:
     the tiled kernel with the kron's spin plan at TILED_SHAPES, the
-    templated one at the clover term's shape (``stencil_matvec_soa.launches``
-    counts the launches of both, ``.by_shape`` them by shape),
+    block-streaming one (f64: the templated one) at SITE_SHAPE
+    (``stencil_matvec_soa.launches`` counts the launches of these routes,
+    ``.by_shape`` them by shape, ``.by_route`` by ``k1_route``'s name),
     :func:`stencil_matvec_soa_rt` at the other shapes; a case none takes
     raises.  Above MAX_BLOCK it raises ValueError on every device."""
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
@@ -629,7 +668,9 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
                          f"{TILED_MAX_VALUES} values ({max(KD * bd, KI * bi, bi * bd)} a site)")
     check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
     parity = -1 if packed_parity is None else int(packed_parity)
-    if (KI, KD, bi, bd) in TILED_SHAPES:
+    route = k1_route((KI, KD, bi, bd), blocks.dtype, x.dtype, x.shape[2:].numel(),
+                     (blocks.re.data_ptr(), blocks.im.data_ptr()))
+    if route == "tiled":
         X, Y, Z, T = x.shape[2:]
         if kron is not None and (kron.re.device != x.device or kron.im.device != x.device):
             raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
@@ -638,11 +679,15 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
         yc = x_chunk(Y, Z, T, tiled_site_bytes(blocks, x, KI, bi))
         y = _launch("sbt_stencil_tiled", blocks, (table,), x, offsets, bi, bd, KI, KD,
                     parity, sparse, yc)
-    else:
+    elif route == "templated":
         y = _launch("sbt_stencil_soa", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
                     bi, bd, KI, KD, parity)
+    else:
+        y = _launch("sbt_stencil_site", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
+                    bi, bd, KI, KD, parity, int(route == "site16"))
     stencil_matvec_soa.launches += 1
     stencil_matvec_soa.by_shape[KI, KD, bi, bd] += 1
+    stencil_matvec_soa.by_route[route] += 1
     return y
 
 
@@ -709,11 +754,13 @@ def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
     return y
 
 
-#: launches of each route, and of each route by (KI, KD, BI, BD); the
-#: tiled route's spin plans built (``spin_plan``) and kron tensors read to
-#: the host for them (``host_kron``)
+#: launches of each route, and of each route by (KI, KD, BI, BD) and, for
+#: ``stencil_matvec_soa``, by ``k1_route``'s name; the tiled route's spin
+#: plans built (``spin_plan``) and kron tensors read to the host for them
+#: (``host_kron``)
 stencil_matvec_soa.launches = 0
 stencil_matvec_soa.by_shape = collections.Counter()
+stencil_matvec_soa.by_route = collections.Counter()
 stencil_matvec_soa.plan_builds = 0
 stencil_matvec_soa.kron_reads = 0
 stencil_matvec_soa_rt.launches = 0

@@ -15,6 +15,7 @@ from _torch_parity import (assert_parity, both, collect_garbage, crand_np,  # no
 from superbblas_tpu.bsr import apply_stencil_soa as japply_soa
 from superbblas_tpu.models import clover as JC
 from superbblas_tpu.models import wilson as JW
+from superbblas_tpu.ops import stencil_pallas as JS
 from superbblas_tpu_torch.bsr import apply_stencil_soa
 from superbblas_tpu_torch.models import clover as TC
 from superbblas_tpu_torch.models import wilson as TW
@@ -77,6 +78,25 @@ def test_soa_clover_term_matches_jax_pallas_kernel():
     jx, tx = both(crand_np((1, 12) + lat, 4, np.float32))
     got = apply_stencil_soa(top.clover, tx)
     want = japply_soa(jop.clover, jx, interpret=True)
+    assert_parity(got, want, np.float32, 3e-4)
+
+
+@pytest.mark.parametrize("lat,n", [((3, 3, 3, 5), 1), ((3, 3, 3, 5), 9)])
+def test_soa_clover_term_matches_jax_pallas_kernel_at_kernel_cases(lat, n):
+    """The clover term's SoA stencil through the port against the TPU
+    kernel (Pallas interpret mode) at the cases the card's block-streaming
+    kernel splits on: an odd volume (135 sites, element copies) and 1 or 9
+    columns (9: two column passes of 8, the second with one column), f32.
+    The JAX package builds SoA operators only where T % 128 == 0 and
+    Z % 8 == 0, so both take the port's clover blocks."""
+    links = JW.random_su3_links(np.random.default_rng(3), lat)
+    top = TC.wilson_clover_operator(lat, mass=0.3, c_sw=1.2, links=links, layout="soa",
+                                    dtype=torch.complex64, device="cpu")
+    blocks = tuple(to_np(p).astype(np.float32) for p in top.clover.blocks)
+    jb, _ = both(blocks)
+    jx, tx = both(crand_np((n, 12) + lat, 4, np.float32))
+    got = apply_stencil_soa(top.clover, tx)
+    want = JS.stencil_matvec_soa(jb, None, jx, top.clover.offsets, 12, 12, interpret=True)
     assert_parity(got, want, np.float32, 3e-4)
 
 

@@ -8,8 +8,10 @@ schedules and the tiled route where no direction factors against the
 runtime-shape route, bit for bit); the bf16 roll-plus-add (E2) in both variants and the
 transpose tile sweep (E3) at each tile; every operator family's apply on
 the card, in both layouts, against the same apply on the CPU; the CG and even-odd solves through the stencil kernel against the
-same solves on the CPU; the permute kernel against its plain version,
-alone and inside ``local_copy``; the batched-GEMM kernels K3 and E1
+same solves on the CPU; K1's block-streaming kernel at the clover term's
+shape (both forms, every f32-summed pair) against the plain version and
+the runtime-shape route; the permute kernel against its plain version,
+alone and inside ``local_copy``, on both its routes; the batched-GEMM kernels K3 and E1
 against their plain version and a float64 product, and ``apply_coarse``
 on the card against the CPU port.  The kernels at the main path's shapes
 are checked by ``chip_smoke.py``.
@@ -20,6 +22,8 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -633,3 +637,120 @@ def test_family_applies_on_card_match_cpu(cuda_device, layout):
         scale = max(float(w.abs().max()) for w in want)
         for g, w in zip(got, want):
             assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale, build.__name__
+
+
+#: the block-streaming kernel's pairs (every f32-summed pair of K1)
+SITE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)]
+#: its cases (lattice, n, offsets, parity, with a kron): V a multiple of
+#: the 32-site tile (256), ragged (900: 16-byte copies at 4-byte blocks,
+#: element copies at bf16), V x elem not a multiple of 16 bytes (135: odd),
+#: packed parity at both parities (192, 420); ndir 9, 1 and 8; n 1, 2, 8, 9
+SITE_CASES = [((2, 4, 4, 8), 8, OFFSETS, None, False),
+              ((3, 5, 6, 10), 9, OFFSETS, None, True),
+              ((3, 3, 3, 5), 1, OFFSETS[:1], None, False),
+              ((3, 3, 3, 5), 9, OFFSETS[:1], None, True),
+              ((2, 4, 3, 8), 2, OFFSETS[1:], 0, False),
+              ((3, 5, 4, 7), 1, OFFSETS[1:], 1, True),
+              ((2, 4, 4, 8), 2, OFFSETS[:1], None, False)]
+
+
+def _misaligned(c: CArray) -> CArray:
+    """The same values at a data pointer one element past a 16-byte
+    boundary (contiguous)."""
+    def part(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        v = buf[1:].view(a.shape)
+        v.copy_(a)
+        return v
+    return CArray(part(c.re), part(c.im))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", SITE_PAIRS)
+def test_site_kernel_matches_plain_version_and_runtime_route(cuda_device, st, ft):
+    """K1's block-streaming kernel at (1, 1, 12, 12) against the plain
+    version, and bit for bit against the runtime-shape route (it keeps
+    site_matvec's order of sums), on each of SITE_CASES and once with
+    misaligned blocks (element copies); each call launches the form
+    ``k1_route`` names once, as ``stencil_matvec_soa.by_route`` counts."""
+    forms = set()
+    for i, (lat, n, offsets, parity, kron) in enumerate(SITE_CASES + [SITE_CASES[0]]):
+        blocks = crand((len(offsets), 144) + lat, 10 * i, cuda_device, st)
+        if i == len(SITE_CASES):
+            blocks = _misaligned(blocks)
+        k = crand((len(offsets), 1, 1), 10 * i + 1, cuda_device, torch.float32) \
+            if kron else None
+        x = crand((n, 12) + lat, 10 * i + 2, cuda_device, ft)
+        args = (blocks, k, x, offsets, 12, 12)
+        route = S.k1_route(S.SITE_SHAPE, st, ft, int(np.prod(lat)),
+                           (blocks.re.data_ptr(), blocks.im.data_ptr()))
+        forms.add(route)
+        before = S.stencil_matvec_soa.by_route[route]
+        got = S.stencil_matvec_soa(*args, packed_parity=parity)
+        torch.cuda.synchronize()
+        assert S.stencil_matvec_soa.by_route[route] == before + 1, (lat, route)
+        label = f"{lat} n={n} ndir={len(offsets)} parity={parity} {route}"
+        _close(got, S.stencil_matvec_soa_reference(*args, packed_parity=parity), label)
+        rt = S.stencil_matvec_soa_rt(*args, packed_parity=parity)
+        assert all(torch.equal(g, w) for g, w in zip(got, rt)), label
+    assert forms == {"site16", "site"}
+
+
+@pytest.mark.cuda
+def test_site_kernel_attrs(cuda_device):
+    """Registers within the launch bound (3 blocks of 128 threads an SM),
+    no spill, and at least three resident blocks an SM at 8 columns (the
+    f32 ring takes 72 KB), at every pair and form."""
+    lib = _cuda_lib()
+    out = (ctypes.c_int * 4)()
+    for pair in range(4):
+        for wide in (1, 0):
+            assert lib.sbt_stencil_site_attrs(pair, wide, 8, out) == 0
+            regs, local, threads, blocks = out
+            assert regs <= 168 and local == 0 and threads == 128 and blocks >= 3, \
+                (pair, wide, tuple(out))
+
+
+def _cuda_lib():
+    from superbblas_tpu_torch.ops import _cuda
+    return _cuda.library()
+
+
+#: the 16-byte route's shapes [X, Y, Z, T]: X below, at and above the
+#: tile's 64 rows, T below, at and above its 128 words (multiples of 4);
+#: Y*Z above 65535
+VEC_SHAPES = [(60, 3, 5, 124), (64, 2, 3, 128), (68, 3, 2, 132), (4, 5, 3, 4),
+              (8, 256, 257, 8), (128, 3, 2, 60)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perm", [(3, 2, 1, 0), (3, 1, 2, 0)])
+def test_permute_vec_route_matches_plain_version(cuda_device, perm):
+    """K2's 16-byte route bit for bit against ``x.permute(perm)
+    .contiguous()`` on VEC_SHAPES and on an aligned strided view; a view
+    whose base is one word off 16 bytes, and one with T's stride 2, take
+    the 4-byte route; ``permute_4d.by_route`` counts each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    big = torch.randn((72, 6, 7, 80), generator=gen, device=cuda_device)
+    cases = [(torch.randn(s, generator=gen, device=cuda_device), "vec16") for s in VEC_SHAPES]
+    cases += [(big[4:68, 1:5, 2:7, 8:72], "vec16"), (big[4:68, 1:5, 2:7, 1:65], "word"),
+              (big[4:68, 1:5, 2:7, 0:80:2], "word"), (big.view(torch.int32), "vec16")]
+    for v, route in cases:
+        assert P.permute_route(tuple(v.shape), v.stride(), v.data_ptr(), 0) == route
+        before = dict(P.permute_4d.by_route)
+        got = P.permute_4d(v, perm)
+        torch.cuda.synchronize()
+        assert P.permute_4d.by_route[route] == before.get(route, 0) + 1, (v.shape, route)
+        assert got.is_contiguous() and torch.equal(got, P.permute_4d_reference(v, perm)), \
+            (tuple(v.shape), v.stride(), route)
+
+
+@pytest.mark.cuda
+def test_permute_vec_route_attrs(cuda_device):
+    """The 16-byte route: no spill, 256 threads, at least 2 resident blocks
+    an SM (3 stages of 32 KB each)."""
+    out = (ctypes.c_int * 4)()
+    assert _cuda_lib().sbt_permute_4d_vec_attrs(out) == 0
+    regs, local, threads, blocks = out
+    assert local == 0 and threads == 256 and blocks >= 2, tuple(out)

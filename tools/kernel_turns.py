@@ -1,0 +1,139 @@
+"""Time the clover term's K1 and the permute kernel K2 of two or more
+checkouts of the port in turns, on one card.
+
+    python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
+
+Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
+checkout) is run in a process of its own, which builds that tree's kernels
+into its own ``_build/`` and imports nothing of the others.  The trees run
+in turns, A B ... B A, ``--rounds`` times over, and each process prints one
+JSON line of CUDA-event medians (``--reps`` calls after three warm-up
+calls), ms:
+
+- ``clover_24`` and ``clover_16``: ``stencil_matvec_soa`` at (1, 1, 12, 12),
+  one centre direction, no kron, f32 blocks and fields from a seeded card
+  generator, 8 columns on 24x24x24x48 (the clover solve's term) and
+  16x16x16x32;
+- ``permute_tzyx``, ``permute_tyzx``: ``permute_4d`` of a 128x64x64x128
+  f32 tensor;
+- ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
+  ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
+  key 0, to 1e-5), one warm solve after one untimed one.
+
+The last line is a JSON object of each tree's medians over its runs, with
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def worker(reps: int, solve: bool) -> dict:
+    import time
+
+    import torch
+    from superbblas_tpu_torch import solvers
+    from superbblas_tpu_torch.cplx import CArray
+    from superbblas_tpu_torch.models import apply_clover, wilson_clover_operator
+    from superbblas_tpu_torch.ops.permute import permute_4d
+    from superbblas_tpu_torch.ops.stencil import stencil_matvec_soa
+
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def randn_c(shape):
+        return CArray(*(torch.randn(shape, generator=gen, device="cuda") for _ in range(2)))
+
+    out = {}
+    for key, lat in (("clover_24", (24, 24, 24, 48)), ("clover_16", (16, 16, 16, 32))):
+        blocks, x = randn_c((1, 144) + lat), randn_c((8, 12) + lat)
+        out[key] = median_ms(lambda: stencil_matvec_soa(blocks, None, x, ((0, 0, 0, 0),),
+                                                        12, 12))
+        del blocks, x
+    x = torch.randn((128, 64, 64, 128), generator=gen, device="cuda")
+    for key, perm in (("permute_tzyx", (3, 2, 1, 0)), ("permute_tyzx", (3, 1, 2, 0))):
+        out[key] = median_ms(lambda: permute_4d(x, perm))
+    del x
+    if solve:
+        lat = (24, 24, 24, 48)
+        op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
+                                    device="cuda")
+        b = randn_c((8, 12) + lat)
+        signs = torch.tensor((1.0,) * 6 + (-1.0,) * 6, device="cuda").reshape(1, 12, 1, 1,
+                                                                               1, 1)
+
+        def A(v):
+            return apply_clover(op, v)
+
+        def Ah(v):
+            w = A(CArray(signs * v.re, signs * v.im))
+            return CArray(signs * w.re, signs * w.im)
+
+        solvers.cgne(A, Ah, b, tol=1e-5, maxiter=200)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, it = solvers.cgne(A, Ah, b, tol=1e-5, maxiter=200)
+        torch.cuda.synchronize()
+        out["clover_cgne_s"] = time.perf_counter() - t0
+        out["clover_cgne_iterations"] = it
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--trees", nargs="+", default=[str(ROOT)])
+    parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--reps", type=int, default=15)
+    parser.add_argument("--no-solve", action="store_true")
+    parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.reps, not args.no_solve)), flush=True)
+        return
+    trees = [str(Path(t).resolve()) for t in args.trees]
+    order = []
+    for r in range(args.rounds):
+        order += trees + trees[::-1] if len(trees) > 1 else trees
+    runs = {t: [] for t in trees}
+    for tree in order:
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--reps",
+               str(args.reps)] + (["--no-solve"] if args.no_solve else [])
+        env = dict(os.environ, PYTHONPATH=tree)
+        res = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.exit(f"kernel_turns: the run of {tree} failed:\n{res.stdout}\n{res.stderr}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        runs[tree].append(got)
+        print(json.dumps({"tree": tree, **got}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(json.dumps({"card": smi, "medians": {
+        t: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for t, rs in runs.items()}}))
+
+
+if __name__ == "__main__":
+    main()
