@@ -11,8 +11,10 @@ resident blocks at every type pair.
 Stencil checks: the stencil kernel K1 against its plain PyTorch version at
 small shapes, and with ``packed_parity`` (both parities) on ragged half
 lattices; its X-inside (K4a) and X-streaming (K4b) schedules against the
-plain version and against K1's runtime-shape route, bit for bit, at small
-shapes; all three at the Wilson bench shape (lattice 8x8x16x128, 8
+plain version and against K1 bit for bit (its tiled route at the Wilson
+and staggered shapes, its runtime-shape route at the clover term's and
+the runtime shapes) at small shapes and every type pair; all three at
+the Wilson bench shape (lattice 8x8x16x128, 8
 columns, f32 and bf16), K1 driven once there through ``apply_wilson``
 (one launch, one spin plan), then timed in turns with the plain version.
 
@@ -34,7 +36,8 @@ drives a normal-equation CG solve through ``wilson_operator`` and
 ``cg_solve`` and checks the true residual, the adjoint identity and that
 every matvec of the solve launched K1.  Schedule path: one call of each
 of K4a and K4b on the same operator and right-hand sides, held against K1
-and the plain version, then all four timed in turns.
+and the plain version, then all four timed in turns; K1, K4a and K4b
+again on the staggered operator of the same links (staggered path).
 
 Even-odd path: the packed hopping of the operator and of its adjoint
 (``hopping_packed_soa``), K1 with ``packed_parity`` held against the plain
@@ -334,18 +337,23 @@ def time_stencils(op, x, reps):
                        "plain": lambda: stencil_matvec_soa_reference(*args)}, reps)
 
 
-def same_as_rt(blocks, kron, x, offsets, label):
-    """K4a and K4b against the plain version and against K1's runtime-shape
-    route, bit for bit (they share its per-site math and its order of
-    sums; K1's tiled route sums a factored direction in another order);
-    returns the max abs error against the plain version."""
-    rt = stencil_matvec_soa_rt(blocks, kron, x, offsets, 3, 3)
+def same_as_rt(blocks, kron, x, offsets, label, bi=3, bd=3):
+    """K4a and K4b against the plain version and against K1 bit for bit:
+    its tiled route at TILED_SHAPES (they run the same spin-plan code in
+    its order), its runtime-shape route at the other shapes (the same
+    per-output sum); returns the max abs error against the plain
+    version."""
+    args = (blocks, kron, x, offsets, bi, bd)
+    ki, kd = (1, 1) if kron is None else tuple(kron.re.shape[1:])
+    tiled = (ki, kd, bi, bd) in stencil_ops.TILED_SHAPES
+    k1 = stencil_matvec_soa(*args) if tiled else stencil_matvec_soa_rt(*args)
     err = 0.0
     for name, fn in SCHEDULES.items():
-        err = max(err, compare(blocks, kron, x, offsets, f"{name} {label}", fn=fn))
-        got = fn(blocks, kron, x, offsets, 3, 3)
-        if not all(torch.equal(g, w) for g, w in zip(got, rt)):
-            raise AssertionError(f"{name} {label}: differs from K1's runtime-shape route")
+        err = max(err, compare(*args[:4], f"{name} {label}", fn=fn, bi=bi, bd=bd))
+        got = fn(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, k1)):
+            raise AssertionError(f"{name} {label}: differs from K1's "
+                                 f"{'tiled' if tiled else 'runtime-shape'} route")
     return err
 
 
@@ -459,24 +467,37 @@ def packed_checks(gen):
 
 def schedule_checks(gen):
     """K4a and K4b against the plain version and K1 at small shapes (X of
-    1, 2 and 3 among them), the three dtype pairs, with and without spin
-    factors."""
+    1, 2 and 3 among them), every pair of KERNEL_DTYPES: the Wilson shape
+    with random and Wilson spin factors, the staggered shape without a
+    kron, the clover term's shape and the runtime-shape route's."""
+    wilson_kron = {kdt: cplx.cmap(lambda a: a.to(kdt), wilson_operator(
+        (2, 2, 2, 2), layout="soa", device="cuda", dtype=torch.complex128).kron)
+        for kdt in (torch.float32, torch.float64)}
     for lat, n in (((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 2, 5, 7), 3),
                    ((4, 4, 8, 32), 8)):
-        for st, ft in DTYPE_PAIRS:
+        for st, ft in stencil_ops.KERNEL_DTYPES:
+            kdt = torch.float64 if ft == torch.float64 else torch.float32
             blocks = randn_c((9, 9) + lat, gen, st)
-            kron = randn_c((9, 4, 4), gen)
-            same_as_rt(blocks, kron, randn_c((n, 12) + lat, gen, ft), WILSON_OFFSETS,
-                       f"{lat} n={n} {st}/{ft}")
+            for kron in (randn_c((9, 4, 4), gen, kdt), wilson_kron[kdt]):
+                same_as_rt(blocks, kron, randn_c((n, 12) + lat, gen, ft), WILSON_OFFSETS,
+                           f"{lat} n={n} {st}/{ft}")
             same_as_rt(blocks, None, randn_c((n, 3) + lat, gen, ft), WILSON_OFFSETS,
                        f"no-kron {lat} n={n} {st}/{ft}")
+            if n == 8:
+                continue
+            for shape in (CLOVER_SHAPE,) + K1_RT_SHAPES:
+                b, k, x = shape_operands(shape, lat, n, 9, gen, st, ft)
+                if k is not None:
+                    k = cplx.cmap(lambda a: a.to(kdt), k)
+                same_as_rt(b, k, x, WILSON_OFFSETS, f"{shape} {lat} n={n} {st}/{ft}",
+                           bi=shape[2], bd=shape[3])
 
 
 def bench_shape(gen):
     """K1, K4a, K4b and the plain version at the Wilson bench shape: K1
     driven once (the counts and the kept plans reset just before, read
-    just after), checked, the schedules held against the runtime-shape
-    route, then all timed in turns.  Returns {label: (launches, max error,
+    just after), checked, the schedules held against K1's tiled route bit
+    for bit, then all timed in turns.  Returns {label: (launches, max error,
     {name: median ms}, (bound ms, by, reference-model ms), plans built)}."""
     lat, n = (8, 8, 16, 128), 8
     op32 = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
@@ -554,6 +575,21 @@ def kernel_attrs() -> dict:
     if lib.sbt_permute_4d_vec_attrs(got) != 0:
         raise AssertionError("permute kernel attributes failed")
     out["K2 vec16"] = list(got)
+    return out
+
+
+def schedule_attr_table() -> dict:
+    """{"schedule shape form pair": [registers, local bytes, threads, blocks
+    an SM]} of K4a and K4b at 32^3x64 x 8 (cudaFuncGetAttributes, the
+    occupancy at their tiles' shared memory)."""
+    out = {}
+    for schedule in SCHEDULES:
+        for shape, form in (((4, 4, 3, 3), "sparse"), ((4, 4, 3, 3), "dense"),
+                            ((1, 1, 3, 3), "dense"), ((2, 2, 3, 3), "runtime")):
+            for st, ft in stencil_ops.KERNEL_DTYPES:
+                out[f"{schedule} {','.join(map(str, shape))} {form} {str(st)[6:]}/"
+                    f"{str(ft)[6:]}"] = stencil_ops.schedule_attrs(
+                        schedule, shape, st, ft, MAIN_COLS, MAIN_LAT, form == "sparse")
     return out
 
 
@@ -667,9 +703,9 @@ def wilson_path(op, b, profile: bool):
 def schedule_path(op, b):
     """K4a and K4b through their entry points once each on the main
     operator and right-hand sides (the counts set to 0 just before and
-    read just after), held against K1's runtime-shape route bit for bit
-    and against the plain version; then K1, K4a, K4b and the plain
-    version timed in turns.
+    read just after), held against K1's tiled route bit for bit (the
+    same spin plan code) and against the plain version; then K1, K4a,
+    K4b and the plain version timed in turns.
     Returns ({name: launches}, {name: max error}, {name: median ms})."""
     args = (op.blocks, op.kron, b, op.offsets, 3, 3)
     reset_counts()
@@ -681,20 +717,20 @@ def schedule_path(op, b):
     if launches != {"xin": 1, "stream": 1} or counts["stencil_matvec_soa"] != 0:
         raise AssertionError(f"schedule path launches {counts}, expected one of each "
                              "schedule")
-    rt = stencil_matvec_soa_rt(*args)
+    k1 = stencil_matvec_soa(*args)
     want = stencil_matvec_soa_reference(*args)
     torch.cuda.synchronize()
     scale = max(float(w.abs().max()) for w in want)
     err = {}
     for name, y in got.items():
         err[name] = max(float((g - w).abs().max()) for g, w in zip(y, want))
-        same = all(torch.equal(g, w) for g, w in zip(y, rt))
+        same = all(torch.equal(g, w) for g, w in zip(y, k1))
         print(f"check {name} main path: max|d| vs plain {err[name]:.3e} "
-              f"(rel {err[name] / scale:.3e}), equal to K1's runtime-shape route bit for "
+              f"(rel {err[name] / scale:.3e}), equal to K1's tiled route bit for "
               f"bit: {same}", flush=True)
         if not (err[name] <= TOL[torch.float32] * scale and same):
             raise AssertionError(f"{name} on the main operator disagrees")
-    del got, rt, want
+    del got, k1, want
     ms = time_stencils(op, b, reps=11)
     print(f"main shape {MAIN_LAT} n={MAIN_COLS} matvec medians over 11 in turns: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
@@ -1832,9 +1868,11 @@ def moebius_path(gen, profile: bool):
 
 def staggered_path(links, gen):
     """The staggered solve on the main lattice and links, 8 rhs: K1 (1, 1,
-    3, 3) held against the plain version on D and D^H and timed, then CGNE
-    with ``adjoint_operator`` to 1e-5, every apply one K1 launch.  Returns
-    (launches in the solve, max error, ms, bound)."""
+    3, 3) held against the plain version on D and D^H and timed, K4a and
+    K4b held against it bit for bit and the three timed in turns, then
+    CGNE with ``adjoint_operator`` to 1e-5, every apply one K1 launch.
+    Returns (launches in the solve, max error, ms, bound, {k1, xin,
+    stream: median ms})."""
     t0 = time.perf_counter()
     op = staggered_operator(MAIN_LAT, mass=STAGGERED_MASS, links=links, layout="soa",
                             device="cuda")
@@ -1847,6 +1885,14 @@ def staggered_path(links, gen):
                       f"{MAIN_LAT} n={MAIN_COLS}") for name, o in (("D", op), ("D^H", op_h)))
     ms, bd_ = time_stencil(op.blocks, None, b, op.offsets, 3, 3, 5,
                            f"K1 (1,1,3,3) staggered {MAIN_LAT} n={MAIN_COLS}")
+    # K4a and K4b on the staggered operator: K1's bits, then the three in
+    # turns
+    s_err = same_as_rt(op.blocks, None, b, op.offsets, f"staggered {MAIN_LAT} n={MAIN_COLS}")
+    args = (op.blocks, None, b, op.offsets, 3, 3)
+    s_ms = time_turns({"k1": lambda: stencil_matvec_soa(*args),
+                       **{k: (lambda fn=fn: fn(*args)) for k, fn in SCHEDULES.items()}}, 11)
+    print(f"staggered {MAIN_LAT} n={MAIN_COLS} matvec medians over 11 in turns: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in s_ms.items()), flush=True)
     # no plan: the staggered operators have no spin factors (K_d = 1 in the
     # tiled kernel without a table)
     it, shapes = family_solve(f"staggered path {MAIN_LAT} x {MAIN_COLS} rhs",
@@ -1856,7 +1902,7 @@ def staggered_path(links, gen):
     applies = 1 + 2 * it
     if shapes["k1"] != {(1, 1, 3, 3): applies}:
         raise AssertionError(f"staggered path launches {shapes}, expected {applies}")
-    return applies, err, ms, bd_
+    return applies, max(err, s_err), ms, bd_, s_ms
 
 
 def twisted_mass_path(links, b):
@@ -2173,7 +2219,9 @@ def main():
     print(f"device-to-device copy {rate / 1e12:.3f} TB/s measured (1 GiB, read and write "
           f"counted); the bounds take the data sheet's {HBM_BYTES_PER_S / 1e12:.2f} TB/s",
           flush=True)
-    attrs = {f"tiled K1 {k}": v for k, v in tiled_attrs().items()} | kernel_attrs()
+    sched_attrs = schedule_attr_table()
+    attrs = {f"tiled K1 {k}": v for k, v in tiled_attrs().items()} | kernel_attrs() | {
+        f"schedule {k}": v for k, v in sched_attrs.items()}
     for key, (regs, local, threads, blocks) in attrs.items():
         print(f"{key}: {regs} registers, {local} B local (spills), {threads} "
               f"threads a block, {blocks} blocks an SM", flush=True)
@@ -2262,7 +2310,7 @@ def main():
             ("stencil_matvec_soa[1,1,12,12 clover term]", site_src, None, clover),
             ("stencil_matvec_soa[4,4,3,3 Moebius, 64 columns]", tiled_src, "moebius",
              moebius),
-            ("stencil_matvec_soa[1,1,3,3 staggered]", tiled_src, "staggered", staggered),
+            ("stencil_matvec_soa[1,1,3,3 staggered]", tiled_src, "staggered", staggered[:4]),
             *((f"stencil_matvec_soa_rt[{','.join(map(str, shape))}]", soa_src, None,
                k1_shapes[shape]) for shape in K1_RT_SHAPES))] + [{
         "name": fn.__name__, **stencil,
@@ -2270,7 +2318,11 @@ def main():
         "replaces": f"superbblas_tpu/ops/stencil_pallas.py:{line}",
         "launches": s_launches[name], "max_abs_err": s_err[name], "ms": ms[name],
         "plain_ms": ms["plain"], "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-        "bound_ref_ms": k1_bound[2]}
+        "bound_ref_ms": k1_bound[2],
+        "registers": sched_attrs[f"{name} 4,4,3,3 sparse float32/float32"][0],
+        "blocks_per_sm": sched_attrs[f"{name} 4,4,3,3 sparse float32/float32"][3],
+        "ms_staggered": staggered[4][name], "k1_ms_staggered": staggered[4]["k1"],
+        "bound_ms_staggered": staggered[3][0]}
         for (name, fn), line in zip(SCHEDULES.items(), (649, 795))] + [{
         "name": "permute_4d", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/permute.cu",

@@ -1,5 +1,6 @@
-// Device helpers of the streaming kernels (stencil_site.cu, permute.cu):
-// 16-byte asynchronous copies into shared memory, and division by a
+// Device helpers of the streaming kernels (stencil_site.cu, permute.cu,
+// stencil_schedules.cu): asynchronous copies of 16 bytes or one element into
+// shared memory, and division by a
 // divisor fixed at launch for decoding a flat work index every item.
 
 #pragma once
@@ -13,6 +14,18 @@ namespace {
 __device__ __forceinline__ void copy16(void* dst, const void* src) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+// cp.async of one element of 4 or 8 bytes (through L1); one of 2 bytes, which
+// cp.async does not move, by a plain load and store
+template <typename T>
+__device__ __forceinline__ void copy_elem(T* dst, const T* src) {
+    if constexpr (sizeof(T) == 4 || sizeof(T) == 8) {
+        const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                     "n"(sizeof(T)) : "memory");
+    } else {
+        *dst = *src;
+    }
 }
 __device__ __forceinline__ void copy_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");

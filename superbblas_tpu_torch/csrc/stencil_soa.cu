@@ -125,7 +125,8 @@ struct LaunchK1 {
 // The runtime-shape route: any (KI, KD, BI, BD) with KI*KD*BI*BD <= 256.
 // One thread per (site, column, output feature o = a*BI + i), looping over
 // d, j and b at run time: y[., o, s] = sum_d sum_j B_d[i, j](s) *
-// sum_b K_d[a, b] x[., b*BD + j, s + o_d].  The products and sums are the
+// sum_b K_d[a, b] x[., b*BD + j, s + o_d] (rt_direction, stencil_soa.cuh,
+// which the schedules share).  The products and sums are the
 // fma_a of site_matvec in its order, so at a templated shape this route
 // gives the templated route's bits, and the tiled kernel's wherever no
 // direction of the spin plan factors.  Row a of every K_d sits in shared
@@ -167,27 +168,9 @@ __global__ void __launch_bounds__(256) stencil_soa_rt_kernel(
     A ar = A(0), ai = A(0);
     for (int d = 0; d < dirs.ndir; ++d) {
         const int64_t nb = neighbour(dirs, d, s, cx, cy, cz, ct, X, Y, Z, T);
-        const A* kr = skron + d * KD;
-        const A* kim = skron + nk + d * KD;
         const int64_t boff = ((int64_t)d * BI * BD + (int64_t)i * BD) * V + s;
-        for (int j = 0; j < BD; ++j) {
-            A zr = A(0), zi = A(0);
-            for (int b = 0; b < KD; ++b) {
-                const A cr = kr[b], cim = kim[b];
-                const A vr = load_f(xr + (b * BD + j) * V + nb);
-                const A vi = load_f(xi + (b * BD + j) * V + nb);
-                zr = fma_a(cr, vr, zr);
-                zr = fma_a(-cim, vi, zr);
-                zi = fma_a(cr, vi, zi);
-                zi = fma_a(cim, vr, zi);
-            }
-            const A br = load_f(b_re + boff + j * V);
-            const A bim = load_f(b_im + boff + j * V);
-            ar = fma_a(br, zr, ar);
-            ar = fma_a(-bim, zi, ar);
-            ai = fma_a(br, zi, ai);
-            ai = fma_a(bim, zr, ai);
-        }
+        rt_direction<false>(skron + d * KD, skron + nk + d * KD, KD, BD, xr + nb, xi + nb, V,
+                            b_re + boff, b_im + boff, V, ar, ai);
     }
     const int64_t out = ((int64_t)col * KI * BI + o) * V + s;
     store_f(y_re + out, ar);

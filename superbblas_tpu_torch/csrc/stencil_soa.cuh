@@ -1,7 +1,8 @@
 // Shared per-site math of the SoA stencil kernels (stencil_soa.cu: K1 at
-// the clover term's shape and on its runtime-shape route,
-// stencil_schedules.cu: the X-inside and X-streaming schedules; the tiled
-// kernel of stencil_tiled.cu shares the types, loads and dispatch).
+// the clover term's shape and on its runtime-shape route, stencil_site.cu:
+// the clover term's block-streaming kernel, stencil_schedules.cu: the
+// X-inside and X-streaming schedules at every shape but the two of the
+// spin plan, whose math is stencil_plan.cuh).
 //
 // All three compute, over a periodic 4-D lattice s = (X, Y, Z, T) with
 // one-hot +-1 offsets o_d, in split complex (separate re/im planes),
@@ -19,8 +20,8 @@
 // Types.  Blocks have a storage type ST and fields a field type FT; the
 // sums run in acc_t<ST, FT>: f32 for every pair with f32 or bf16 (bf16
 // converted on load, rounded on store), f64 for f64 blocks with f64
-// fields.  The kron factors come in the sum's type.  K1 takes the five
-// pairs of kPair below; the schedules the first three.
+// fields.  The kron factors come in the sum's type.  K1 and the schedules
+// take the five pairs of kPair below.
 
 #pragma once
 
@@ -78,6 +79,13 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ double to_f(double v) { return v; }
+// a value of x: from device memory (the read-only path) or, kSh, from
+// shared memory
+template <bool kSh, typename FT> __device__ __forceinline__ auto load_x(const FT* p) {
+    if constexpr (kSh) return to_f(*p);
+    else return load_f(p);
+}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(double* p, double v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
@@ -221,6 +229,36 @@ __device__ __forceinline__ void site_matvec(const ST* __restrict__ b_re,
                 }
             }
         }
+    }
+}
+
+// The runtime-shape route's sum of one direction d for one output a*BI + i
+// of one (site, column), at run-time KD, BD: (ar, ai) += sum_j B_d[i, j]
+// sum_b K_d[a, b] x[b*BD + j], in site_matvec's order.  kr, kim: row a of
+// K_d (nullptr: K_d = 1); xr, xi: the neighbour's x with feature stride xs
+// (kSh: in shared memory); br, bi: B_d[i, 0](s) with entry stride bs.
+template <bool kSh, typename I, typename ST, typename FT, typename A>
+__device__ __forceinline__ void rt_direction(const A* kr, const A* kim, int KD, int BD,
+                                             const FT* xr, const FT* xi, I xs,
+                                             const ST* br, const ST* bi, I bs, A& ar,
+                                             A& ai) {
+    for (int j = 0; j < BD; ++j) {
+        A zr = A(0), zi = A(0);
+        for (int b = 0; b < KD; ++b) {
+            const A cr = kr ? kr[b] : A(1), cim = kim ? kim[b] : A(0);
+            const A vr = load_x<kSh>(xr + (b * BD + j) * xs);
+            const A vi = load_x<kSh>(xi + (b * BD + j) * xs);
+            zr = fma_a(cr, vr, zr);
+            zr = fma_a(-cim, vi, zr);
+            zi = fma_a(cr, vi, zi);
+            zi = fma_a(cim, vr, zi);
+        }
+        const A b_r = load_f(br + j * bs);
+        const A b_i = load_f(bi + j * bs);
+        ar = fma_a(b_r, zr, ar);
+        ar = fma_a(-b_i, zi, ar);
+        ai = fma_a(b_r, zi, ai);
+        ai = fma_a(b_i, zr, ai);
     }
 }
 

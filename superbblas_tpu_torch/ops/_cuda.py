@@ -27,7 +27,7 @@ BUILD = _PKG / "_build"
 SOURCES = ("stencil_soa.cu", "stencil_tiled.cu", "stencil_site.cu", "stencil_schedules.cu",
            "permute.cu", "batched_gemm.cu", "roll_add.cu")
 #: headers the sources include (part of the build's hash)
-HEADERS = ("stencil_soa.cuh", "kernel_common.cuh")
+HEADERS = ("stencil_soa.cuh", "stencil_plan.cuh", "kernel_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -102,10 +102,18 @@ def library() -> ctypes.CDLL:
     #  ndir, offsets) + each kernel's own trailing ints + stream
     head = [i] * 5 + [p] * 8 + [i] * 6 + [p]
     for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_rt", [i]),
-                        ("sbt_stencil_site", [i, i]), ("sbt_stencil_soa_xin", [i, i, i]),
-                        ("sbt_stencil_soa_stream", [])):
+                        ("sbt_stencil_site", [i, i])):
         getattr(lib, name).argtypes = head + extra + [p]
         getattr(lib, name).restype = i
+    # the schedules: the plan's pointer before the kron's two; sparse form,
+    # the tile (S, C, rs or S, R, C, rs) and the copy form
+    sched = [i] * 5 + [p] * 9 + [i] * 6 + [p]
+    lib.sbt_stencil_soa_xin.argtypes = sched + [i] * 5 + [p]
+    lib.sbt_stencil_soa_stream.argtypes = sched + [i] * 6 + [p]
+    lib.sbt_stencil_soa_xin.restype = lib.sbt_stencil_soa_stream.restype = i
+    # (stream, ki, kd, bi, bd, pair, sparse, n, X, S, R, C, rs, out[4])
+    lib.sbt_stencil_schedule_attrs.argtypes = [i] * 13 + [p]
+    lib.sbt_stencil_schedule_attrs.restype = i
     # the tiled route: one plan pointer for the kron's two; parity, sparse
     # form, yc
     lib.sbt_stencil_tiled.argtypes = [i] * 5 + [p] * 7 + [i] * 6 + [p, i, i, i, p]

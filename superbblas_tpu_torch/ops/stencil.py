@@ -23,8 +23,9 @@ the route of a case (``stencil_matvec_soa.by_route`` counts launches by
 it).
 ``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream`` compute the
 same function with other schedules of the X neighbours
-(``csrc/stencil_schedules.cu``, at ``SCHEDULE_SHAPES``); no caller
-dispatches them.
+(``csrc/stencil_schedules.cu``: x staged in shared memory, at every shape
+and pair K1 takes, with K1's bits: the tiled route's at TILED_SHAPES, the
+runtime-shape route's elsewhere); no caller dispatches them.
 
 The tiled route's spin plan is built once per kron value (``spin_plan``,
 counted by ``stencil_matvec_soa.plan_builds``) from the kron's host value:
@@ -49,7 +50,7 @@ from .. import cplx
 from ..cplx import CArray
 
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
-           "stencil_matvec_soa_xin", "stencil_matvec_soa_stream",
+           "stencil_matvec_soa_xin", "stencil_matvec_soa_stream", "schedule_attrs",
            "stencil_matvec_soa_planned", "factor_kron", "spin_plan", "clear_plans",
            "derive_kron", "host_kron", "k1_route",
            "soa_eligible", "aos_to_soa", "soa_to_aos"]
@@ -74,8 +75,6 @@ TILED_MAX_VALUES = 2 ** 31 - 1
 #: traffic (bytes) within which a block finds its X neighbours still in L2:
 #: a third of the H100's 50 MB (``x_chunk``)
 L2_REUSE_BYTES = 16 << 20
-#: the shapes the X-inside and X-streaming schedules are instantiated at
-SCHEDULE_SHAPES = ((4, 4, 3, 3), (1, 1, 3, 3))
 #: most KI*KD*BI*BD a stencil takes (the TPU kernel's rule)
 MAX_BLOCK = 256
 #: (block storage dtype, field dtype) pairs K1 takes, in the order of the
@@ -86,14 +85,22 @@ KERNEL_DTYPES = ((torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
                  (torch.float32, torch.bfloat16),
                  (torch.float64, torch.float64))
-#: the pairs the X-inside and X-streaming schedules take
-SCHEDULE_DTYPES = KERNEL_DTYPES[:3]
 #: most directions the kernel takes (csrc/stencil_soa.cuh kMaxDirs)
 MAX_DIRS = 16
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_BYTES = 232448
-
-_TODO = "the schedules at more type pairs: ROADMAP.md, Queue 2 A"
+#: shared memory of one of the X-inside kernel's two stages: both within a
+#: block's, one block of 512 threads (16 warps) an SM.  At 32^3x64 f32 a
+#: stage then holds the X lines of 32 sites of one column, so that a warp
+#: reads one X plane; stages of a sixth of the SM's (two blocks of 256
+#: threads) hold 8 sites, and ran 1.5x slower (PERF.md)
+XIN_STAGE_BYTES = (SMEM_BYTES - 1024) // 2
+#: shared memory of the X-streaming kernel's ring of four planes: a quarter
+#: of the SM's 228 KB less the 1 KB each block reserves, so that four
+#: blocks of STREAM_THREADS (16 warps) share an SM
+STREAM_RING_BYTES = (233472 - 4 * 1024) // 4
+#: threads a block of the X-streaming kernel (csrc/stencil_schedules.cu)
+STREAM_THREADS = 128
 
 
 def _axis_of(off) -> Tuple[int, int]:
@@ -487,33 +494,19 @@ def check_block(KI: int, KD: int, bi: int, bd: int) -> None:
 
 def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                       offsets, bi: int, bd: int,
-                      packed_parity: Optional[int] = None,
-                      shapes: Optional[Sequence[Tuple[int, int, int, int]]] = None
-                      ) -> Tuple[int, int]:
-    """Raise unless a CUDA stencil kernel takes these operands (device
-    aside): K1 any shape within MAX_BLOCK and every pair of KERNEL_DTYPES,
-    a schedule only its ``shapes`` and SCHEDULE_DTYPES; returns (KI,
-    KD)."""
+                      packed_parity: Optional[int] = None) -> Tuple[int, int]:
+    """Raise unless the CUDA stencil kernels take these operands (device
+    aside): any shape within MAX_BLOCK, every pair of KERNEL_DTYPES;
+    returns (KI, KD)."""
     if packed_parity not in (None, 0, 1):
         raise ValueError(f"packed_parity={packed_parity!r}: a checkerboard parity is "
                          "None, 0 or 1")
     ndir = blocks.shape[0]
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     check_block(KI, KD, bi, bd)
-    if shapes is not None and (KI, KD, bi, bd) not in shapes:
-        raise NotImplementedError(
-            f"(KI, KD, BI, BD) = {(KI, KD, bi, bd)} in the X-inside and X-streaming "
-            f"stencil kernels, which take {tuple(shapes)}; stencil_matvec_soa takes "
-            f"every shape (ROADMAP.md, Next slices: schedules at more shapes)")
-    pairs = KERNEL_DTYPES if shapes is None else SCHEDULE_DTYPES
-    if (blocks.dtype, x.dtype) not in pairs:
-        if shapes is None:
-            raise ValueError(f"storage/field dtypes {blocks.dtype}/{x.dtype}: the CUDA "
-                             f"stencil kernel takes {KERNEL_DTYPES}")
-        raise NotImplementedError(
-            f"storage/field dtypes {blocks.dtype}/{x.dtype} in the X-inside and "
-            f"X-streaming stencil kernels, which take {SCHEDULE_DTYPES} ({_TODO}); "
-            "stencil_matvec_soa takes every pair of KERNEL_DTYPES")
+    if (blocks.dtype, x.dtype) not in KERNEL_DTYPES:
+        raise ValueError(f"storage/field dtypes {blocks.dtype}/{x.dtype}: the CUDA "
+                         f"stencil kernel takes {KERNEL_DTYPES}")
     if not _offsets_ok(_offsets_key(offsets), tuple(blocks.shape[2:])) \
             or len(offsets) != ndir:
         raise ValueError(f"{len(offsets)} offsets {offsets} for {ndir} directions: "
@@ -536,6 +529,17 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
     return KI, KD
 
 
+def check_32bit(KI: int, KD: int, bi: int, bd: int, x: CArray, what: str) -> None:
+    """Raise ValueError where one column's field or one direction's blocks
+    pass TILED_MAX_VALUES values: the tiled kernel and the schedules index
+    them in 32 bits."""
+    per_site = max(KD * bd, KI * bi, bi * bd)
+    if per_site * x.shape[2:].numel() > TILED_MAX_VALUES:
+        raise ValueError(f"lattice {tuple(x.shape[2:])}: the {what} indexes one column's "
+                         f"field and one direction's blocks in 32 bits, at most "
+                         f"{TILED_MAX_VALUES} values ({per_site} a site)")
+
+
 @functools.lru_cache(maxsize=256)
 def _offsets_ok(offsets: Tuple[Tuple[int, ...], ...], lat: Tuple[int, ...]) -> bool:
     """``soa_eligible`` of these offsets on this lattice, kept per value (a
@@ -543,24 +547,71 @@ def _offsets_ok(offsets: Tuple[Tuple[int, ...], ...], lat: Tuple[int, ...]) -> b
     return soa_eligible(offsets, lat)
 
 
-def xin_tile(n: int, X: int, F: int, itemsize: int, nk: int) -> Tuple[int, int, int]:
-    """(S, C, XG) of the X-inside kernel: a tile of S (y, z, t) sites x C
-    columns whose X lines (X x F features x 2 parts of ``itemsize`` bytes)
-    sit in shared memory beside ``nk`` kron entries, and XG thread groups
-    over X, at most 256 threads.  Raises ValueError where no tile fits, as
-    the TPU wrapper does where no (nc, Yc) fits its VMEM."""
-    per_pair = X * F * 2 * itemsize
-    room = SMEM_BYTES - 4 * ((2 * nk + 3) // 4 * 4)
-    pairs = min(256, room // per_pair)
+def _row_stride(slots: int, itemsize: int) -> int:
+    """Elements from one row of a schedule's tile to the next in shared
+    memory: ``slots`` rounded up to whole 16-byte units."""
+    vec = 16 // itemsize
+    return -(-slots // vec) * vec
+
+
+def xin_tile(n: int, X: int, F: int, itemsize: int) -> Tuple[int, int, int]:
+    """(S, C, rs) of the X-inside kernel: a tile of S consecutive sites of
+    an X plane whose whole X lines (X x F features x 2 parts of
+    ``itemsize`` bytes a site) of one group of C columns fill one of two
+    stages of XIN_STAGE_BYTES, rows ``rs`` elements apart.  S first, a
+    power of two up to 32 (the sites of a plane one warp reads), then C, a
+    power of two up to 8 and half of n (so that a block walks two groups
+    or more, one loading while the other sums).  Where one line passes a
+    stage but two fit in a block's shared memory the tile is one site of
+    one column; where they do not, ValueError, as the TPU wrapper raises
+    where no (nc, Yc) fits its VMEM."""
+    line = X * F * 2 * itemsize
+    pairs = XIN_STAGE_BYTES // line
     if pairs < 1:
-        raise ValueError(
-            f"no tile of the X-inside stencil kernel fits in shared memory: one X "
-            f"line of {X} sites x {F} features takes {per_pair} B, {room} B are free")
-    C = max(1, min(n, 8, pairs // 32))
-    S = pairs // C
-    if S >= 32:
-        S = S // 32 * 32
-    return S, C, max(1, min(X, 256 // (S * C)))
+        if 2 * line > SMEM_BYTES:
+            raise ValueError(
+                f"no tile of the X-inside stencil kernel fits in shared memory: one X "
+                f"line of {X} sites x {F} features takes {line} B, and two stages of it "
+                f"pass a block's {SMEM_BYTES} B")
+        return 1, 1, _row_stride(1, itemsize)
+    S = 1
+    while S < 32 and 2 * S <= pairs:
+        S *= 2
+    C = 1
+    while C < 8 and 2 * C <= -(-n // 2) and 2 * C * S <= pairs:
+        C *= 2
+    return S, C, _row_stride(S, itemsize)
+
+
+def stream_tile(n: int, rows: int, T: int, F: int, itemsize: int,
+                nc: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(S, R, C, rs) of the X-streaming kernel: a tile of R rows (y, z) of
+    S T-sites and C columns (``nc``, or the largest of 4, 2, 1 that divides
+    n, as the TPU wrapper picks its nc), each row widened by a T halo of
+    one site a side, rows ``rs`` = S + 16 bytes apart (a row's right halo
+    takes the next row's first slot), whose ring of four planes fits
+    STREAM_RING_BYTES.  S starts at the power of two that covers T, at
+    most 32, R at STREAM_THREADS sums a plane; R and then S halve until the
+    ring fits.  ValueError where one site of C columns does not."""
+    vec = 16 // itemsize
+    C = nc if nc is not None else next(c for c in (4, 2, 1) if n % c == 0)
+    S = min(32, 1 << (T - 1).bit_length())
+
+    def ring(S, R):
+        return 4 * (2 * F * R * C * _row_stride(S + vec, itemsize) + vec) * itemsize
+
+    while True:
+        R = max(1, min(rows, STREAM_THREADS // (S * C)))
+        while R > 1 and ring(S, R) > STREAM_RING_BYTES:
+            R //= 2
+        if ring(S, R) <= STREAM_RING_BYTES:
+            return S, R, C, _row_stride(S + vec, itemsize)
+        if S == 1:
+            raise ValueError(
+                f"no tile of the X-streaming stencil kernel fits in shared memory: a ring "
+                f"of four planes of one site x {C} columns x {F} features takes "
+                f"{ring(1, 1)} B, more than {STREAM_RING_BYTES}")
+        S //= 2
 
 
 @functools.lru_cache(maxsize=64)
@@ -661,11 +712,8 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     if (KI, KD, bi, bd) not in KERNEL_SHAPES:
         return stencil_matvec_soa_rt(blocks, kron, x, offsets, bi, bd,
                                      packed_parity=packed_parity)
-    if (KI, KD, bi, bd) in TILED_SHAPES and \
-            max(KD * bd, KI * bi, bi * bd) * x.shape[2:].numel() > TILED_MAX_VALUES:
-        raise ValueError(f"lattice {tuple(x.shape[2:])}: the tiled stencil kernel indexes one "
-                         f"column's field and one direction's blocks in 32 bits, at most "
-                         f"{TILED_MAX_VALUES} values ({max(KD * bd, KI * bi, bi * bd)} a site)")
+    if (KI, KD, bi, bd) in TILED_SHAPES:
+        check_32bit(KI, KD, bi, bd, x, "tiled stencil kernel")
     check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
     parity = -1 if packed_parity is None else int(packed_parity)
     route = k1_route((KI, KD, bi, bd), blocks.dtype, x.dtype, x.shape[2:].numel(),
@@ -717,41 +765,102 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
     return y
 
 
+def _schedule(entry: str, blocks: CArray, kron: Optional[CArray], x: CArray, offsets,
+              bi: int, bd: int, KI: int, KD: int, tile: Tuple[int, ...],
+              fits16: bool) -> CArray:
+    """Launch schedule ``entry`` (sbt_stencil_soa_xin or _stream) with the
+    ``tile`` its picker chose: the kron's spin plan at TILED_SHAPES, the
+    kron itself elsewhere; 16-byte copies where the tile takes them
+    (``fits16``) and x's parts are 16-byte aligned."""
+    check_kernel_case(blocks, kron, x, offsets, bi, bd)
+    check_32bit(KI, KD, bi, bd, x, "stencil schedule")
+    if (KI, KD, bi, bd) in TILED_SHAPES:
+        if kron is not None and (kron.re.device != x.device or kron.im.device != x.device):
+            raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
+        p = None if kron is None else spin_plan(kron, _sum_dtype(x))
+        kptrs = (None if p is None else p.table.data_ptr(), None, None)
+        sparse = 0 if p is None else int(p.sparse)
+    else:
+        kron_k = _kron_for(kron, x)
+        kptrs = (None,) + _kron_ptrs(kron_k)
+        sparse = 0
+    wide = fits16 and x.re.data_ptr() % 16 == 0 and x.im.data_ptr() % 16 == 0
+    return _launch(entry, blocks, kptrs, x, offsets, bi, bd, KI, KD, sparse, *tile, int(wide))
+
+
 def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
                            offsets: Sequence[Tuple[int, ...]], bi: int,
                            bd: int) -> CArray:
     """X-inside schedule of :func:`stencil_matvec_soa` (same contract, no
-    packed parity): each block holds its tile's whole X lines in shared
-    memory.  Raises ValueError where no tile fits (``xin_tile``), on
-    every device.  CPU operands run the plain version; CUDA operands the
-    kernel (``stencil_matvec_soa_xin.launches``) or raise."""
+    packed parity, every shape and pair K1 takes, K1's bits): each block
+    holds its tile's whole X lines of one column group in shared memory.
+    Raises ValueError where no tile fits (``xin_tile``), on every device.
+    CPU operands run the plain version; CUDA operands the kernel
+    (``stencil_matvec_soa_xin.launches``) or raise."""
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
-    tile = xin_tile(x.shape[0], x.shape[2], KD * bd, x.re.element_size(),
-                    blocks.shape[0] * KI * KD)
+    n, X = x.shape[0], x.shape[2]
+    elem = x.re.element_size()
+    S, C, rs = xin_tile(n, X, KD * bd, elem)
     if _on_cpu(blocks, x, "stencil_matvec_soa_xin"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
-    check_kernel_case(blocks, kron, x, offsets, bi, bd, shapes=SCHEDULE_SHAPES)
-    y = _launch("sbt_stencil_soa_xin", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
-                bi, bd, KI, KD, *tile)
+    fits16 = S * elem % 16 == 0 and x.shape[3:].numel() * elem % 16 == 0
+    y = _schedule("sbt_stencil_soa_xin", blocks, kron, x, offsets, bi, bd, KI, KD,
+                  (S, C, rs), fits16)
     stencil_matvec_soa_xin.launches += 1
     return y
 
 
 def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
                               offsets: Sequence[Tuple[int, ...]], bi: int,
-                              bd: int) -> CArray:
+                              bd: int, nc: Optional[int] = None) -> CArray:
     """X-streaming schedule of :func:`stencil_matvec_soa` (same contract,
-    no packed parity): each block walks X with a ring of X planes of its
-    tile in shared memory.  CPU operands run the plain version; CUDA
-    operands the kernel (``stencil_matvec_soa_stream.launches``) or
-    raise."""
+    no packed parity, every shape and pair K1 takes, K1's bits): each block
+    walks X with a ring of X planes of its tile in shared memory.  ``nc``:
+    the columns of a block (``stream_tile``), a divisor of n, else
+    ValueError on every device, as the TPU wrapper.  CPU operands run the
+    plain version; CUDA operands the kernel
+    (``stencil_matvec_soa_stream.launches``) or raise."""
+    n = x.shape[0]
+    if nc is not None and (nc < 1 or n % nc):
+        raise ValueError(f"nc={nc} must divide the column count n={n}")
     if _on_cpu(blocks, x, "stencil_matvec_soa_stream"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
-    KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, shapes=SCHEDULE_SHAPES)
-    y = _launch("sbt_stencil_soa_stream", blocks, _kron_ptrs(_kron_for(kron, x)), x,
-                offsets, bi, bd, KI, KD)
+    KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
+    _, Y, Z, T = x.shape[2:]
+    elem = x.re.element_size()
+    tile = stream_tile(n, Y * Z, T, KD * bd, elem, nc)
+    vec = 16 // elem
+    y = _schedule("sbt_stencil_soa_stream", blocks, kron, x, offsets, bi, bd, KI, KD, tile,
+                  T % vec == 0 and tile[0] % vec == 0)
     stencil_matvec_soa_stream.launches += 1
     return y
+
+
+def schedule_attrs(schedule: str, shape: Sequence[int], storage, field, n: int,
+                   lat: Sequence[int], sparse: bool = True, nc: Optional[int] = None
+                   ) -> list:
+    """[registers, local bytes, threads, blocks an SM] of the kernel that
+    ``schedule`` ("xin" or "stream") launches on n columns of lattice
+    ``lat`` at (KI, KD, BI, BD) ``shape`` and the (storage, field) dtypes,
+    from cudaFuncGetAttributes and the occupancy at the tile's shared
+    memory."""
+    from . import _cuda
+
+    ki, kd, bi, bd = shape
+    X, Y, Z, T = lat
+    elem = torch.empty((), dtype=field).element_size()
+    if schedule == "xin":
+        S, C, rs = xin_tile(n, X, kd * bd, elem)
+        R = 1
+    else:
+        S, R, C, rs = stream_tile(n, Y * Z, T, kd * bd, elem, nc)
+    out = (ctypes.c_int * 4)()
+    err = _cuda.library().sbt_stencil_schedule_attrs(
+        int(schedule == "stream"), ki, kd, bi, bd, KERNEL_DTYPES.index((storage, field)),
+        int(sparse), n, X, S, R, C, rs, out)
+    if err != 0:
+        raise RuntimeError(f"schedule attributes: cudaError {err}")
+    return list(out)
 
 
 #: launches of each route, and of each route by (KI, KD, BI, BD) and, for

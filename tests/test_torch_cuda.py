@@ -3,8 +3,10 @@ kernel with packed parity, its tiled route at the Wilson and staggered
 shapes with factored (Wilson projector) and direct (random) spin factors
 at every type pair, its registers and spills, its plan built once per
 operator, on both its other routes at every new block shape, and its
-X-inside and X-streaming schedules against the plain version (and the
-schedules and the tiled route where no direction factors against the
+X-inside and X-streaming schedules at every pair and shape against the
+plain version and K1 bit for bit (the tiled route at its shapes, the
+runtime-shape route elsewhere), with their registers and blocks an SM
+(and the tiled route where no direction factors against the
 runtime-shape route, bit for bit); the bf16 roll-plus-add (E2) in both variants and the
 transpose tile sweep (E3) at each tile; every operator family's apply on
 the card, in both layouts, against the same apply on the CPU; the CG and even-odd solves through the stencil kernel against the
@@ -67,32 +69,34 @@ def crand(shape, seed, device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
-    """K1 launches f64 operands on both its routes, while the schedules
-    refuse them; the schedules take only their shapes (4x4 blocks here),
-    K1 every shape up to KI*KD*BI*BD = 256 and raises above it; a parity
-    other than 0 and 1 is refused."""
+    """K1 and the X-inside and X-streaming schedules launch f64 operands
+    and a (2, 2, 3, 3) one (the runtime-shape form), K1 every shape up to
+    KI*KD*BI*BD = 256 (4x4 blocks on its runtime-shape route here); all
+    raise above it; a parity other than 0 and 1 is refused."""
     lat = (2, 2, 4, 8)
     blocks = crand((9, 9) + lat, 0, cuda_device, torch.float32)
     x = crand((1, 3) + lat, 1, cuda_device, torch.float32)
     b16 = crand((9, 16) + lat, 2, cuda_device, torch.float32)
     x16 = crand((1, 4) + lat, 3, cuda_device, torch.float32)
+    k22 = crand((9, 2, 2), 6, cuda_device, torch.float32)
+    x6 = crand((1, 6) + lat, 7, cuda_device, torch.float32)
     b64, x64 = blocks.to(torch.float64), x.to(torch.float64)
     for fn in (S.stencil_matvec_soa, S.stencil_matvec_soa_rt):
         before = fn.launches
         assert fn(b64, None, x64, OFFSETS, 3, 3).re.dtype == torch.float64
         assert fn.launches == before + 1
     for fn in (S.stencil_matvec_soa_xin, S.stencil_matvec_soa_stream):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(b64, None, x64, OFFSETS, 3, 3)
-    for fn in (S.stencil_matvec_soa_xin, S.stencil_matvec_soa_stream):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(b16, None, x16, OFFSETS, 4, 4)
+        before = fn.launches
+        assert fn(b64, None, x64, OFFSETS, 3, 3).re.dtype == torch.float64
+        assert tuple(fn(blocks, k22, x6, OFFSETS, 3, 3).re.shape) == (1, 6) + lat
+        assert fn.launches == before + 2
     before = S.stencil_matvec_soa_rt.launches
     S.stencil_matvec_soa(b16, None, x16, OFFSETS, 4, 4)
     assert S.stencil_matvec_soa_rt.launches == before + 1
     b289 = crand((9, 289) + lat, 4, cuda_device, torch.float32)
     x17 = crand((1, 17) + lat, 5, cuda_device, torch.float32)
-    for fn in (S.stencil_matvec_soa, S.stencil_matvec_soa_rt):
+    for fn in (S.stencil_matvec_soa, S.stencil_matvec_soa_rt, S.stencil_matvec_soa_xin,
+               S.stencil_matvec_soa_stream):
         with pytest.raises(ValueError, match="256"):
             fn(b289, None, x17, OFFSETS, 17, 17)
     with pytest.raises(ValueError, match="parity"):
@@ -132,26 +136,80 @@ def test_packed_kernel_matches_plain_version(cuda_device, parity, st, ft):
     assert S.stencil_matvec_soa.launches == before + 2 * len(cases)
 
 
+#: the schedules' cases: (KI, KD, BI, BD), kind of kron ("wilson": the
+#: Wilson projectors, the sparse plan; "random": direct, the dense plan or
+#: the runtime-shape form; None: no kron); lattices with odd volumes and X
+#: of 1-4, columns 1 to 9
+SCHEDULE_SHAPES = [((4, 4, 3, 3), "wilson"), ((4, 4, 3, 3), "random"), ((1, 1, 3, 3), None),
+                   ((1, 1, 12, 12), None), ((2, 2, 3, 3), "random"), ((1, 1, 2, 2), None),
+                   ((2, 1, 4, 2), "random")]
+SCHEDULE_LATS = [((1, 3, 2, 5), 1), ((3, 5, 6, 10), 9), ((2, 4, 3, 8), 2), ((4, 4, 8, 32), 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("st,ft", DTYPES)
+@pytest.mark.parametrize("st,ft", S.KERNEL_DTYPES)
 @pytest.mark.parametrize("schedule", ["xin", "stream"])
 def test_schedules_match_plain_version_and_kernel(cuda_device, schedule, st, ft):
-    """K4a and K4b against the plain version, and against K1's
-    runtime-shape route bit for bit (they share its per-site math and its
-    order of sums; K1's tiled route sums a factored direction in another
-    order), with X of 1, 2 and 3 among the lattices."""
+    """K4a and K4b at every pair, at the shapes of TILED_SHAPES (Wilson and
+    random spin factors, no kron), SITE_SHAPE and the runtime-shape route's,
+    against the plain version (f64 within 1e-12 of max |y|) and against K1
+    bit for bit: its tiled route at TILED_SHAPES (the same spin plan code),
+    its runtime-shape route elsewhere (the same per-output sum); X-streaming
+    also with a given ``nc``."""
     wrapper = WRAPPERS[schedule]
     before = wrapper.launches
-    cases = [((1, 3, 2, 5), 1), ((2, 4, 3, 8), 2), ((3, 2, 5, 7), 3), ((4, 4, 8, 32), 8)]
-    for i, (lat, n) in enumerate(cases):
-        for kron in (True, False):
-            blocks, k, x = _operands(lat, n, kron, st, ft, 10 * i)
-            args = (blocks, k, x, OFFSETS, 3, 3)
+    kdt = torch.float64 if ft == torch.float64 else torch.float32
+    calls = 0
+    for i, ((ki, kd, bi, bd), kind) in enumerate(SCHEDULE_SHAPES):
+        for j, (lat, n) in enumerate(SCHEDULE_LATS):
+            blocks = crand((9, bi * bd) + lat, 100 * i + j, "cuda", st)
+            kron = None if kind is None else (
+                _spin_factors("wilson", 9, kdt) if kind == "wilson"
+                else crand((9, ki, kd), 7, "cuda", kdt))
+            x = crand((n, kd * bd) + lat, 100 * i + j + 50, "cuda", ft)
+            args = (blocks, kron, x, OFFSETS, bi, bd)
+            label = f"{schedule} {(ki, kd, bi, bd)} {kind} {lat} n={n}"
             got = wrapper(*args)
-            _close(got, S.stencil_matvec_soa_reference(*args), f"{schedule} {lat} n={n}")
-            rt = S.stencil_matvec_soa_rt(*args)
-            assert all(torch.equal(g, w) for g, w in zip(got, rt)), (schedule, lat, n)
-    assert wrapper.launches == before + 2 * len(cases)
+            calls += 1
+            want = S.stencil_matvec_soa_reference(*args)
+            assert got.re.dtype == ft and got.re.shape == want.re.shape, label
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            scale = max(float(w.double().abs().max()) for w in want)
+            assert err <= PLAN_TOL[ft] * scale, (label, err, scale)
+            k1 = S.stencil_matvec_soa(*args) if (ki, kd, bi, bd) in S.TILED_SHAPES \
+                else S.stencil_matvec_soa_rt(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, k1)), label
+            if schedule == "stream" and n > 1:
+                got = wrapper(*args, nc=1)
+                calls += 1
+                assert all(torch.equal(g, w) for g, w in zip(got, k1)), (label, "nc=1")
+    assert wrapper.launches == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float64, torch.float64)])
+def test_schedules_registers_and_blocks(cuda_device, st, ft):
+    """The schedules' kernels at 32^3x64 x 8 (cudaFuncGetAttributes and the
+    occupancy at their tiles' shared memory): at the f32-summed pairs no
+    spill, the X-inside kernel at 16 warps an SM or more (one block of 512
+    threads) and the X-streaming one at two blocks or more (four of 128
+    threads at 120 registers, three for the dense plan's 164); at f64 at
+    least one block an SM."""
+    lat = (32, 32, 32, 64)
+    for shape, sparse in (((4, 4, 3, 3), True), ((4, 4, 3, 3), False), ((1, 1, 3, 3), False),
+                          ((2, 2, 3, 3), False)):
+        for schedule in ("xin", "stream"):
+            regs, local, threads, blocks = S.schedule_attrs(schedule, shape, st, ft, 8, lat,
+                                                           sparse)
+            label = (schedule, shape, sparse, regs, local, threads, blocks)
+            if ft == torch.float64:
+                assert regs <= 255 and blocks >= 1, label
+            elif schedule == "xin":
+                assert local == 0 and threads * blocks >= 512, label
+            else:
+                assert local == 0 and blocks >= 2, label
 
 
 #: every (storage, field) pair of K1, and the relative tolerance against

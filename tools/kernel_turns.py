@@ -1,7 +1,9 @@
-"""Time the clover term's K1 and the permute kernel K2 of two or more
-checkouts of the port in turns, on one card.
+"""Time the clover term's K1, the permute kernel K2 and the stencil's
+X-inside and X-streaming schedules beside K1 of two or more checkouts of
+the port in turns, on one card.
 
     python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
+                                 [--only clover permute schedules]
 
 Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
 checkout) is run in a process of its own, which builds that tree's kernels
@@ -16,6 +18,13 @@ calls), ms:
   16x16x16x32;
 - ``permute_tzyx``, ``permute_tyzx``: ``permute_4d`` of a 128x64x64x128
   f32 tensor;
+- ``k1_wilson``, ``xin_wilson``, ``stream_wilson``: ``stencil_matvec_soa``
+  (its tiled route), ``stencil_matvec_soa_xin`` and
+  ``stencil_matvec_soa_stream`` at (4, 4, 3, 3) on 32x32x32x64 x 8 f32,
+  the 9 Wilson directions, blocks from a seeded card generator and the
+  Wilson operator's spin factors (the sparse spin plan); ``k1_staggered``,
+  ``xin_staggered``, ``stream_staggered``: the same at (1, 1, 3, 3) without
+  a kron;
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -37,7 +46,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def worker(reps: int, solve: bool) -> dict:
+def worker(reps: int, solve: bool, only) -> dict:
     import time
 
     import torch
@@ -67,15 +76,33 @@ def worker(reps: int, solve: bool) -> dict:
         return CArray(*(torch.randn(shape, generator=gen, device="cuda") for _ in range(2)))
 
     out = {}
-    for key, lat in (("clover_24", (24, 24, 24, 48)), ("clover_16", (16, 16, 16, 32))):
-        blocks, x = randn_c((1, 144) + lat), randn_c((8, 12) + lat)
-        out[key] = median_ms(lambda: stencil_matvec_soa(blocks, None, x, ((0, 0, 0, 0),),
-                                                        12, 12))
-        del blocks, x
-    x = torch.randn((128, 64, 64, 128), generator=gen, device="cuda")
-    for key, perm in (("permute_tzyx", (3, 2, 1, 0)), ("permute_tyzx", (3, 1, 2, 0))):
-        out[key] = median_ms(lambda: permute_4d(x, perm))
-    del x
+    if "clover" in only:
+        for key, lat in (("clover_24", (24, 24, 24, 48)), ("clover_16", (16, 16, 16, 32))):
+            blocks, x = randn_c((1, 144) + lat), randn_c((8, 12) + lat)
+            out[key] = median_ms(lambda: stencil_matvec_soa(blocks, None, x,
+                                                            ((0, 0, 0, 0),), 12, 12))
+            del blocks, x
+    if "permute" in only:
+        x = torch.randn((128, 64, 64, 128), generator=gen, device="cuda")
+        for key, perm in (("permute_tzyx", (3, 2, 1, 0)), ("permute_tyzx", (3, 1, 2, 0))):
+            out[key] = median_ms(lambda: permute_4d(x, perm))
+        del x
+    if "schedules" in only:
+        from superbblas_tpu_torch.models.wilson import wilson_offsets, wilson_operator
+        from superbblas_tpu_torch.ops.stencil import (stencil_matvec_soa_stream,
+                                                      stencil_matvec_soa_xin)
+
+        lat, offsets = (32, 32, 32, 64), wilson_offsets(4)
+        kron = wilson_operator((2, 2, 2, 2), layout="soa", device="cuda").kron
+        blocks = randn_c((9, 9) + lat)
+        for label, k, F in (("wilson", kron, 12), ("staggered", None, 3)):
+            x = randn_c((8, F) + lat)
+            for name, fn in (("k1", stencil_matvec_soa), ("xin", stencil_matvec_soa_xin),
+                             ("stream", stencil_matvec_soa_stream)):
+                out[f"{name}_{label}"] = median_ms(
+                    lambda: fn(blocks, k, x, offsets, 3, 3))
+            del x
+        del blocks
     if solve:
         lat = (24, 24, 24, 48)
         op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
@@ -107,10 +134,12 @@ def main():
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--reps", type=int, default=15)
     parser.add_argument("--no-solve", action="store_true")
+    parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
+                        choices=["clover", "permute", "schedules"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.reps, not args.no_solve)), flush=True)
+        print(json.dumps(worker(args.reps, not args.no_solve, args.only)), flush=True)
         return
     trees = [str(Path(t).resolve()) for t in args.trees]
     order = []
@@ -119,7 +148,8 @@ def main():
     runs = {t: [] for t in trees}
     for tree in order:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--reps",
-               str(args.reps)] + (["--no-solve"] if args.no_solve else [])
+               str(args.reps), "--only", *args.only] + (["--no-solve"] if args.no_solve
+                                                          else [])
         env = dict(os.environ, PYTHONPATH=tree)
         res = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True)
         if res.returncode != 0:

@@ -1,6 +1,8 @@
 #!/usr/bin/env python
-"""Design variants of K2's 16-byte route (``csrc/permute.cu``) and of K1's
-block-streaming kernel (``csrc/stencil_site.cu``), on one NVIDIA GPU.
+"""Design variants of K2's 16-byte route (``csrc/permute.cu``), of K1's
+block-streaming kernel (``csrc/stencil_site.cu``) and of the stencil's
+X-inside and X-streaming schedules (``csrc/stencil_schedules.cu``), on one
+NVIDIA GPU.
 
     python tools/kernel_variants.py [--variants NAME ...] [--reps 15]
 
@@ -8,14 +10,18 @@ Builds each variant of ``VARIANTS`` (its source with design macros set by
 -D) into ``_build/kernel_variants/``, all nvcc processes started together;
 holds each bit for bit against the package's build (K2: against
 ``x.permute(perm).contiguous()`` on ragged, strided and the timed shapes;
-K1: against the runtime-shape route on ragged lattices, full and packed);
-then times the package's build and the variants of a kernel in turns with
-CUDA events (medians of ``--reps``), each through its C entry with the same
-arguments:
+K1: against the runtime-shape route on ragged lattices, full and packed;
+the schedules: against K1's tiled route on ragged lattices); then times
+the package's build and the variants of a kernel in turns with CUDA events
+(medians of ``--reps``), each through its C entry with the same arguments:
 
 - K2 at 128x64x64x128 f32, perm (3,2,1,0) and (3,1,2,0);
 - K1 at (1,1,12,12), one centre direction, f32, 8 columns, on 24^3x48 and
-  16^3x32.
+  16^3x32;
+- the schedules at 32^3x64 x 8 f32, Wilson (4,4,3,3) with the Wilson spin
+  factors (sparse plan) and staggered (1,1,3,3), beside K1's tiled route
+  at its C entry, each build with its picker's tile and with the tiles
+  of ``SCHED_TILES``.
 
 Prints each build's registers, local bytes, threads and resident blocks an
 SM, the card's name and power limit, and as its last line one JSON object
@@ -44,7 +50,9 @@ from superbblas_tpu_torch.ops.permute import SUPPORTED, permute_4d_reference  # 
 
 #: name -> (source, -D macros); the package's own design is the default of
 #: each macro (K2: 64 X rows x 128 T words a tile, 3 stages, 256 threads;
-#: K1: 2 stages, 4 column groups, 3 blocks an SM)
+#: K1: 2 stages, 4 column groups, 3 blocks an SM; the schedules: a tile's
+#: sites on adjacent lanes, K4a in blocks of 512 threads walking two column
+#: groups, K4b's links prefetched, no unroll)
 VARIANTS = {
     "k2_64x64_s3": ("permute.cu", {"SBT_K2_ET": 64}),
     "k2_64x64_s4": ("permute.cu", {"SBT_K2_ET": 64, "SBT_K2_STAGES": 4}),
@@ -56,7 +64,21 @@ VARIANTS = {
     "site_s3": ("stencil_site.cu", {"SBT_SITE_STAGES": 3, "SBT_SITE_MIN_BLOCKS": 2}),
     "site_s4_g2": ("stencil_site.cu", {"SBT_SITE_STAGES": 4, "SBT_SITE_GROUPS": 2,
                                        "SBT_SITE_MIN_BLOCKS": 2}),
+    "sched_unroll2": ("stencil_schedules.cu", {"SBT_SCHED_UNROLL": 2}),
+    "sched_cols_fastest": ("stencil_schedules.cu", {"SBT_SCHED_COLS_FASTEST": 1}),
+    "sched_stream_pf0": ("stencil_schedules.cu", {"SBT_STREAM_PREFETCH": 0}),
+    "sched_xin_t256": ("stencil_schedules.cu", {"SBT_XIN_THREADS": 256}),
+    "sched_xin_groups_all": ("stencil_schedules.cu", {"SBT_XIN_GROUPS": 0}),
+    "sched_xin_groups4": ("stencil_schedules.cu", {"SBT_XIN_GROUPS": 4}),
+    "sched_stream_t256": ("stencil_schedules.cu", {"SBT_STREAM_THREADS": 256}),
 }
+#: tiles of the schedules timed on the package's build beside its
+#: pickers': (schedule, label) -> (S, C) of X-inside, (S, R, C) of
+#: X-streaming
+SCHED_TILES = {("xin", "S16_C1"): (16, 1), ("xin", "S16_C2"): (16, 2), ("xin", "S8_C4"): (8, 4),
+               ("stream", "S32_R2_C2"): (32, 2, 2), ("stream", "S32_R1_C8"): (32, 1, 8),
+               ("stream", "S32_R2_C4"): (32, 2, 4)}
+SCHED_LAT = (32, 32, 32, 64)
 K2_SHAPE = (128, 64, 64, 128)
 CLOVER_LATS = ((24, 24, 24, 48), (16, 16, 16, 32))
 OUT = ROOT / "superbblas_tpu_torch" / "_build" / "kernel_variants"
@@ -92,6 +114,10 @@ def declare(lib) -> None:
     if hasattr(lib, "sbt_stencil_site"):
         lib.sbt_stencil_site.argtypes = [i] * 5 + [p] * 8 + [i] * 6 + [p, i, i, p]
         lib.sbt_stencil_site_attrs.argtypes = [i, i, i, p]
+    if hasattr(lib, "sbt_stencil_soa_xin"):
+        lib.sbt_stencil_soa_xin.argtypes = [i] * 5 + [p] * 9 + [i] * 6 + [p] + [i] * 5 + [p]
+        lib.sbt_stencil_soa_stream.argtypes = [i] * 5 + [p] * 9 + [i] * 6 + [p] + [i] * 6 + [p]
+        lib.sbt_stencil_schedule_attrs.argtypes = [i] * 13 + [p]
 
 
 def k2_call(lib, x, perm):
@@ -127,6 +153,80 @@ def site_call(lib, blocks, x, offsets, parity=-1):
     return run
 
 
+def sched_tile(schedule, x, tile=None):
+    """The tile arguments and the copy form of a schedule's launch on x:
+    its picker's tile, or ``tile`` with its rows padded as the picker pads
+    them."""
+    n, F, X, Y, Z, T = x.re.shape
+    elem = x.re.element_size()
+    vec = 16 // elem
+    if schedule == "xin":
+        S_, C = tile or S.xin_tile(n, X, F, elem)[:2]
+        args = (S_, C, S._row_stride(S_, elem))
+        wide = S_ * elem % 16 == 0 and Y * Z * T * elem % 16 == 0
+    else:
+        S_, R, C = tile or S.stream_tile(n, Y * Z, T, F, elem)[:3]
+        args = (S_, R, C, S._row_stride(S_ + vec, elem))
+        wide = T % vec == 0 and S_ % vec == 0
+    return args, int(wide)
+
+
+def sched_call(lib, schedule, blocks, kron, x, offsets, tile=None):
+    """A call of the schedule's C entry of ``lib`` on the operands (f32, the
+    spin plan of ``kron`` at (4,4,3,3), no kron at (1,1,3,3))."""
+    n, lat = x.re.shape[0], tuple(x.re.shape[2:])
+    ki = 1 if kron is None else 4
+    y = CArray(torch.empty((n, 3 * ki) + lat, device=x.re.device),
+               torch.empty((n, 3 * ki) + lat, device=x.re.device))
+    flat = [v for off in offsets for v in off]
+    offs = (ctypes.c_int * len(flat))(*flat)
+    plan = None if kron is None else S.spin_plan(kron, torch.float32)
+    targs, wide = sched_tile(schedule, x, tile)
+    fn = getattr(lib, f"sbt_stencil_soa_{schedule}")
+
+    def run():
+        err = fn(ki, ki, 3, 3, 0, blocks.re.data_ptr(), blocks.im.data_ptr(),
+                 None if plan is None else plan.table.data_ptr(), None, None,
+                 x.re.data_ptr(), x.im.data_ptr(), y.re.data_ptr(), y.im.data_ptr(), n, *lat,
+                 len(offsets), offs, int(plan is not None and plan.sparse), *targs, wide,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sbt_stencil_soa_{schedule}: cudaError {err}")
+        return y
+    return run
+
+
+def tiled_call(blocks, kron, x, offsets):
+    """A call of K1's tiled route at its C entry (the package's build)."""
+    n, lat = x.re.shape[0], tuple(x.re.shape[2:])
+    ki = 1 if kron is None else 4
+    y = CArray(torch.empty((n, 3 * ki) + lat, device=x.re.device),
+               torch.empty((n, 3 * ki) + lat, device=x.re.device))
+    flat = [v for off in offsets for v in off]
+    offs = (ctypes.c_int * len(flat))(*flat)
+    plan = None if kron is None else S.spin_plan(kron, torch.float32)
+    yc = S.x_chunk(*lat[1:], S.tiled_site_bytes(blocks, x, ki, 3))
+    lib = _cuda.library()
+
+    def run():
+        err = lib.sbt_stencil_tiled(ki, ki, 3, 3, 0, blocks.re.data_ptr(), blocks.im.data_ptr(),
+                                    None if plan is None else plan.table.data_ptr(),
+                                    x.re.data_ptr(), x.im.data_ptr(), y.re.data_ptr(),
+                                    y.im.data_ptr(), n, *lat, len(offsets), offs, -1,
+                                    int(plan is not None and plan.sparse), yc,
+                                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sbt_stencil_tiled: cudaError {err}")
+        return y
+    return run
+
+
+def wilson_kron():
+    from superbblas_tpu_torch.models.wilson import wilson_operator
+
+    return wilson_operator((2, 2, 2, 2), layout="soa", device="cuda").kron
+
+
 def randn_c(shape, gen):
     return CArray(*(torch.randn(shape, generator=gen, device="cuda") for _ in range(2)))
 
@@ -146,6 +246,19 @@ def check(name, lib, gen) -> None:
         return
     wilson = [(0, 0, 0, 0)] + [tuple(s if a == ax else 0 for a in range(4))
                                for ax in range(4) for s in (1, -1)]
+    if VARIANTS[name][0] == "stencil_schedules.cu":
+        for lat, n in (((3, 5, 6, 8), 8), ((2, 4, 3, 16), 3), ((32, 2, 2, 8), 8)):
+            blocks = randn_c((9, 9) + lat, gen)
+            for kron, F in ((wilson_kron(), 12), (None, 3)):
+                x = randn_c((n, F) + lat, gen)
+                want = S.stencil_matvec_soa(blocks, kron, x, wilson, 3, 3)
+                for schedule in ("xin", "stream"):
+                    got = sched_call(lib, schedule, blocks, kron, x, wilson)()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"{name} {schedule}: {lat} n={n} F={F} differs "
+                                             "from K1's tiled route")
+        return
     for lat, n, offs, parity in (((3, 5, 6, 10), 8, wilson, -1),
                                  ((3, 3, 3, 5), 9, wilson[:1], -1),
                                  ((2, 4, 4, 8), 8, wilson[:1], -1),
@@ -157,6 +270,11 @@ def check(name, lib, gen) -> None:
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{name}: {lat} n={n} differs from the runtime-shape route")
+
+
+def wilson_offsets():
+    return [(0, 0, 0, 0)] + [tuple(s if a == ax else 0 for a in range(4))
+                             for ax in range(4) for s in (1, -1)]
 
 
 def time_turns(fns, reps):
@@ -177,8 +295,17 @@ def time_turns(fns, reps):
 
 def attrs(lib, family) -> list:
     out = (ctypes.c_int * 4)()
-    err = (lib.sbt_permute_4d_vec_attrs(out) if family == "k2"
-           else lib.sbt_stencil_site_attrs(0, 1, 8, out))
+    if family in ("xin", "stream"):
+        x = CArray(*(torch.empty((8, 12) + SCHED_LAT, device="meta") for _ in range(2)))
+        targs, _ = sched_tile(family, x)
+        S_, C, rs = (targs[0], targs[1], targs[2]) if family == "xin" else (
+            targs[0], targs[2], targs[3])
+        R = 1 if family == "xin" else targs[1]
+        err = lib.sbt_stencil_schedule_attrs(int(family == "stream"), 4, 4, 3, 3, 0, 1, 8,
+                                             SCHED_LAT[0], S_, R, C, rs, out)
+    else:
+        err = (lib.sbt_permute_4d_vec_attrs(out) if family == "k2"
+               else lib.sbt_stencil_site_attrs(0, 1, 8, out))
     if err:
         raise RuntimeError(f"attributes: cudaError {err}")
     return list(out)
@@ -201,8 +328,33 @@ def main():
         check(name, libs[name], gen)
     print(f"{len(args.variants)} variants equal to the reference bit for bit", flush=True)
     result = {"card": smi, "attrs": {}, "ms": {}}
+    sched = ["package"] + [n for n in args.variants
+                           if VARIANTS[n][0] == "stencil_schedules.cu"]
+    for n in sched:
+        for family in ("xin", "stream"):
+            result["attrs"][f"{family} {n}"] = attrs(libs[n], family)
+            print(f"{family} {n}: registers, local bytes, threads, blocks an SM "
+                  f"{result['attrs'][f'{family} {n}']}", flush=True)
+    blocks = randn_c((9, 9) + SCHED_LAT, gen)
+    for label, kron, F in (("wilson", wilson_kron(), 12), ("staggered", None, 3)):
+        x = randn_c((8, F) + SCHED_LAT, gen)
+        fns = {"k1 tiled": tiled_call(blocks, kron, x, wilson_offsets())}
+        for n in sched:
+            for schedule in ("xin", "stream"):
+                fns[f"{schedule} {n}"] = sched_call(libs[n], schedule, blocks, kron, x,
+                                                    wilson_offsets())
+            for (schedule, tl), tile in SCHED_TILES.items():
+                fns[f"{schedule} {n} {tl}"] = sched_call(libs[n], schedule, blocks, kron, x,
+                                                         wilson_offsets(), tile)
+        key = f"schedules {label} {SCHED_LAT} n=8"
+        result["ms"][key] = time_turns(fns, args.reps)
+        print(key, json.dumps(result["ms"][key]), flush=True)
+        del x
+    del blocks
     for family, src in (("k2", "permute.cu"), ("site", "stencil_site.cu")):
         names = ["package"] + [n for n in args.variants if VARIANTS[n][0] == src]
+        if len(names) == 1 and len(args.variants) and set(args.variants) <= set(sched):
+            continue
         for n in names:
             result["attrs"][f"{family} {n}"] = attrs(libs[n], family)
             print(f"{family} {n}: registers, local bytes, threads, blocks an SM "
