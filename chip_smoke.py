@@ -105,12 +105,14 @@ and a float64 product.
 
 K1-shape path: K1 at the clover term's (1,1,12,12) (the block-streaming
 kernel, both forms) and on its runtime-shape route at (2,2,3,3),
-(1,1,2,2) and (2,1,4,2), each against the plain version on full and
-packed parity (three dtype pairs), the runtime route against the tiled
-one bit for bit at (4,4,3,3) and (1,1,3,3) and against the
-block-streaming one at (1,1,12,12) (odd and 16-byte volumes, 1 and 9
-columns); then each shape driven once at 16^3x32 x 8 and timed beside
-its bound, the clover term also beside ``torch.einsum`` on complex64.
+(1,1,2,2), (2,1,4,2), (2,2,8,8) and (1,1,16,16), each against the plain
+version on full and packed parity (three dtype pairs), the runtime route
+against the tiled one bit for bit at (4,4,3,3) and (1,1,3,3) and against
+the block-streaming one at (1,1,12,12) (odd and 16-byte volumes, 1 and 9
+columns) and at 65536 columns once; then each shape driven once at
+16^3x32 x 8 and timed beside its bound, the clover term also beside
+``torch.einsum`` on complex64.  The kernels line gives each runtime
+shape's registers, blocks an SM and tile.
 Families' AoS check: every family's AoS apply (twisted mass, staggered
 and the clover term on K3, Shamir and Moebius on E1) against its SoA
 apply at 4x4x8x8, Ls 4.  Default-call check (fault P3): the
@@ -138,9 +140,10 @@ against the plain version on the card; K1 timed at both pairs.
 E2 and E3: the bf16 roll-plus-add in both variants (f32 bit-exact, bf16x2
 within one bf16 ulp, elements that differ counted) at [256, 32, 256] and
 [4096, 32, 256], timed beside the plain version, torch.roll + add and
-the bytes bound; the transpose tile sweep at each tile, exact against
-``x.permute(3,2,1,0).contiguous()`` at 64^4 f32 and timed beside it and
-K2.
+the bytes bound; the transpose tile sweep at each design point (the
+16-byte ring family with K2's own point, and the TMA point), exact
+against ``x.permute(3,2,1,0).contiguous()`` at 64^4 f32 and timed in turns
+beside it and K2.
 
 ``--profile`` adds one warm solve, one warm even-odd solve, one warm
 dense path, one warm coarse CG, one warm MG-FGCR solve and one warm
@@ -575,6 +578,10 @@ def kernel_attrs() -> dict:
     if lib.sbt_permute_4d_vec_attrs(got) != 0:
         raise AssertionError("permute kernel attributes failed")
     out["K2 vec16"] = list(got)
+    for shape in K1_RT_SHAPES:
+        for st, ft in stencil_ops.KERNEL_DTYPES:
+            out[f"K1 runtime {','.join(map(str, shape))} {str(st)[6:]}/{str(ft)[6:]}"] = \
+                stencil_ops.rt_attrs(shape, st, ft, K1_TIME_COLS, 9)
     return out
 
 
@@ -1523,10 +1530,13 @@ UNSQUARED_TOL = 1e-3
 #: gamma5 = diag(1, 1, -1, -1) in the chiral basis, over the 12 SoA
 #: features (spin-major, colour repeated)
 G5_SIGNS = (1.0,) * 6 + (-1.0,) * 6
-#: K1's runtime-shape route at the JAX package's test shapes and an
-#: asymmetric one; the clover term's shape; the lattice and
-#: columns they are timed at
-K1_RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2))
+#: K1's runtime-shape route's shapes: the JAX package's test shapes, an
+#: asymmetric one, a chirally split (2,2,8,8) and a 16-vector (1,1,16,16)
+#: coarse stencil; the clover term's shape; the lattice and columns they
+#: are timed at
+K1_RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2), (2, 2, 8, 8), (1, 1, 16, 16))
+#: the runtime-shape route's column case: past the 65535 of a grid's z axis
+RT_COLS_CASE = ((2, 2, 2, 2), (1, 1, 2, 2), 65536)
 CLOVER_SHAPE = (1, 1, 12, 12)
 #: K1's key for its checks at the Moebius column count
 MOEBIUS_SHAPE = "moebius columns"
@@ -1648,6 +1658,7 @@ def k1_shape_path(gen):
     ``stencil_matvec_soa`` at K1_TIME_LAT x K1_TIME_COLS (the counts set to
     0 just before and read just after), checked there and timed in turns
     with the plain version (the clover term also with ``torch.einsum``).
+    The runtime-shape route also runs RT_COLS_CASE's 65536 columns once.
     Returns {shape: (launches, max error, ms, bound)} and the max error at
     the Moebius column count."""
     err = {}
@@ -1696,6 +1707,11 @@ def k1_shape_path(gen):
     forms = +forms
     if forms != collections.Counter({"site16": 2, "site": 2}):
         raise AssertionError(f"block-streaming kernel forms {dict(forms)}")
+    lat, shape, ncols = RT_COLS_CASE
+    blocks, kron, x = shape_operands(shape, lat, ncols, 9, gen)
+    err["columns"] = compare(blocks, kron, x, WILSON_OFFSETS, f"K1 runtime {shape} {lat} "
+                             f"n={ncols}", fn=stencil_matvec_soa_rt, bi=shape[2], bd=shape[3])
+    del blocks, kron, x
     print("check K1 runtime-shape route at (4,4,3,3) and (1,1,3,3), full and packed: equal "
           "to the tiled route bit for bit; at (1,1,12,12) equal to the block-streaming "
           f"kernel bit for bit, forms {dict(forms)}", flush=True)
@@ -1722,7 +1738,8 @@ def k1_shape_path(gen):
         ms, bd_ = time_stencil(blocks, kron, x, offsets[shape], shape[2], shape[3], 7,
                                f"K1 {shape} {K1_TIME_LAT} n={K1_TIME_COLS}",
                                clover_einsum(blocks, x) if shape == CLOVER_SHAPE else None)
-        out[shape] = 1, max(err[shape], e), ms, bd_
+        out[shape] = 1, max(err[shape], e if shape == CLOVER_SHAPE else max(e, err["columns"])), \
+            ms, bd_
     return out, err[MOEBIUS_SHAPE]
 
 
@@ -2160,11 +2177,12 @@ def e2_path(gen):
 
 def e3_path(gen):
     """E3, the transpose tile sweep, at E3_SHAPE f32 perm (3,2,1,0): each
-    tile once with the counts set to 0 just before and read just after,
-    each exact against ``x.permute(3,2,1,0).contiguous()``; then each
-    timed in turns with that call and K2, beside the bytes bound.
-    Returns {tile: (launches, max abs error, ms)}, the call's ms and the
-    bound."""
+    design point of TILES (the 16-byte ring family, K2's own point among
+    them, and the TMA point) once with the counts set to 0 just before and
+    read just after, each exact against ``x.permute(3,2,1,0).contiguous()``;
+    then each timed in turns with that call and K2, beside the bytes bound.
+    Returns {point: (launches, max abs error, ms)}, K2's and the call's ms
+    and the bound."""
     x = torch.randn(E3_SHAPE, generator=gen, device="cuda")
     perm = PERMS["tzyx"]
     want = permute_4d_reference(x, perm)
@@ -2174,8 +2192,9 @@ def e3_path(gen):
     launches = read_counts()["permute_4d_tiled"]
     if launches != len(TILES):
         raise AssertionError(f"E3 path launches {launches}, expected {len(TILES)}")
-    err = {tile: exact(y, want, f"E3 tile {tile}") for tile, y in got.items()}
-    print(f"check E3 {E3_SHAPE} f32 tzyx: every tile {TILES} bit-exact", flush=True)
+    err = {tile: exact(y, want, f"E3 point {tile}") for tile, y in got.items()}
+    print(f"check E3 {E3_SHAPE} f32 tzyx: every design point {TILES} bit-exact (TMA: "
+          f"{[t for t in TILES if t[0] == 'tma']})", flush=True)
     del got, want
     fns = {tile: (lambda tile=tile: permute_4d_tiled(x, perm, tile)) for tile in TILES}
     fns.update(k2=lambda: permute_4d(x, perm), call=lambda: permute_4d_reference(x, perm))
@@ -2185,7 +2204,11 @@ def e3_path(gen):
     print(f"time E3 {E3_SHAPE} f32 tzyx (medians of 15 in turns): "
           + ", ".join(f"{k} {t:.4f} ms ({nbytes / t / 1e6:.1f} GB/s)" for k, t in ms.items())
           + f"; bound {bd_[0]:.4f} ms ({bd_[1]})", flush=True)
-    return {tile: (1, err[tile], ms[tile]) for tile in TILES}, ms["call"], bd_
+    dev = {k: graph_ms(fn) for k, fn in fns.items()}
+    print(f"time E3 {E3_SHAPE} f32 tzyx device-only ({GRAPH_CALLS} calls a CUDA graph): "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in dev.items()), flush=True)
+    return ({tile: (1, err[tile], ms[tile], dev[tile]) for tile in TILES},
+            (ms["k2"], dev["k2"]), ms["call"], bd_)
 
 
 def main():
@@ -2268,7 +2291,7 @@ def main():
         raise AssertionError("the dense path launched no permute kernel")
     p_ms, (p_bound_ms, p_bound_by), p_route = time_permute(gen)
     e2 = e2_path(gen)
-    e3, e3_call_ms, e3_bound = e3_path(gen)
+    e3, e3_k2_ms, e3_call_ms, e3_bound = e3_path(gen)
 
     print(f"chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)
@@ -2277,7 +2300,13 @@ def main():
     stencil = {"route": "cuda", "library_ms": None,
                "replaces": "superbblas_tpu/ops/stencil_pallas.py:368"}
     tiled_src = {"source": "superbblas_tpu_torch/csrc/stencil_tiled.cu"}
-    soa_src = {"source": "superbblas_tpu_torch/csrc/stencil_soa.cu"}
+    def rt_src(shape):
+        """the runtime-shape route's source, its registers and blocks an SM
+        at f32 and its tile (S, C, R, G, D, stages) at the timed shape"""
+        regs, _, _, per_sm = attrs[f"K1 runtime {','.join(map(str, shape))} float32/float32"]
+        return {"source": "superbblas_tpu_torch/csrc/stencil_rt.cu", "registers": regs,
+                "blocks_per_sm": per_sm,
+                "tile": stencil_ops.rt_tile(*shape, K1_TIME_COLS, 9, 4, 4)}
     # the clover term: the block-streaming kernel, its launches in the solve
     # by form, and torch.einsum beside it
     site_src = {"source": "superbblas_tpu_torch/csrc/stencil_site.cu",
@@ -2311,7 +2340,7 @@ def main():
             ("stencil_matvec_soa[4,4,3,3 Moebius, 64 columns]", tiled_src, "moebius",
              moebius),
             ("stencil_matvec_soa[1,1,3,3 staggered]", tiled_src, "staggered", staggered[:4]),
-            *((f"stencil_matvec_soa_rt[{','.join(map(str, shape))}]", soa_src, None,
+            *((f"stencil_matvec_soa_rt[{','.join(map(str, shape))}]", rt_src(shape), None,
                k1_shapes[shape]) for shape in K1_RT_SHAPES))] + [{
         "name": fn.__name__, **stencil,
         "source": "superbblas_tpu_torch/csrc/stencil_schedules.cu",
@@ -2354,10 +2383,11 @@ def main():
         "library_ms": None} for v in VARIANTS] + [{
         "name": f"permute_4d_tiled[{','.join(map(str, tile))}]", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/permute.cu",
-        "replaces": "experiments/permute_pallas.py:45",
+        "replaces": "experiments/permute_pallas.py:45", "form": tile[0],
         "launches": e3[tile][0], "max_abs_err": e3[tile][1], "ms": e3[tile][2],
         "plain_ms": e3_call_ms, "bound_ms": e3_bound[0], "bound_by": e3_bound[1],
-        "library_ms": e3_call_ms} for tile in TILES]}))
+        "library_ms": e3_call_ms, "device_ms": e3[tile][3], "k2_ms": e3_k2_ms[0],
+        "k2_device_ms": e3_k2_ms[1]} for tile in TILES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

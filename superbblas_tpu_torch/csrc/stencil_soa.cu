@@ -1,28 +1,23 @@
 // SoA nearest-neighbour Kron-BSR stencil matvec for Hopper (sm_90a), K1,
-// at the clover term's shape in f64 and on the runtime-shape route.
+// at the clover term's shape in f64.
 //
 // Replaces the Pallas TPU kernel superbblas_tpu/ops/stencil_pallas.py
-// stencil_matvec_soa (_kernel, _matvec_body) at every shape but the
-// Wilson and staggered ones, which run the tiled kernel with the spin
-// plan (stencil_tiled.cu), and the clover term's at the f32-summed pairs,
-// which runs the block-streaming kernel (stencil_site.cu).  It computes the sum of stencil_soa.cuh over a
-// periodic 4-D lattice, in split complex:
+// stencil_matvec_soa (_kernel, _matvec_body) at (1, 1, 12, 12) for the
+// f64/f64 pair.  The Wilson and staggered shapes run the tiled kernel with
+// the spin plan (stencil_tiled.cu), the clover term's at the f32-summed
+// pairs the block-streaming kernel (stencil_site.cu), every other shape
+// the runtime-shape route (stencil_rt.cu).  It computes the sum of
+// stencil_soa.cuh over a periodic 4-D lattice, in split complex:
 //   x       [n, KD*BD, X, Y, Z, T]   field dtype FT
 //   blocks  [ndir, BI*BD, X, Y, Z, T] storage dtype ST
 //   kron    [ndir, KI, KD]           acc_t<ST, FT>, runtime values
 //                                    (nullptr: K_d = 1)
 //   y       [n, KI*BI, X, Y, Z, T]   field dtype; sums in acc_t<ST, FT>.
-// (ST, FT) is one of five pairs (stencil_soa.cuh kPair): f32/f32,
-// bf16/f32, bf16/bf16 and f32/bf16 (the TPU kernel's pairs, summed in
-// f32, bf16 converted on load and rounded on store), and f64/f64, summed
-// in f64 (the port's own: the JAX package computes an f64 SoA operator
-// through its reference).  The f64 route is there to be right, not fast.
-//
-// Two routes: the templated kernel, with the sums unrolled for
-// (1, 1, 12, 12) (the clover term: 12 inputs, 12 outputs, 144 block loads
-// a site), instantiated for the f64/f64 pair only, and the runtime-shape
-// kernel stencil_soa_rt_kernel for every shape other than the three of
-// the other kernels with KI*KD*BI*BD <= 256.
+// The kernel is templated over the type pair; it is instantiated for
+// f64/f64, summed in f64 (the port's own: the JAX package computes an f64
+// SoA operator through its reference), which is there to be right, not
+// fast.  Its sums are site_matvec's, so it gives the runtime-shape
+// route's bits.
 //
 // Packed parity.  With packed_parity p in {0, 1} the operands hold one
 // checkerboard parity with X halved (site (x, y, z, t) at xh = x / 2), and
@@ -122,77 +117,6 @@ struct LaunchK1 {
     }
 };
 
-// The runtime-shape route: any (KI, KD, BI, BD) with KI*KD*BI*BD <= 256.
-// One thread per (site, column, output feature o = a*BI + i), looping over
-// d, j and b at run time: y[., o, s] = sum_d sum_j B_d[i, j](s) *
-// sum_b K_d[a, b] x[., b*BD + j, s + o_d] (rt_direction, stencil_soa.cuh,
-// which the schedules share).  The products and sums are the
-// fma_a of site_matvec in its order, so at a templated shape this route
-// gives the templated route's bits, and the tiled kernel's wherever no
-// direction of the spin plan factors.  Row a of every K_d sits in shared
-// memory; x and the blocks are read from device memory, their reuse
-// across the outputs of a site left to L1/L2.
-template <typename ST, typename FT>
-__global__ void __launch_bounds__(256) stencil_soa_rt_kernel(
-    const ST* __restrict__ b_re, const ST* __restrict__ b_im,
-    const acc_t<ST, FT>* __restrict__ k_re, const acc_t<ST, FT>* __restrict__ k_im,
-    const FT* __restrict__ x_re, const FT* __restrict__ x_im,
-    FT* __restrict__ y_re, FT* __restrict__ y_im, int KI, int KD, int BI, int BD,
-    int X, int Y, int Z, int T, const __grid_constant__ Dirs dirs) {
-    using A = acc_t<ST, FT>;
-    const int o = blockIdx.y;   // output feature a*BI + i
-    const int a = o / BI, i = o - a * BI;
-    const int col = blockIdx.z;
-
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    A* skron = reinterpret_cast<A*>(smem_raw);   // [2, ndir, KD]: row a of each K_d
-    const int nk = dirs.ndir * KD;
-    for (int t = threadIdx.x; t < nk; t += blockDim.x) {
-        const int d = t / KD, b = t - d * KD;
-        skron[t] = k_re ? k_re[(d * KI + a) * KD + b] : A(1);
-        skron[nk + t] = k_im ? k_im[(d * KI + a) * KD + b] : A(0);
-    }
-    __syncthreads();
-
-    const int64_t V = (int64_t)X * Y * Z * T;
-    const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= V) return;
-    const int ct = (int)(s % T);
-    const int cz = (int)((s / T) % Z);
-    const int cy = (int)((s / ((int64_t)T * Z)) % Y);
-    const int cx = (int)(s / ((int64_t)T * Z * Y));
-    const int F = KD * BD;
-    const FT* xr = x_re + (int64_t)col * F * V;
-    const FT* xi = x_im + (int64_t)col * F * V;
-
-    A ar = A(0), ai = A(0);
-    for (int d = 0; d < dirs.ndir; ++d) {
-        const int64_t nb = neighbour(dirs, d, s, cx, cy, cz, ct, X, Y, Z, T);
-        const int64_t boff = ((int64_t)d * BI * BD + (int64_t)i * BD) * V + s;
-        rt_direction<false>(skron + d * KD, skron + nk + d * KD, KD, BD, xr + nb, xi + nb, V,
-                            b_re + boff, b_im + boff, V, ar, ai);
-    }
-    const int64_t out = ((int64_t)col * KI * BI + o) * V + s;
-    store_f(y_re + out, ar);
-    store_f(y_im + out, ai);
-}
-
-template <typename ST, typename FT>
-cudaError_t launch_rt(const Operands& a, const Dirs& dirs, int KI, int KD, int BI, int BD,
-                      cudaStream_t stream) {
-    const int64_t V = (int64_t)a.X * a.Y * a.Z * a.T;
-    const dim3 grid((unsigned)((V + 255) / 256), (unsigned)(KI * BI), (unsigned)a.n);
-    using A = acc_t<ST, FT>;
-    const size_t smem = 2 * sizeof(A) * dirs.ndir * KD;
-    stencil_soa_rt_kernel<ST, FT><<<grid, 256, smem, stream>>>(
-        static_cast<const ST*>(a.b_re), static_cast<const ST*>(a.b_im),
-        static_cast<const A*>(a.k_re), static_cast<const A*>(a.k_im),
-        static_cast<const FT*>(a.x_re), static_cast<const FT*>(a.x_im),
-        static_cast<FT*>(a.y_re), static_cast<FT*>(a.y_im), KI, KD, BI, BD, a.X, a.Y, a.Z,
-        a.T, dirs);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -216,32 +140,6 @@ int sbt_stencil_soa(int ki, int kd, int bi, int bd, int pair,
     if (ki == 1 && kd == 1 && bi == 12 && bd == 12 && pair == kF64F64)
         return LaunchK1<1, 1, 12, 12, double, double>::run(a, dirs, st);
     return cudaErrorInvalidValue;
-}
-
-// The runtime-shape route: any shape with ki*kd*bi*bd <= 256, n <= 65535.
-int sbt_stencil_soa_rt(int ki, int kd, int bi, int bd, int pair,
-                       const void* b_re, const void* b_im,
-                       const void* k_re, const void* k_im, const void* x_re,
-                       const void* x_im, void* y_re, void* y_im, int n, int X,
-                       int Y, int Z, int T, int ndir, const int* offsets,
-                       int packed_parity, void* stream) {
-    if (ki < 1 || kd < 1 || bi < 1 || bd < 1 || ki * kd * bi * bd > 256 || n < 1 ||
-        n > 65535)
-        return cudaErrorInvalidValue;
-    Dirs dirs{};
-    const cudaError_t err = parse_dirs(ndir, offsets, packed_parity, &dirs);
-    if (err != cudaSuccess) return err;
-    const Operands a{b_re, b_im, k_re, k_im, x_re, x_im, y_re, y_im, n, X, Y, Z, T};
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (pair) {
-        case kF32F32: return launch_rt<float, float>(a, dirs, ki, kd, bi, bd, st);
-        case kBf16F32: return launch_rt<__nv_bfloat16, float>(a, dirs, ki, kd, bi, bd, st);
-        case kBf16Bf16:
-            return launch_rt<__nv_bfloat16, __nv_bfloat16>(a, dirs, ki, kd, bi, bd, st);
-        case kF32Bf16: return launch_rt<float, __nv_bfloat16>(a, dirs, ki, kd, bi, bd, st);
-        case kF64F64: return launch_rt<double, double>(a, dirs, ki, kd, bi, bd, st);
-        default: return cudaErrorInvalidValue;
-    }
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // Shared per-site math of the SoA stencil kernels (stencil_soa.cu: K1 at
-// the clover term's shape and on its runtime-shape route, stencil_site.cu:
-// the clover term's block-streaming kernel, stencil_schedules.cu: the
-// X-inside and X-streaming schedules at every shape but the two of the
-// spin plan, whose math is stencil_plan.cuh).
+// the clover term's shape in f64, stencil_rt.cu: K1's runtime-shape route,
+// stencil_site.cu: the clover term's block-streaming kernel,
+// stencil_schedules.cu: the X-inside and X-streaming schedules at every
+// shape but the two of the spin plan, whose math is stencil_plan.cuh).
 //
 // All three compute, over a periodic 4-D lattice s = (X, Y, Z, T) with
 // one-hot +-1 offsets o_d, in split complex (separate re/im planes),
@@ -232,33 +232,51 @@ __device__ __forceinline__ void site_matvec(const ST* __restrict__ b_re,
     }
 }
 
-// The runtime-shape route's sum of one direction d for one output a*BI + i
-// of one (site, column), at run-time KD, BD: (ar, ai) += sum_j B_d[i, j]
-// sum_b K_d[a, b] x[b*BD + j], in site_matvec's order.  kr, kim: row a of
-// K_d (nullptr: K_d = 1); xr, xi: the neighbour's x with feature stride xs
-// (kSh: in shared memory); br, bi: B_d[i, 0](s) with entry stride bs.
+// The runtime-shape arithmetic, shared by the runtime-shape route
+// (stencil_rt.cu) and the schedules (stencil_schedules.cu), so that both
+// give the same bits: z[a][j] = sum_b K_d[a, b] x[b*BD + j] for b
+// ascending (rt_zterm, from z = 0; rt_z), then (ar, ai) += B_d[i, j]
+// z[a][j] for j ascending (rt_acc), the four fma_a of each complex product
+// in site_matvec's order.
+// kr, kim: row a of K_d (nullptr: K_d = 1); xr, xi: x[j] of the neighbour
+// with feature stride xs (kSh: in shared memory).
+// one term of z: (zr, zi) += (cr + i cim) (vr + i vi)
+template <typename A>
+__device__ __forceinline__ void rt_zterm(A cr, A cim, A vr, A vi, A& zr, A& zi) {
+    zr = fma_a(cr, vr, zr);
+    zr = fma_a(-cim, vi, zr);
+    zi = fma_a(cr, vi, zi);
+    zi = fma_a(cim, vr, zi);
+}
+template <bool kSh, typename I, typename FT, typename A>
+__device__ __forceinline__ void rt_z(const A* kr, const A* kim, int KD, int BD, const FT* xr,
+                                     const FT* xi, I xs, A& zr, A& zi) {
+    zr = A(0);
+    zi = A(0);
+    for (int b = 0; b < KD; ++b)
+        rt_zterm(kr ? kr[b] : A(1), kim ? kim[b] : A(0), A(load_x<kSh>(xr + b * BD * xs)),
+                 A(load_x<kSh>(xi + b * BD * xs)), zr, zi);
+}
+template <typename A>
+__device__ __forceinline__ void rt_acc(A b_r, A b_i, A zr, A zi, A& ar, A& ai) {
+    ar = fma_a(b_r, zr, ar);
+    ar = fma_a(-b_i, zi, ar);
+    ai = fma_a(b_r, zi, ai);
+    ai = fma_a(b_i, zr, ai);
+}
+
+// The runtime-shape sum of one direction d for one output a*BI + i of one
+// (site, column), at run-time KD, BD: (ar, ai) += sum_j B_d[i, j] z[a][j]
+// (rt_z, rt_acc).  br, bi: B_d[i, 0](s) with entry stride bs.
 template <bool kSh, typename I, typename ST, typename FT, typename A>
 __device__ __forceinline__ void rt_direction(const A* kr, const A* kim, int KD, int BD,
                                              const FT* xr, const FT* xi, I xs,
                                              const ST* br, const ST* bi, I bs, A& ar,
                                              A& ai) {
     for (int j = 0; j < BD; ++j) {
-        A zr = A(0), zi = A(0);
-        for (int b = 0; b < KD; ++b) {
-            const A cr = kr ? kr[b] : A(1), cim = kim ? kim[b] : A(0);
-            const A vr = load_x<kSh>(xr + (b * BD + j) * xs);
-            const A vi = load_x<kSh>(xi + (b * BD + j) * xs);
-            zr = fma_a(cr, vr, zr);
-            zr = fma_a(-cim, vi, zr);
-            zi = fma_a(cr, vi, zi);
-            zi = fma_a(cim, vr, zi);
-        }
-        const A b_r = load_f(br + j * bs);
-        const A b_i = load_f(bi + j * bs);
-        ar = fma_a(b_r, zr, ar);
-        ar = fma_a(-b_i, zi, ar);
-        ai = fma_a(b_r, zi, ai);
-        ai = fma_a(b_i, zr, ai);
+        A zr, zi;
+        rt_z<kSh>(kr, kim, KD, BD, xr + j * xs, xi + j * xs, xs, zr, zi);
+        rt_acc(A(load_f(br + j * bs)), A(load_f(bi + j * bs)), zr, zi, ar, ai);
     }
 }
 

@@ -24,8 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("stencil_soa.cu", "stencil_tiled.cu", "stencil_site.cu", "stencil_schedules.cu",
-           "permute.cu", "batched_gemm.cu", "roll_add.cu")
+SOURCES = ("stencil_soa.cu", "stencil_rt.cu", "stencil_tiled.cu", "stencil_site.cu",
+           "stencil_schedules.cu", "permute.cu", "batched_gemm.cu", "roll_add.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("stencil_soa.cuh", "stencil_plan.cuh", "kernel_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,7 +101,9 @@ def library() -> ctypes.CDLL:
     # (ki, kd, bi, bd, type pair, b, kron, x, y re/im pointers, n, X, Y, Z, T,
     #  ndir, offsets) + each kernel's own trailing ints + stream
     head = [i] * 5 + [p] * 8 + [i] * 6 + [p]
-    for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_rt", [i]),
+    # (the runtime-shape route's trailing ints: parity and the tile S, C, R,
+    # D, stages)
+    for name, extra in (("sbt_stencil_soa", [i]), ("sbt_stencil_soa_rt", [i] * 6),
                         ("sbt_stencil_site", [i, i])):
         getattr(lib, name).argtypes = head + extra + [p]
         getattr(lib, name).restype = i
@@ -121,6 +123,9 @@ def library() -> ctypes.CDLL:
     # (ki, kd, bi, bd, pair, sparse, n, X, Y, Z, T, yc, out[4])
     lib.sbt_stencil_tiled_attrs.argtypes = [i] * 12 + [p]
     lib.sbt_stencil_tiled_attrs.restype = i
+    # (ki, kd, bi, bd, pair, ndir, S, C, R, D, stages, out[4])
+    lib.sbt_stencil_soa_rt_attrs.argtypes = [i] * 11 + [p]
+    lib.sbt_stencil_soa_rt_attrs.restype = i
     # (pair, wide, n, out[4])
     lib.sbt_stencil_site_attrs.argtypes = [i, i, i, p]
     lib.sbt_stencil_site_attrs.restype = i
@@ -129,8 +134,9 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.sbt_permute_4d_vec_attrs.argtypes = [p]
     lib.sbt_permute_4d_vec_attrs.restype = i
-    # (edge, rows, planes, mid_swap, X, Y, Z, T, strides, grid) + in, out, stream
-    lib.sbt_permute_4d_tiled.argtypes = [i] * 4 + [i64] * 11 + [p, p, p]
+    # (form, EX, ET, stages, threads, mid_swap, X, Y, Z, T, strides) + in, out,
+    # stream
+    lib.sbt_permute_4d_tiled.argtypes = [i] * 6 + [i64] * 8 + [p, p, p]
     lib.sbt_permute_4d_tiled.restype = i
     lib.sbt_roll_add.argtypes = [i, i64, i64, p, p, p]
     lib.sbt_roll_add.restype = i

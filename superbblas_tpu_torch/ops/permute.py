@@ -12,9 +12,9 @@ tiles where the view's strides and pointers allow them, else 4-byte
 words.
 
 ``permute_4d_tiled`` is the tile sweep E3 (counterpart of the probe
-``experiments/permute_pallas.py``): the same transpose through the
-instantiation of ``csrc/permute.cu`` at one tile of ``TILES``, on the grid
-``tiled_grid`` gives it.  Nothing dispatches it.
+``experiments/permute_pallas.py``): the same transpose through one of the
+card's design points ``TILES`` of ``csrc/permute.cu``, on the views the
+16-byte route takes (``sweep_takes``).  Nothing dispatches it.
 """
 
 from __future__ import annotations
@@ -25,16 +25,22 @@ from typing import Sequence, Tuple
 import torch
 
 __all__ = ["permute_eligible", "permute_route", "permute_4d", "permute_4d_reference",
-           "maybe_permute", "permute_4d_tiled", "tiled_grid", "TILES"]
+           "maybe_permute", "permute_4d_tiled", "sweep_takes", "sweep_items", "TILES"]
 
 #: permutations the kernel takes -> whether it swaps the middle axes
 SUPPORTED = {(3, 1, 2, 0): False, (3, 2, 1, 0): True}
-#: tiles (edge E, thread rows R, (y, z) planes P) of the tile sweep: an E x E
-#: tile of the (X, T) plane, E x R threads, P planes a block; (32, 8, 1) is
-#: permute_4d's own
-TILES = ((32, 8, 1), (32, 8, 2), (32, 8, 4), (32, 16, 1), (64, 8, 1), (64, 16, 2))
-#: most blocks along the grid's y and z axes
-MAX_GRID_YZ = 65535
+#: the tile sweep's design points (form, EX, ET, stages, threads): an (X, T)
+#: tile of EX rows x ET words a ring stage, the ring's stages, threads a
+#: block; form "ring" is the 16-byte ring kernel of permute_4d's 16-byte
+#: route (K2_POINT is its own point), "tma" the TMA kernel (rows of 32
+#: words, one producer warp and 4 consumer warps, 8 stages)
+TILES = (("ring", 64, 128, 3, 256), ("ring", 64, 256, 3, 256), ("ring", 32, 256, 4, 256),
+         ("ring", 64, 128, 4, 256), ("ring", 32, 128, 4, 128), ("ring", 128, 128, 2, 512),
+         ("ring", 64, 64, 4, 256), ("tma", 64, 32, 8, 160), ("tma", 128, 32, 8, 160))
+#: permute_4d's 16-byte route's design point
+K2_POINT = ("ring", 64, 128, 3, 256)
+#: the C entry's code of each form
+FORMS = {"ring": 0, "tma": 1}
 
 
 def permute_eligible(shape: Tuple[int, ...], perm: Tuple[int, ...], dtype) -> bool:
@@ -57,10 +63,7 @@ def permute_route(shape: Tuple[int, ...], strides: Tuple[int, ...], in_ptr: int,
     as many as the kernel's), else "word" (4-byte words).  The keys of
     ``permute_4d.by_route``."""
     X, Y, Z, T = shape
-    sx, sy, sz, st = strides
-    vec = (st == 1 or T == 1) and X % 4 == 0 and T % 4 == 0 \
-        and all(s % 4 == 0 for n, s in ((X, sx), (Y, sy), (Z, sz)) if n > 1) \
-        and in_ptr % 16 == 0 and out_ptr % 16 == 0 \
+    vec = _vec_view(shape, strides, in_ptr, out_ptr) \
         and Y * Z * -(-X // 64) * -(-T // 64) < 2 ** 31 - 1
     return "vec16" if vec else "word"
 
@@ -121,25 +124,45 @@ def maybe_permute(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     return x.permute(perm).contiguous()
 
 
-def tiled_grid(shape: Tuple[int, ...], tile: Tuple[int, int, int],
-               max_yz: int = MAX_GRID_YZ) -> Tuple[int, int, int]:
-    """The grid of the tile sweep on [X, Y, Z, T]: T tiles, X tiles and
-    plane groups, the last two capped at ``max_yz`` (the kernel's loops
-    stride over the rest)."""
+def _vec_view(shape: Tuple[int, ...], strides: Tuple[int, ...], in_ptr: int,
+              out_ptr: int) -> bool:
     X, Y, Z, T = shape
-    E, _, P = tile
-    return (-(-T // E), min(-(-X // E), max_yz), min(-(-(Y * Z) // P), max_yz))
+    sx, sy, sz, st = strides
+    return (st == 1 or T == 1) and X % 4 == 0 and T % 4 == 0 \
+        and all(s % 4 == 0 for n, s in ((X, sx), (Y, sy), (Z, sz)) if n > 1) \
+        and in_ptr % 16 == 0 and out_ptr % 16 == 0
 
 
-def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int],
-                     tile: Tuple[int, int, int]) -> torch.Tensor:
+def sweep_takes(shape: Tuple[int, ...], strides: Tuple[int, ...], in_ptr: int,
+                out_ptr: int = 0) -> bool:
+    """Whether the tile sweep's 16-byte forms take an input of ``shape``
+    [X, Y, Z, T] and ``strides`` (words) at ``in_ptr`` into a contiguous
+    output at ``out_ptr``: T's stride 1, X, T and the other strides
+    multiples of 4 words (axes of extent 1 aside), both pointers 16-byte
+    aligned; the TMA point's tensor map has the same rules."""
+    return _vec_view(shape, strides, in_ptr, out_ptr)
+
+
+def sweep_items(shape: Tuple[int, ...], point: Tuple) -> Tuple[int, int, int]:
+    """(items, X tiles, T tiles) of a design point on [X, Y, Z, T]: an item
+    is one (y, z) plane's EX x ET tile, planes slowest, then the X tile,
+    then the T tile; a persistent grid of blocks walks them, block b the
+    items b, b + grid, ..."""
+    X, Y, Z, T = shape
+    _, EX, ET, _, _ = point
+    ntx, ntt = -(-X // EX), -(-T // ET)
+    return Y * Z * ntx * ntt, ntx, ntt
+
+
+def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int], tile: Tuple) -> torch.Tensor:
     """``x.permute(perm)`` as a new contiguous tensor, through the tile
-    sweep's kernel at ``tile`` (one of TILES).  A CPU tensor runs the plain
-    version.  A CUDA tensor runs the kernel (``permute_4d_tiled.launches``
-    counts its launches) or raises where it does not take the case."""
-    perm, tile = tuple(int(p) for p in perm), tuple(int(v) for v in tile)
+    sweep's kernel at the design point ``tile`` (one of TILES).  A CPU
+    tensor runs the plain version.  A CUDA tensor runs the kernel
+    (``permute_4d_tiled.launches`` counts its launches) or raises
+    ValueError where it does not take the case (``sweep_takes``)."""
+    perm, tile = tuple(int(p) for p in perm), tuple(tile)
     if tile not in TILES:
-        raise ValueError(f"permute_4d_tiled: tile {tile} is not one of {TILES}")
+        raise ValueError(f"permute_4d_tiled: design point {tile} is not one of {TILES}")
     if x.device.type == "cpu":
         return permute_4d_reference(x, perm)
     if x.device.type != "cuda":
@@ -151,13 +174,17 @@ def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int],
     from . import _cuda
 
     out = torch.empty(tuple(x.shape[p] for p in perm), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    if not sweep_takes(tuple(x.shape), x.stride(), x.data_ptr(), out.data_ptr()):
+        raise ValueError(
+            f"permute_4d_tiled: view {tuple(x.shape)} strides {x.stride()}: the sweep's "
+            "16-byte forms take T's stride 1, X, T and the other strides in whole 16 bytes "
+            "and 16-byte aligned pointers (permute_4d's word route takes the rest)")
+    with _cuda.on_device(x.device):
         err = _cuda.library().sbt_permute_4d_tiled(
-            *tile, int(SUPPORTED[perm]), *x.shape, *x.stride(),
-            *tiled_grid(tuple(x.shape), tile), x.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            FORMS[tile[0]], *tile[1:], int(SUPPORTED[perm]), *x.shape, *x.stride(),
+            x.data_ptr(), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"permute_4d_tiled kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"permute_4d_tiled kernel launch failed at {tile}: cudaError {err}")
     permute_4d_tiled.launches += 1
     return out
 

@@ -17,8 +17,9 @@ half-spinor projection of the Wilson hops), at the clover term's shape
 16-byte copies, or element copies where the volume or the pointers are
 not aligned for them) at the f32-summed pairs and the templated kernel of
 ``csrc/stencil_soa.cu`` at f64, and its runtime-shape route
-(``stencil_matvec_soa_rt``) at every other shape with KI*KD*BI*BD <= 256,
-the TPU kernel's rule; a case no route takes raises.  ``k1_route`` names
+(``stencil_matvec_soa_rt``, ``csrc/stencil_rt.cu`` at the tile ``rt_tile``
+picks) at every other shape with KI*KD*BI*BD <= 256, the TPU kernel's
+rule; a case no route takes raises.  ``k1_route`` names
 the route of a case (``stencil_matvec_soa.by_route`` counts launches by
 it).
 ``stencil_matvec_soa_xin`` and ``stencil_matvec_soa_stream`` compute the
@@ -52,7 +53,7 @@ from ..cplx import CArray
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
            "stencil_matvec_soa_xin", "stencil_matvec_soa_stream", "schedule_attrs",
            "stencil_matvec_soa_planned", "factor_kron", "spin_plan", "clear_plans",
-           "derive_kron", "host_kron", "k1_route",
+           "derive_kron", "host_kron", "k1_route", "rt_split", "rt_tile", "rt_attrs",
            "soa_eligible", "aos_to_soa", "soa_to_aos"]
 
 #: (KI, KD, BI, BD) shapes with kernels of their own: Wilson, staggered and
@@ -101,6 +102,20 @@ XIN_STAGE_BYTES = (SMEM_BYTES - 1024) // 2
 STREAM_RING_BYTES = (233472 - 4 * 1024) // 4
 #: threads a block of the X-streaming kernel (csrc/stencil_schedules.cu)
 STREAM_THREADS = 128
+#: most threads a block of the runtime-shape route (csrc/stencil_rt.cu
+#: SBT_RT_THREADS) and most stages of its ring (kMaxStages); what
+#: ``rt_tile`` aims a stage and the ring at: a stage of 48 KB holds the next
+#: directions' copies in flight, a ring of 112 KB leaves room for two blocks
+#: an SM
+RT_THREADS, RT_MAX_STAGES = 256, 8
+RT_STAGE_BYTES, RT_RING_BYTES = 48 << 10, 112 << 10
+#: columns a thread of the runtime-shape route sums (csrc/stencil_rt.cu
+#: kCols): each block entry it reads from shared memory serves both
+RT_COLS = 2
+#: block bytes a site and direction up to which a tile of the runtime-shape
+#: route takes at most 16 sites (else 32): narrow shapes ran faster in more,
+#: smaller blocks (tools/kernel_variants.py)
+RT_NARROW_BYTES = 64
 
 
 def _axis_of(off) -> Tuple[int, int]:
@@ -614,6 +629,113 @@ def stream_tile(n: int, rows: int, T: int, F: int, itemsize: int,
         S //= 2
 
 
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def rt_dir_bytes(KI: int, KD: int, BI: int, BD: int, S: int, C: int, storage_size: int,
+                 field_size: int) -> int:
+    """Shared memory of one direction's slot of a stage of the runtime-shape
+    route: a tile's block planes [2, BI*BD, S], then its columns' neighbour
+    features [2, C, KD*BD, S + 16 bytes] (a row's halo sites), columns
+    padded where S < 32 so that a warp's sets of RT_COLS columns lie S
+    sites apart in the banks, and 16 bytes for the last row's halo, each
+    part in whole 16 bytes (csrc/stencil_rt.cu ``layout``)."""
+    vec = 16 // field_size
+    xcs = KD * BD * (S + vec)
+    if S < 32 and S // RT_COLS % vec == 0:
+        xcs += (S // RT_COLS - xcs) % (128 // field_size // RT_COLS)
+    return _round16(2 * BI * BD * S * storage_size) + \
+        _round16((2 * C * xcs + vec) * field_size)
+
+
+def rt_smem(KI: int, KD: int, BI: int, BD: int, ndir: int, S: int, C: int, D: int,
+            stages: int, storage_size: int, field_size: int) -> int:
+    """Shared memory of one block of the runtime-shape route: the kron
+    factors [2, ndir, KI, KD] in the sum type (f64 for f64 fields, else
+    f32), then ``stages`` stages of D direction slots (``rt_dir_bytes``)."""
+    acc = 8 if field_size == 8 else 4
+    return _round16(2 * ndir * KI * KD * acc) + stages * D * rt_dir_bytes(
+        KI, KD, BI, BD, S, C, storage_size, field_size)
+
+
+#: most threads a (site, column) of the runtime-shape route's rowwise split
+#: (csrc/stencil_rt.cu kRowThreads)
+RT_ROW_THREADS = 32
+
+
+def rt_split(KI: int, BI: int) -> Tuple[int, int]:
+    """(R, G) of the runtime-shape route: a thread owns up to R outputs of
+    one (site, column), R = BI for BI <= 4 (no idle slot), else 8, within
+    one row a of K_d (G = KI * ceil(BI / R) threads a (site, column));
+    where that passes RT_ROW_THREADS, R = 8 (16 above 128 outputs)
+    consecutive outputs across rows (G = ceil(KI*BI / R) <= 16)."""
+    R = BI if BI <= 4 else 8
+    G = KI * -(-BI // R)
+    if G <= RT_ROW_THREADS:
+        return R, G
+    R = 8 if KI * BI <= 128 else 16
+    return R, -(-KI * BI // R)
+
+
+@functools.lru_cache(maxsize=256)
+def rt_tile(KI: int, KD: int, BI: int, BD: int, n: int, ndir: int, storage_size: int,
+            field_size: int) -> Tuple[int, int, int, int, int, int]:
+    """(S, C, R, G, D, stages) of the runtime-shape route.  A tile of S
+    consecutive sites (a power of two) and C columns; a thread sums RT_COLS
+    columns of a site, and G threads share a (site, column set), each
+    owning up to R of its outputs (``rt_split``); ``rt_threads`` threads a
+    block, at most RT_THREADS.  C is up to 8 columns (the block
+    planes a stage holds serve them all), then S the largest power of two
+    from 8 to 32 (16 at the narrow shapes, RT_NARROW_BYTES) that the threads
+    allow (64 sites ran slower).  A stage
+    holds D of the ndir directions, as many as fit RT_STAGE_BYTES (the
+    narrow shapes do little work a direction: their copies are in flight
+    longer than they take to sum), spread evenly over the stages of a unit;
+    the ring holds as many stages (2 to RT_MAX_STAGES) as fit
+    RT_RING_BYTES; both targets scale with the block's share of
+    RT_THREADS.  S, then C, halve until two stages of one direction fit a
+    block's SMEM_BYTES.  At 8 columns and 9 directions, f32: (2, 2, 3, 3)
+    16 sites x 8 columns, two threads a (site, column set) (R = 3), 2
+    directions a stage, three stages; (1, 1, 2, 2) 16 x 8, 3 directions a
+    stage, three stages; (2, 2, 8, 8) and (1, 1, 16, 16) 32 x 8, two threads a (site,
+    column set), one direction a stage, two stages."""
+    R, G = rt_split(KI, BI)
+    C = max(1, min(n, 8, RT_COLS * (RT_THREADS // (8 * G))))
+    sets = -(-C // RT_COLS)
+    S, S_max = 8, 16 if BI * BD * storage_size <= RT_NARROW_BYTES else 32
+    while S < S_max and 2 * S * sets * G <= RT_THREADS:
+        S *= 2
+
+    def smem(S, C, D, stages):
+        return rt_smem(KI, KD, BI, BD, ndir, S, C, D, stages, storage_size, field_size)
+
+    while smem(S, C, 1, 2) > SMEM_BYTES:
+        if S > 8:
+            S //= 2
+        elif C > 1:
+            C //= 2
+        else:
+            raise ValueError(f"no tile of the runtime-shape stencil kernel fits in shared "
+                             f"memory at {(KI, KD, BI, BD)} with {ndir} directions")
+    one = rt_dir_bytes(KI, KD, BI, BD, S, C, storage_size, field_size)
+    share = rt_threads(S, C, G) / RT_THREADS   # the targets scale with the threads
+    steps = -(-ndir // max(1, min(ndir, int(RT_STAGE_BYTES * share) // one)))
+    D = -(-ndir // steps)
+    stages = max(2, min(RT_MAX_STAGES, int(RT_RING_BYTES * share) // (D * one)))
+    while stages > 2 and smem(S, C, D, stages) > SMEM_BYTES:
+        stages -= 1
+    while smem(S, C, D, stages) > SMEM_BYTES:
+        D -= 1
+    return S, C, R, G, D, stages
+
+
+def rt_threads(S: int, C: int, G: int) -> int:
+    """Threads a block of the runtime-shape route: S sites x the group's
+    sets of RT_COLS columns x G threads a (site, column set)."""
+    return S * -(-C // RT_COLS) * G
+
+
 @functools.lru_cache(maxsize=64)
 def _offsets_array(offsets: Tuple[Tuple[int, ...], ...]):
     """The C entries' offsets argument, [ndir, 4] ints, one per offsets."""
@@ -622,8 +744,8 @@ def _offsets_array(offsets: Tuple[Tuple[int, ...], ...]):
 
 
 def _offsets_key(offsets) -> Tuple[Tuple[int, ...], ...]:
-    if isinstance(offsets, tuple) and all(type(o) is tuple for o in offsets):
-        return offsets
+    if isinstance(offsets, (tuple, list)) and all(type(o) is tuple for o in offsets):
+        return tuple(offsets)
     return tuple(tuple(int(v) for v in off) for off in offsets)
 
 
@@ -743,23 +865,27 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
                           offsets: Sequence[Tuple[int, ...]], bi: int, bd: int,
                           packed_parity: Optional[int] = None) -> CArray:
     """K1's runtime-shape route (same contract as
-    :func:`stencil_matvec_soa`, any shape with KI*KD*BI*BD <= MAX_BLOCK, at
-    most 65535 columns): ``stencil_matvec_soa`` sends the shapes outside
-    KERNEL_SHAPES here.  At a templated shape it gives the templated
-    route's bits.  CPU operands run the plain version; CUDA operands the
-    kernel (``stencil_matvec_soa_rt.launches``) or raise."""
+    :func:`stencil_matvec_soa`, any shape with KI*KD*BI*BD <= MAX_BLOCK,
+    the column counts ``check_kernel_case`` takes, lattices up to
+    TILED_MAX_VALUES values a column's field or a direction's blocks):
+    ``stencil_matvec_soa`` sends the shapes outside KERNEL_SHAPES here, at
+    the tile ``rt_tile`` picks (csrc/stencil_rt.cu).  It gives the
+    schedules' bits at every shape, the templated and block-streaming
+    routes' at (1, 1, 12, 12) and the tiled route's where no direction of
+    its spin plan factors.  CPU operands run the plain version; CUDA
+    operands the kernel (``stencil_matvec_soa_rt.launches``) or raise."""
     if _on_cpu(blocks, x, "stencil_matvec_soa_rt"):
         KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
         check_block(KI, KD, bi, bd)
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                             packed_parity=packed_parity)
     KI, KD = check_kernel_case(blocks, kron, x, offsets, bi, bd, packed_parity)
-    if x.shape[0] > 65535:
-        raise ValueError(f"{x.shape[0]} columns: the runtime-shape stencil kernel takes "
-                         "at most 65535")
+    check_32bit(KI, KD, bi, bd, x, "runtime-shape stencil kernel")
+    S, C, R, _, D, stages = rt_tile(KI, KD, bi, bd, x.shape[0], len(offsets),
+                                    blocks.re.element_size(), x.re.element_size())
     y = _launch("sbt_stencil_soa_rt", blocks, _kron_ptrs(_kron_for(kron, x)), x, offsets,
                 bi, bd, KI, KD,
-                -1 if packed_parity is None else int(packed_parity))
+                -1 if packed_parity is None else int(packed_parity), S, C, R, D, stages)
     stencil_matvec_soa_rt.launches += 1
     stencil_matvec_soa_rt.by_shape[KI, KD, bi, bd] += 1
     return y
@@ -860,6 +986,23 @@ def schedule_attrs(schedule: str, shape: Sequence[int], storage, field, n: int,
         int(sparse), n, X, S, R, C, rs, out)
     if err != 0:
         raise RuntimeError(f"schedule attributes: cudaError {err}")
+    return list(out)
+
+
+def rt_attrs(shape: Sequence[int], storage, field, n: int, ndir: int) -> list:
+    """[registers, local bytes, threads, blocks an SM] of the runtime-shape
+    route's kernel on n columns and ndir directions at (KI, KD, BI, BD)
+    ``shape`` and the (storage, field) dtypes, at ``rt_tile``'s tile, from
+    cudaFuncGetAttributes and the occupancy at its shared memory."""
+    from . import _cuda
+
+    ki, kd, bi, bd = shape
+    S, C, R, _, D, stages = rt_tile(ki, kd, bi, bd, n, ndir, storage.itemsize, field.itemsize)
+    out = (ctypes.c_int * 4)()
+    err = _cuda.library().sbt_stencil_soa_rt_attrs(
+        ki, kd, bi, bd, KERNEL_DTYPES.index((storage, field)), ndir, S, C, R, D, stages, out)
+    if err != 0:
+        raise RuntimeError(f"runtime-shape route attributes: cudaError {err}")
     return list(out)
 
 

@@ -7,8 +7,10 @@ X-inside and X-streaming schedules at every pair and shape against the
 plain version and K1 bit for bit (the tiled route at its shapes, the
 runtime-shape route elsewhere), with their registers and blocks an SM
 (and the tiled route where no direction factors against the
-runtime-shape route, bit for bit); the bf16 roll-plus-add (E2) in both variants and the
-transpose tile sweep (E3) at each tile; every operator family's apply on
+runtime-shape route, bit for bit); the runtime-shape route at 65536
+columns, with its registers and blocks an SM; the bf16 roll-plus-add (E2)
+in both variants and the transpose tile sweep (E3) at each design point,
+with its refusals; every operator family's apply on
 the card, in both layouts, against the same apply on the CPU; the CG and even-odd solves through the stencil kernel against the
 same solves on the CPU; K1's block-streaming kernel at the clover term's
 shape (both forms, every f32-summed pair) against the plain version and
@@ -142,7 +144,7 @@ def test_packed_kernel_matches_plain_version(cuda_device, parity, st, ft):
 #: of 1-4, columns 1 to 9
 SCHEDULE_SHAPES = [((4, 4, 3, 3), "wilson"), ((4, 4, 3, 3), "random"), ((1, 1, 3, 3), None),
                    ((1, 1, 12, 12), None), ((2, 2, 3, 3), "random"), ((1, 1, 2, 2), None),
-                   ((2, 1, 4, 2), "random")]
+                   ((2, 1, 4, 2), "random"), ((2, 2, 8, 8), "random"), ((1, 1, 16, 16), None)]
 SCHEDULE_LATS = [((1, 3, 2, 5), 1), ((3, 5, 6, 10), 9), ((2, 4, 3, 8), 2), ((4, 4, 8, 32), 8)]
 
 
@@ -359,9 +361,13 @@ def test_tiled_k1_lattice_limit(cuda_device):
 
 
 #: (KI, KD, BI, BD) of K1 beyond the Wilson and staggered shapes: the
-#: clover term (templated route), the JAX package's test shapes and an
-#: asymmetric one (runtime-shape route)
-NEW_SHAPES = [(1, 1, 12, 12), (2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2)]
+#: clover term (templated route), the JAX package's test shapes, an
+#: asymmetric one, a chirally split and a 16-vector coarse stencil
+#: (runtime-shape route)
+NEW_SHAPES = [(1, 1, 12, 12), (2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2), (2, 2, 8, 8),
+              (1, 1, 16, 16)]
+#: the runtime-shape route's shapes of chip_smoke.py's K1-shape path
+RT_SHAPES = NEW_SHAPES[1:]
 
 
 def _shape_operands(shape, lat, n, ndir, st, ft, seed):
@@ -410,12 +416,12 @@ PAIR_TOL = {torch.float64: 1e-12, torch.bfloat16: 8e-3}
 @pytest.mark.cuda
 @pytest.mark.parametrize("st,ft", [(torch.float64, torch.float64),
                                    (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("shape", [(4, 4, 3, 3), (1, 1, 3, 3), (1, 1, 12, 12), (2, 1, 4, 2)])
+@pytest.mark.parametrize("shape", [(4, 4, 3, 3), (1, 1, 3, 3)] + NEW_SHAPES)
 def test_k1_f64_and_f32_bf16_pairs_match_plain_version(cuda_device, shape, st, ft):
     """K1 at f64 blocks with f64 fields (summed in f64, f64 kron factors)
     and at f32 blocks with bf16 fields (summed in f32, rounded on store)
     against the plain version on full lattices and with packed parity,
-    on the templated shapes and one runtime shape; the runtime route
+    on the templated shapes and the runtime shapes; the runtime route
     gives the templated route's bits where both take the shape."""
     templated = shape in S.KERNEL_SHAPES
     counter = S.stencil_matvec_soa if templated else S.stencil_matvec_soa_rt
@@ -443,6 +449,42 @@ def test_k1_f64_and_f32_bf16_pairs_match_plain_version(cuda_device, shape, st, f
 
 
 @pytest.mark.cuda
+def test_rt_route_takes_65536_columns(cuda_device):
+    """The runtime-shape route has no cap of 65535 columns (its grid walks
+    (tile, column group) items): 65536 columns of a (2, 2, 2, 2) lattice at
+    (1, 1, 2, 2) through K1 and the route itself, against the plain
+    version."""
+    lat = (2, 2, 2, 2)
+    blocks = crand((9, 4) + lat, 0, cuda_device, torch.float32)
+    x = crand((65536, 2) + lat, 1, cuda_device, torch.float32)
+    args = (blocks, None, x, OFFSETS, 2, 2)
+    want = S.stencil_matvec_soa_reference(*args)
+    before = S.stencil_matvec_soa_rt.launches
+    for fn in (S.stencil_matvec_soa, S.stencil_matvec_soa_rt):
+        _close(fn(*args), want, f"{fn.__name__} 65536 columns")
+    assert S.stencil_matvec_soa_rt.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st,ft", S.KERNEL_DTYPES)
+def test_rt_route_registers_and_blocks(cuda_device, st, ft):
+    """The runtime-shape route's kernel at the tiles of the K1-shape path
+    (16^3x32 x 8, 9 directions), from cudaFuncGetAttributes and the
+    occupancy at the tile's shared memory: at the f32-summed pairs no
+    spill and 512 (site, column) sums an SM or more (two columns a thread:
+    8 warps); at f64 at least one block an SM."""
+    for shape in RT_SHAPES:
+        regs, local, threads, blocks = S.rt_attrs(shape, st, ft, 8, 9)
+        label = (shape, regs, local, threads, blocks)
+        Sites, C, R, G, _, _ = S.rt_tile(*shape, 8, 9, st.itemsize, ft.itemsize)
+        assert threads == S.rt_threads(Sites, C, G), label
+        if ft == torch.float64:
+            assert regs <= 255 and blocks >= 1, label
+        else:
+            assert local == 0 and regs <= 128 and threads * blocks * S.RT_COLS >= 512, label
+
+
+@pytest.mark.cuda
 def test_roll_add_variants_match_plain_version(cuda_device):
     """E2: the f32 variant bit for bit against the plain version (even and
     odd T), the bf16x2 variant within one bf16 ulp of it (2^-7 of the
@@ -466,17 +508,39 @@ def test_roll_add_variants_match_plain_version(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("perm", [(3, 2, 1, 0), (3, 1, 2, 0)])
 def test_permute_tile_sweep_matches_plain_version(cuda_device, perm):
-    """E3: every tile bit-exact on ragged tiles, a strided view and int32
-    words; one launch a call."""
-    x = torch.randn((45, 6, 7, 70), device=cuda_device)
-    cases = (x, x[3:40, 1:5, 2:7, 5:66], x.view(torch.int32))
+    """E3: every design point bit-exact on ragged tiles (X and T not
+    multiples of the tiles), a strided view of aligned strides, int32
+    words and extents of 1; one launch a call."""
+    x = torch.randn((72, 6, 7, 80), device=cuda_device)
+    cases = (x, x[4:68, 1:5, 2:7, 8:72], x.view(torch.int32),
+             torch.randn((60, 3, 5, 68), device=cuda_device),
+             torch.randn((8, 1, 1, 260), device=cuda_device))
     before = P.permute_4d_tiled.launches
     for tile in P.TILES:
         for v in cases:
             got = P.permute_4d_tiled(v, perm, tile)
             torch.cuda.synchronize()
-            assert got.is_contiguous() and torch.equal(got, P.permute_4d_reference(v, perm))
+            assert got.is_contiguous() and torch.equal(got, P.permute_4d_reference(v, perm)), \
+                (tile, tuple(v.shape))
     assert P.permute_4d_tiled.launches == before + len(P.TILES) * len(cases)
+
+
+@pytest.mark.cuda
+def test_permute_tile_sweep_refusals(cuda_device):
+    """The views the 16-byte forms do not take raise ValueError at every
+    design point, before a launch: X or T not a multiple of 4 words, T's
+    stride other than 1, a pointer off 16 bytes."""
+    x = torch.randn((72, 6, 7, 80), device=cuda_device)
+    views = (torch.randn((45, 6, 7, 68), device=cuda_device),
+             torch.randn((44, 6, 7, 70), device=cuda_device),
+             x.transpose(0, 3), x[:, :, :, 1:77])
+    before = P.permute_4d_tiled.launches
+    for tile in P.TILES:
+        for v in views:
+            perm = (3, 2, 1, 0)
+            with pytest.raises(ValueError, match="16-byte"):
+                P.permute_4d_tiled(v, perm, tile)
+    assert P.permute_4d_tiled.launches == before
 
 
 @pytest.mark.cuda

@@ -80,43 +80,44 @@ def test_kernel_wrapper_raises_off_the_cpu_without_a_kernel():
         P.permute_4d(x, (3, 2, 1, 0))
 
 
-def tiled_walk(x, perm, tile, max_yz=P.MAX_GRID_YZ):
-    """The tile sweep's copy, block by block, as csrc/permute.cu's
-    permute_4d_tiled_kernel walks it: the tiles of ``tiled_grid`` and the
-    grid-stride loops over X and the plane groups, each tile copied with
-    a slice."""
+def tiled_walk(x, perm, point, grid):
+    """The tile sweep's copy, block by block, as csrc/permute.cu's 16-byte
+    forms walk it: a persistent grid of ``grid`` blocks, block b taking the
+    items b, b + grid, ... of ``sweep_items`` ((y, z) plane slowest, then
+    the X tile, then the T tile), each item's EX x ET tile copied with a
+    slice; the ragged X and T tiles end in whole 16-byte words."""
     perm = tuple(int(p) for p in perm)
     X, Y, Z, T = x.shape
-    edge, _, planes = tile
-    gx, gy, gz = P.tiled_grid(tuple(x.shape), tile, max_yz)
+    _, EX, ET, _, _ = point
+    items, ntx, ntt = P.sweep_items(tuple(x.shape), point)
     out = torch.empty(tuple(x.shape[p] for p in perm), dtype=x.dtype)
     flat = out.view(T, Y * Z, X)
-    for bx, by, bz in itertools.product(range(gx), range(gy), range(gz)):
-        t0 = bx * edge
-        for x0 in range(by * edge, X, gy * edge):
-            for g in range(bz * planes, Y * Z, gz * planes):
-                for yz in range(g, min(g + planes, Y * Z)):
-                    y, z = divmod(yz, Z)
-                    plane = z * Y + y if P.SUPPORTED[perm] else yz
-                    flat[t0:t0 + edge, plane, x0:x0 + edge] = \
-                        x[x0:x0 + edge, y, z, t0:t0 + edge].T
+    for b in range(grid):
+        for item in range(b, items, grid):
+            yz, rest = divmod(item, ntx * ntt)
+            xt, tt = divmod(rest, ntt)
+            y, z = divmod(yz, Z)
+            x0, t0 = xt * EX, tt * ET
+            x1, t1 = min(x0 + EX, X), min(t0 + ET, T)
+            assert (x1 - x0) % 4 == 0 and (t1 - t0) % 4 == 0   # whole 16-byte words
+            plane = z * Y + y if P.SUPPORTED[perm] else yz
+            flat[t0:t1, plane, x0:x1] = x[x0:x1, y, z, t0:t1].T
     return out
 
 
-@pytest.mark.parametrize("max_yz", [P.MAX_GRID_YZ, 2])
+@pytest.mark.parametrize("grid", [264, 3])
 @pytest.mark.parametrize("tile", P.TILES)
 @pytest.mark.parametrize("perm", PERMS)
-def test_tile_sweep_walk_matches_numpy(perm, tile, max_yz):
-    """The tile sweep's blocks, as the kernel walks them on the grid
-    ``tiled_grid`` gives (ragged tiles; with the grid capped at 2 the
-    grid-stride loops over X and the plane groups run too), copy exactly
-    np.transpose; the wrapper's CPU path is the plain version."""
-    x = rand((70, 3, 5, 45), seed=3)
+def test_tile_sweep_walk_matches_numpy(perm, tile, grid):
+    """The tile sweep's blocks, as each design point walks them on a
+    persistent grid (two blocks an SM of an H100, more than the items; and
+    3 blocks, each walking many items), with ragged X and T tiles, copy
+    exactly np.transpose; the wrapper's CPU path is the plain version."""
+    x = rand((72, 3, 5, 44), seed=3)
+    assert P.sweep_takes(x.shape, torch.from_numpy(x).stride(), 0)
     want = np.transpose(x, perm)
-    got = tiled_walk(torch.from_numpy(x), perm, tile, max_yz)
+    got = tiled_walk(torch.from_numpy(x), perm, tile, grid)
     np.testing.assert_array_equal(got.numpy(), want)
-    gx, gy, gz = P.tiled_grid(x.shape, tile, max_yz)
-    assert gx * tile[0] >= x.shape[3] and min(gy, gz) >= 1 and max(gy, gz) <= max_yz
     before = P.permute_4d_tiled.launches
     np.testing.assert_array_equal(P.permute_4d_tiled(torch.from_numpy(x), perm, tile).numpy(),
                                   want)
@@ -126,7 +127,27 @@ def test_tile_sweep_walk_matches_numpy(perm, tile, max_yz):
 def test_tile_sweep_refusals():
     x = torch.zeros((16, 8, 8, 32))
     with pytest.raises(ValueError, match="not one of"):
-        P.permute_4d_tiled(x, (3, 2, 1, 0), (16, 8, 1))
+        P.permute_4d_tiled(x, (3, 2, 1, 0), (32, 8, 1))
     with pytest.raises(ValueError, match="no kernel for device"):
         P.permute_4d_tiled(x.to("meta"), (3, 2, 1, 0), P.TILES[0])
-    assert (32, 8, 1) in P.TILES    # permute_4d's own tile is one of the sweep
+    # permute_4d's 16-byte design point is one of the sweep, and so is a TMA one
+    assert P.K2_POINT in P.TILES and P.K2_POINT[0] == "ring"
+    assert any(point[0] == "tma" for point in P.TILES)
+
+
+@pytest.mark.parametrize("shape,strides,ptrs,takes", [
+    ((16, 8, 8, 32), (2048, 256, 32, 1), (0, 0), True),
+    ((72, 3, 5, 44), (660, 220, 44, 1), (16, 4096), True),
+    ((16, 1, 8, 32), (256, 7, 32, 1), (0, 0), True),        # extent 1: its stride aside
+    ((18, 8, 8, 32), (2048, 256, 32, 1), (0, 0), False),     # X % 4
+    ((16, 8, 8, 30), (1920, 240, 30, 1), (0, 0), False),     # T % 4
+    ((16, 8, 8, 32), (2048, 256, 32, 2), (0, 0), False),     # T's stride
+    ((16, 8, 8, 32), (2050, 256, 32, 1), (0, 0), False),     # X's stride
+    ((16, 8, 8, 32), (2048, 256, 32, 1), (4, 0), False),     # input pointer
+    ((16, 8, 8, 32), (2048, 256, 32, 1), (0, 8), False),     # output pointer
+])
+def test_tile_sweep_takes_16_byte_views(shape, strides, ptrs, takes):
+    """The views the sweep's 16-byte forms take are those of permute_4d's
+    16-byte route."""
+    assert P.sweep_takes(shape, strides, *ptrs) is takes
+    assert (P.permute_route(shape, strides, *ptrs) == "vec16") is takes

@@ -166,8 +166,10 @@ def test_soa_eligible():
 
 
 #: (KI, KD, BI, BD) beyond the Wilson and staggered shapes: the JAX
-#: package's test shapes, the clover term's and an asymmetric one
-NEW_SHAPES = [(2, 2, 3, 3), (1, 1, 2, 2), (1, 1, 12, 12), (2, 1, 4, 2)]
+#: package's test shapes, the clover term's, an asymmetric one, a chirally
+#: split coarse stencil and a 16-vector coarse one
+NEW_SHAPES = [(2, 2, 3, 3), (1, 1, 2, 2), (1, 1, 12, 12), (2, 1, 4, 2), (2, 2, 8, 8),
+              (1, 1, 16, 16)]
 
 
 @pytest.mark.parametrize("parity", [None, 1])

@@ -1,9 +1,10 @@
-"""Time the clover term's K1, the permute kernel K2 and the stencil's
-X-inside and X-streaming schedules beside K1 of two or more checkouts of
-the port in turns, on one card.
+"""Time the clover term's K1, the permute kernel K2, the stencil's
+X-inside and X-streaming schedules beside K1, K1's runtime-shape route and
+the transpose tile sweep E3 of two or more checkouts of the port in turns,
+on one card.
 
     python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
-                                 [--only clover permute schedules]
+                                 [--only clover permute schedules runtime sweep]
 
 Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
 checkout) is run in a process of its own, which builds that tree's kernels
@@ -25,6 +26,14 @@ calls), ms:
   Wilson operator's spin factors (the sparse spin plan); ``k1_staggered``,
   ``xin_staggered``, ``stream_staggered``: the same at (1, 1, 3, 3) without
   a kron;
+- ``rt_KIKDBIBD``: ``stencil_matvec_soa_rt`` at (2,2,3,3), (1,1,2,2),
+  (2,1,4,2), (2,2,8,8) and (1,1,16,16) on 16x16x16x32 x 8 f32, the 9
+  Wilson directions, random blocks and spin factors (none at KI = KD = 1)
+  from a seeded card generator;
+- ``sweep`` (a dict): ``permute_4d_tiled`` of a 64^4 f32 tensor, perm
+  (3,2,1,0), at each design point of the tree's own ``TILES``, beside
+  ``permute_4d`` (K2) and ``permute().contiguous()``, timed in turns with
+  each other (A B ... B A) inside the tree's process;
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -44,6 +53,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+#: the runtime-shape route's timed shapes (chip_smoke.py's K1-shape path)
+RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2), (2, 2, 8, 8), (1, 1, 16, 16))
 
 
 def worker(reps: int, solve: bool, only) -> dict:
@@ -103,6 +116,39 @@ def worker(reps: int, solve: bool, only) -> dict:
                     lambda: fn(blocks, k, x, offsets, 3, 3))
             del x
         del blocks
+    if "runtime" in only:
+        from superbblas_tpu_torch.models.wilson import wilson_offsets
+        from superbblas_tpu_torch.ops.stencil import stencil_matvec_soa_rt
+
+        lat, offsets = (16, 16, 16, 32), wilson_offsets(4)
+        for ki, kd, bi, bd in RT_SHAPES:
+            blocks = randn_c((9, bi * bd) + lat)
+            kron = randn_c((9, ki, kd)) if (ki, kd) != (1, 1) else None
+            x = randn_c((8, kd * bd) + lat)
+            out[f"rt_{ki}{kd}{bi}{bd}"] = median_ms(
+                lambda: stencil_matvec_soa_rt(blocks, kron, x, offsets, bi, bd))
+            del blocks, kron, x
+    if "sweep" in only:
+        from superbblas_tpu_torch.ops.permute import TILES, permute_4d_tiled
+
+        x = torch.randn((64, 64, 64, 64), generator=gen, device="cuda")
+        perm = (3, 2, 1, 0)
+        fns = {str(tile): (lambda tile=tile: permute_4d_tiled(x, perm, tile)) for tile in TILES}
+        fns.update(k2=lambda: permute_4d(x, perm), call=lambda: x.permute(perm).contiguous())
+        for fn in fns.values():
+            for _ in range(3):
+                fn()
+        names, times = list(fns), {k: [] for k in fns}
+        for r in range(reps):
+            for k in (names if r % 2 == 0 else names[::-1]):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                fns[k]()
+                e.record()
+                e.synchronize()
+                times[k].append(s.elapsed_time(e))
+        out["sweep"] = {k: statistics.median(v) for k, v in times.items()}
+        del x
     if solve:
         lat = (24, 24, 24, 48)
         op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
@@ -135,7 +181,7 @@ def main():
     parser.add_argument("--reps", type=int, default=15)
     parser.add_argument("--no-solve", action="store_true")
     parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
-                        choices=["clover", "permute", "schedules"])
+                        choices=["clover", "permute", "schedules", "runtime", "sweep"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
@@ -161,8 +207,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
-    print(json.dumps({"card": smi, "medians": {
-        t: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for t, rs in runs.items()}}))
+    def medians(rs):
+        return {k: ({p: statistics.median(r[k][p] for r in rs) for p in rs[0][k]}
+                    if isinstance(rs[0][k], dict) else statistics.median(r[k] for r in rs))
+                for k in rs[0]}
+
+    print(json.dumps({"card": smi, "medians": {t: medians(rs) for t, rs in runs.items()}}))
 
 
 if __name__ == "__main__":

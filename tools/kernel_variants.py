@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Design variants of K2's 16-byte route (``csrc/permute.cu``), of K1's
-block-streaming kernel (``csrc/stencil_site.cu``) and of the stencil's
-X-inside and X-streaming schedules (``csrc/stencil_schedules.cu``), on one
-NVIDIA GPU.
+block-streaming kernel (``csrc/stencil_site.cu``) and runtime-shape route
+(``csrc/stencil_rt.cu``) and of the stencil's X-inside and X-streaming
+schedules (``csrc/stencil_schedules.cu``), on one NVIDIA GPU.
 
     python tools/kernel_variants.py [--variants NAME ...] [--reps 15]
 
@@ -18,6 +18,9 @@ the package's build and the variants of a kernel in turns with CUDA events
 - K2 at 128x64x64x128 f32, perm (3,2,1,0) and (3,1,2,0);
 - K1 at (1,1,12,12), one centre direction, f32, 8 columns, on 24^3x48 and
   16^3x32;
+- K1's runtime-shape route at (2,2,3,3), (1,1,2,2), (2,1,4,2), (2,2,8,8)
+  and (1,1,16,16) on 16^3x32 x 8 f32, 9 directions, each build at the tile
+  of ``rt_tile`` and the package's build also at the tiles of ``RT_TILES``;
 - the schedules at 32^3x64 x 8 f32, Wilson (4,4,3,3) with the Wilson spin
   factors (sparse plan) and staggered (1,1,3,3), beside K1's tiled route
   at its C entry, each build with its picker's tile and with the tiles
@@ -64,6 +67,20 @@ VARIANTS = {
     "site_s3": ("stencil_site.cu", {"SBT_SITE_STAGES": 3, "SBT_SITE_MIN_BLOCKS": 2}),
     "site_s4_g2": ("stencil_site.cu", {"SBT_SITE_STAGES": 4, "SBT_SITE_GROUPS": 2,
                                        "SBT_SITE_MIN_BLOCKS": 2}),
+    "rt_minb1": ("stencil_rt.cu", {"SBT_RT_MIN_BLOCKS": 1}),
+    "rt_minb4": ("stencil_rt.cu", {"SBT_RT_MIN_BLOCKS": 4}),
+    "rt_minb3": ("stencil_rt.cu", {"SBT_RT_MIN_BLOCKS": 3}),
+    "rt_t512": ("stencil_rt.cu", {"SBT_RT_THREADS": 512, "SBT_RT_MIN_BLOCKS": 1}),
+    # ablations (wrong results; timed, not checked): no sums, no copies, no
+    # copies of x, no copies of the blocks; no sums and the blocks' copies
+    # alone, x's alone, none
+    "rt_nomath": ("stencil_rt.cu", {"SBT_RT_ABLATE": 1}),
+    "rt_nocopy": ("stencil_rt.cu", {"SBT_RT_ABLATE": 2}),
+    "rt_nox": ("stencil_rt.cu", {"SBT_RT_ABLATE": 3}),
+    "rt_noblocks": ("stencil_rt.cu", {"SBT_RT_ABLATE": 4}),
+    "rt_blocks_only": ("stencil_rt.cu", {"SBT_RT_ABLATE": 5}),
+    "rt_x_only": ("stencil_rt.cu", {"SBT_RT_ABLATE": 6}),
+    "rt_skeleton": ("stencil_rt.cu", {"SBT_RT_ABLATE": 7}),
     "sched_unroll2": ("stencil_schedules.cu", {"SBT_SCHED_UNROLL": 2}),
     "sched_cols_fastest": ("stencil_schedules.cu", {"SBT_SCHED_COLS_FASTEST": 1}),
     "sched_stream_pf0": ("stencil_schedules.cu", {"SBT_STREAM_PREFETCH": 0}),
@@ -78,6 +95,20 @@ VARIANTS = {
 SCHED_TILES = {("xin", "S16_C1"): (16, 1), ("xin", "S16_C2"): (16, 2), ("xin", "S8_C4"): (8, 4),
                ("stream", "S32_R2_C2"): (32, 2, 2), ("stream", "S32_R1_C8"): (32, 1, 8),
                ("stream", "S32_R2_C4"): (32, 2, 4)}
+#: tiles of the runtime-shape route timed on the package's build beside
+#: its picker's: each overrides some of the picker's (S, C, R, D, stages),
+#: and is timed where it launches (``rt_fits``); the rt_t512 build is timed
+#: also at 32 sites x 8 columns (512 threads at G = 2)
+RT_TILES = {"D1_s2": {"D": 1, "stages": 2}, "D1_s3": {"D": 1, "stages": 3},
+            "D2_s2": {"D": 2, "stages": 2}, "D2_s3": {"D": 2, "stages": 3},
+            "D1_s4": {"D": 1, "stages": 4},
+            "D3_s4": {"D": 3, "stages": 4}, "D9_s2": {"D": 9, "stages": 2},
+            "S16_C8": {"S": 16, "C": 8}, "S32_C4": {"S": 32, "C": 4},
+            "S8_C8": {"S": 8, "C": 8}, "R4": {"R": 4}, "R8": {"R": 8}, "R16": {"R": 16},
+            "S16": {"S": 16}, "S32": {"S": 32}, "s3": {"stages": 3}, "s4": {"stages": 4},
+            "D9_s3": {"D": 9, "stages": 3}}
+RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2), (2, 2, 8, 8), (1, 1, 16, 16))
+RT_LAT = (16, 16, 16, 32)
 SCHED_LAT = (32, 32, 32, 64)
 K2_SHAPE = (128, 64, 64, 128)
 CLOVER_LATS = ((24, 24, 24, 48), (16, 16, 16, 32))
@@ -114,6 +145,9 @@ def declare(lib) -> None:
     if hasattr(lib, "sbt_stencil_site"):
         lib.sbt_stencil_site.argtypes = [i] * 5 + [p] * 8 + [i] * 6 + [p, i, i, p]
         lib.sbt_stencil_site_attrs.argtypes = [i, i, i, p]
+    if hasattr(lib, "sbt_stencil_soa_rt"):
+        lib.sbt_stencil_soa_rt.argtypes = [i] * 5 + [p] * 8 + [i] * 6 + [p] + [i] * 6 + [p]
+        lib.sbt_stencil_soa_rt_attrs.argtypes = [i] * 11 + [p]
     if hasattr(lib, "sbt_stencil_soa_xin"):
         lib.sbt_stencil_soa_xin.argtypes = [i] * 5 + [p] * 9 + [i] * 6 + [p] + [i] * 5 + [p]
         lib.sbt_stencil_soa_stream.argtypes = [i] * 5 + [p] * 9 + [i] * 6 + [p] + [i] * 6 + [p]
@@ -151,6 +185,62 @@ def site_call(lib, blocks, x, offsets, parity=-1):
             raise RuntimeError(f"sbt_stencil_site: cudaError {err}")
         return y
     return run
+
+
+def rt_call(lib, blocks, kron, x, offsets, tile=None, parity=-1):
+    """A call of the runtime-shape route's C entry of ``lib`` (f32) at the
+    picker's tile or ``tile`` (S, C, R)."""
+    n, F, lat = x.re.shape[0], x.re.shape[1], tuple(x.re.shape[2:])
+    ki, kd = (1, 1) if kron is None else tuple(kron.re.shape[1:])
+    bd = F // kd
+    bi = blocks.re.shape[1] // bd
+    y = CArray(torch.empty((n, ki * bi) + lat, device=x.re.device),
+               torch.empty((n, ki * bi) + lat, device=x.re.device))
+    flat = [v for off in offsets for v in off]
+    offs = (ctypes.c_int * len(flat))(*flat)
+    S_, C, R, D, stages = rt_args(ki, kd, bi, bd, n, len(offsets), tile)
+    kp = (None, None) if kron is None else (kron.re.data_ptr(), kron.im.data_ptr())
+
+    def run():
+        err = lib.sbt_stencil_soa_rt(ki, kd, bi, bd, 0, blocks.re.data_ptr(),
+                                     blocks.im.data_ptr(), *kp, x.re.data_ptr(), x.im.data_ptr(),
+                                     y.re.data_ptr(), y.im.data_ptr(), n, *lat, len(offsets),
+                                     offs, parity, S_, C, R, D, stages,
+                                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sbt_stencil_soa_rt at {(S_, C, R, D, stages)}: "
+                               f"cudaError {err}")
+        return y
+    return run
+
+
+
+
+def rt_args(ki, kd, bi, bd, n, ndir, tile=None):
+    """(S, C, R, D, stages) of a call at f32: the picker's, with the
+    overrides of ``tile`` (a dict), D clipped to ndir."""
+    S_, C, R, _, D, stages = S.rt_tile(ki, kd, bi, bd, n, ndir, 4, 4)
+    args = dict(S=S_, C=C, R=R, D=D, stages=stages) | (tile or {})
+    args["D"] = min(args["D"], ndir)
+    return tuple(args[k] for k in ("S", "C", "R", "D", "stages"))
+
+
+def rt_fits(shape, tile, threads):
+    """Whether the tile (overrides of the picker's) launches at f32, 9
+    directions, 8 columns: its threads within ``threads``, its ring within
+    a block's shared memory."""
+    ki, kd, bi, bd = shape
+    S_, C, R, D, stages = rt_args(ki, kd, bi, bd, 8, 9, tile)
+    G = ki * -(-bi // R)   # the kernel's rowwise split, else R across rows
+    G = G if G <= S.RT_ROW_THREADS else -(-ki * bi // R)
+    return S.rt_threads(S_, C, G) <= threads and \
+        S.rt_smem(ki, kd, bi, bd, 9, S_, C, D, stages, 4, 4) <= S.SMEM_BYTES
+
+
+def rt_operands(shape, lat, n, gen, ndir=9):
+    ki, kd, bi, bd = shape
+    kron = randn_c((ndir, ki, kd), gen) if (ki, kd) != (1, 1) else None
+    return randn_c((ndir, bi * bd) + lat, gen), kron, randn_c((n, kd * bd) + lat, gen)
 
 
 def sched_tile(schedule, x, tile=None):
@@ -246,6 +336,24 @@ def check(name, lib, gen) -> None:
         return
     wilson = [(0, 0, 0, 0)] + [tuple(s if a == ax else 0 for a in range(4))
                                for ax in range(4) for s in (1, -1)]
+    if "SBT_RT_ABLATE" in VARIANTS[name][1]:
+        return
+    if VARIANTS[name][0] == "stencil_rt.cu":
+        tiles = [None] + ([{"S": 32, "C": 8, "R": 8}] if name == "rt_t512" else [])
+        for shape in RT_SHAPES:
+            for lat, n, offs, parity in (((3, 5, 6, 10), 9, wilson, -1),
+                                         ((2, 4, 8, 32), 8, wilson, -1),
+                                         ((3, 5, 4, 7), 3, wilson[1:], 1)):
+                blocks, kron, x = rt_operands(shape, lat, n, gen, len(offs))
+                want = S.stencil_matvec_soa_rt(blocks, kron, x, offs, shape[2], shape[3],
+                                               packed_parity=None if parity < 0 else parity)
+                for tile in tiles:
+                    got = rt_call(lib, blocks, kron, x, offs, tile, parity)()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"{name}: {shape} {lat} n={n} tile {tile} differs "
+                                             "from the package's runtime-shape route")
+        return
     if VARIANTS[name][0] == "stencil_schedules.cu":
         for lat, n in (((3, 5, 6, 8), 8), ((2, 4, 3, 16), 3), ((32, 2, 2, 8), 8)):
             blocks = randn_c((9, 9) + lat, gen)
@@ -315,6 +423,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--variants", nargs="*", default=list(VARIANTS))
     parser.add_argument("--reps", type=int, default=15)
+    parser.add_argument("--rt-tiles-on", nargs="*", default=[],
+                        help="runtime-route variants also timed at every tile of RT_TILES")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants.py needs an NVIDIA GPU")
@@ -328,15 +438,45 @@ def main():
         check(name, libs[name], gen)
     print(f"{len(args.variants)} variants equal to the reference bit for bit", flush=True)
     result = {"card": smi, "attrs": {}, "ms": {}}
+    rt = ["package"] + [n for n in args.variants if VARIANTS[n][0] == "stencil_rt.cu"]
+    if len(rt) > 1 or not args.variants:
+        for shape in RT_SHAPES:
+            blocks, kron, x = rt_operands(shape, RT_LAT, 8, gen)
+            fns = {n: rt_call(libs[n], blocks, kron, x, wilson_offsets()) for n in rt}
+            for tl, tile in RT_TILES.items():
+                if rt_fits(shape, tile, S.RT_THREADS):
+                    for n in rt:
+                        if n == "package" or n in args.rt_tiles_on:
+                            fns[f"{n} {tl}"] = rt_call(libs[n], blocks, kron, x,
+                                                       wilson_offsets(), tile)
+            t512 = {"S": 32, "C": 8, "R": 8}
+            if "rt_t512" in rt and rt_fits(shape, t512, 512):
+                fns["rt_t512 S32_C8_R8"] = rt_call(libs["rt_t512"], blocks, kron, x,
+                                                   wilson_offsets(), t512)
+            key = f"rt {shape} {RT_LAT} n=8"
+            result["ms"][key] = time_turns(fns, args.reps)
+            print(key, json.dumps(result["ms"][key]), flush=True)
+            for n in rt:
+                out = (ctypes.c_int * 4)()
+                ki, kd, bi, bd = shape
+                tile = rt_args(ki, kd, bi, bd, 8, 9)
+                if libs[n].sbt_stencil_soa_rt_attrs(ki, kd, bi, bd, 0, 9, *tile, out):
+                    raise RuntimeError(f"rt attributes of {n}")
+                result["attrs"][f"rt {n} {shape}"] = list(out)
+                print(f"rt {n} {shape} tile {tile}: registers, local bytes, threads, blocks "
+                      f"an SM {list(out)}", flush=True)
+            del blocks, kron, x
     sched = ["package"] + [n for n in args.variants
                            if VARIANTS[n][0] == "stencil_schedules.cu"]
+    if len(sched) == 1 and args.variants and len(rt) > 1:
+        sched = []   # only runtime-route variants named
     for n in sched:
         for family in ("xin", "stream"):
             result["attrs"][f"{family} {n}"] = attrs(libs[n], family)
             print(f"{family} {n}: registers, local bytes, threads, blocks an SM "
                   f"{result['attrs'][f'{family} {n}']}", flush=True)
     blocks = randn_c((9, 9) + SCHED_LAT, gen)
-    for label, kron, F in (("wilson", wilson_kron(), 12), ("staggered", None, 3)):
+    for label, kron, F in (("wilson", wilson_kron(), 12), ("staggered", None, 3)) if sched else ():
         x = randn_c((8, F) + SCHED_LAT, gen)
         fns = {"k1 tiled": tiled_call(blocks, kron, x, wilson_offsets())}
         for n in sched:
@@ -353,7 +493,7 @@ def main():
     del blocks
     for family, src in (("k2", "permute.cu"), ("site", "stencil_site.cu")):
         names = ["package"] + [n for n in args.variants if VARIANTS[n][0] == src]
-        if len(names) == 1 and len(args.variants) and set(args.variants) <= set(sched):
+        if len(names) == 1 and len(args.variants) and set(args.variants) <= set(sched) | set(rt):
             continue
         for n in names:
             result["attrs"][f"{family} {n}"] = attrs(libs[n], family)
