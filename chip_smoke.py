@@ -137,10 +137,31 @@ lattice and links, applied through K1's f64 route, and the Wilson blocks
 cast to f32 applied to bf16 fields (K1's f32-block/bf16-field pair), each
 against the plain version on the card; K1 timed at both pairs.
 
+AoS even-odd paths: ``eo_solve_packed`` on the main lattice's Wilson
+operator in the "aos" layout (main links and right-hand sides, EO_ITERS
+iterations) to a true residual <= 1e-5, its psi held against the SoA
+packed solve's; the masked ``eo_solve`` at 16^3x32 x 8 likewise; and
+``eo_solve_packed`` on the AoS staggered operator of the main links
+(mass 1.0, 40 iterations), every packed hopping one batched product on K3
+(3 (4 N + 4) launches asserted), to a true residual <= 2e-4: walls, peak
+memory, residuals.
+
+Gather path (16^3x32 = 131,072 rows, 8 columns, complex64 from the seed):
+``create_bsr`` on a Wilson-shaped 12x12-block operator open in T (merged
+into mode "stencil": E1), on a truly irregular one of 5-9 nonzeros a row
+(mode "gather": E1), and ``create_kron_bsr`` on the irregular lists with
+the Wilson spin factors of 9 slots and 3x3 colour blocks (K3); each apply
+through ``bsr_krylov`` against the plain version in f64, its launches
+asserted, timed in turns with the plain version in complex64 beside the
+bytes bound.
+
 E2 and E3: the bf16 roll-plus-add in both variants (f32 bit-exact, bf16x2
-within one bf16 ulp, elements that differ counted) at [256, 32, 256] and
-[4096, 32, 256], timed beside the plain version, torch.roll + add and
-the bytes bound; the transpose tile sweep at each design point (the
+within one bf16 ulp, elements that differ counted) in each form: vec16
+(16-byte words) at [256, 32, 256] and [4096, 32, 256], pair at [4096, 32,
+262], elem (f32) at [4096, 32, 263], each also checked at T = 6, 7, 8 and
+264; timed beside the plain version and torch.roll + add on CUDA events
+and device-only (CUDA graphs), beside the bytes bound and the bytes over
+the measured copy rate; the transpose tile sweep at each design point (the
 16-byte ring family with K2's own point, and the TMA point), exact
 against ``x.permute(3,2,1,0).contiguous()`` at 64^4 f32 and timed in turns
 beside it and K2.
@@ -179,12 +200,14 @@ from superbblas_tpu_torch.models import (adjoint_operator, apply_clover, apply_c
                                          apply_domain_wall, apply_hopping_packed_soa,
                                          apply_staggered, apply_wilson, cb_pack_soa,
                                          cg_solve, coarse_operator, domain_wall_operator,
-                                         eo_solve_packed_soa, hopping_packed_soa,
+                                         eo_solve, eo_solve_packed, eo_solve_packed_soa,
+                                         gamma_matrices, hopping_packed_soa,
                                          mobius_operator, multigrid, random_su3_links,
                                          staggered_operator, twisted_mass_operator,
                                          wilson_clover_operator, wilson_offsets,
                                          wilson_operator)
-from superbblas_tpu_torch.bsr import BSROperator, bsr_cast_storage
+from superbblas_tpu_torch.bsr import (BSROperator, bsr_cast_storage, bsr_krylov, create_bsr,
+                                      create_kron_bsr)
 from superbblas_tpu_torch.ops import _cuda
 from superbblas_tpu_torch.ops import batched_gemm as gemm_ops
 from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_gemm_rowpack,
@@ -192,9 +215,10 @@ from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_g
                                                    batched_small_gemm_reference)
 from superbblas_tpu_torch.ops.permute import (TILES, maybe_permute, permute_4d,
                                               permute_4d_reference, permute_4d_tiled)
-from superbblas_tpu_torch.ops.roll_add import VARIANTS, roll_add, roll_add_reference
+from superbblas_tpu_torch.ops.roll_add import (VARIANTS, roll_add, roll_add_form,
+                                               roll_add_reference)
 from superbblas_tpu_torch.ops import stencil as stencil_ops
-from superbblas_tpu_torch.ops.stencil import (clear_plans, soa_to_aos, spin_plan,
+from superbblas_tpu_torch.ops.stencil import (aos_to_soa, clear_plans, soa_to_aos, spin_plan,
                                               stencil_matvec_soa,
                                               stencil_matvec_soa_reference,
                                               stencil_matvec_soa_rt,
@@ -372,6 +396,7 @@ def reset_counts():
         fn.by_shape.clear()
     stencil_matvec_soa.by_route.clear()
     permute_4d.by_route.clear()
+    roll_add.by_form.clear()
     stencil_matvec_soa.plan_builds = 0
     stencil_matvec_soa.kron_reads = 0
 
@@ -804,7 +829,6 @@ def eo_path(op, b, profile: bool):
     if launches != expected:
         raise AssertionError(f"{launches} kernel launches in the eo solve, "
                              f"expected {expected}")
-    del psi
 
     t0 = time.perf_counter()
     x, _ = cg_solve(op, b, n_iters=CG_SAME_ITERS)
@@ -842,7 +866,7 @@ def eo_path(op, b, profile: bool):
     del he, ho, rhs, x_e, r
     if profile:
         profile_run("eo solve", lambda: eo_solve_packed_soa(op, b, a=a, n_iters=EO_ITERS))
-    return launches, err, ms, hop_bound
+    return launches, err, ms, hop_bound, psi
 
 
 def exact(got, want, label):
@@ -1553,7 +1577,34 @@ P2_LAT, P2_LS, P2_COLS, DEFAULT_LAT = (8, 8, 8, 16), 8, 2, (4, 4, 4, 8)
 #: E2 shapes: the probe's and one that resolves on the card; E3's: the
 #: probe's 64^4 f32
 E2_SHAPES = ((256, 32, 256), (4096, 32, 256))
+#: E2's other forms, timed at the large shape's size: an even T not a
+#: multiple of 8 (pair) and an odd one (elem, the f32 variant); and the
+#: small T at which every form is checked
+E2_FORM_SHAPES = {"pair": (4096, 32, 262), "elem": (4096, 32, 263)}
+E2_CHECK_T = (6, 7, 8, 264)
 E3_SHAPE = (64, 64, 64, 64)
+#: the AoS staggered packed solve: its mass and Schur CG iterations (f32,
+#: 8^3x16, links from seed 0, 8 rhs, on the CPU: mass 1.0, 40 iterations
+#: -> |D psi - b| / |b| 5.3e-5; at the SoA path's mass 0.1 the Schur
+#: complement's condition, about 1600 and squared by the normal equations,
+#: leaves 0.42 after 80), and the true residual it is held to (a margin of
+#: 4); the masked eo_solve's lattice (it runs twice the packed solve's work
+#: on full-lattice arrays)
+AOS_STAG_MASS, AOS_STAG_ITERS, AOS_STAG_RES = 1.0, 40, 2e-4
+MASKED_EO_LAT = (16, 16, 16, 32)
+#: the AoS packed psi against the SoA packed psi of the same b, |d| / |psi|:
+#: both f32 solves run the same Schur CG iterations and differ only in the
+#: order of their sums (1.4e-7 at 8^3x16 x 8, 14 iterations, on the CPU);
+#: inner products over the 64x larger lattice round about 8x more (the
+#: square root of their terms), so 1e-5 leaves a margin of 9
+AOS_SOA_PSI_TOL = 1e-5
+#: gather path: 16^3x32 rows, 8 columns, complex64, 12x12 blocks (3x3
+#: colour blocks with 4x4 spin factors for the kron operator); each row of
+#: the irregular operator holds its own site and 4-8 random domain sites
+GATHER_LAT, GATHER_COLS, GATHER_BLOCK, GATHER_NNZ = (16, 16, 16, 32), 8, 12, (5, 9)
+#: a gather apply against the plain version in f64, relative to max |y|: f32
+#: sums of up to 108 complex products a part
+GATHER_TOL = 1e-5
 
 
 def g5(v: CArray, feature_axis: int) -> CArray:
@@ -2124,54 +2175,347 @@ def families_aos_check(gen):
     return launches, err
 
 
-def e2_path(gen):
-    """E2, the bf16 roll-plus-add, in both variants through ``roll_add``:
-    each once at the probe's shape with the counts set to 0 just before and
-    read just after; f32 bit-exact against the plain version, bf16x2
-    within one bf16 ulp (elements that differ counted); then each timed at
-    E2_SHAPES in turns with the plain version and torch.roll + add in
-    bf16, beside the bytes bound.  Returns {variant: (launches, max abs
-    error, {shape: {name: ms}}, {shape: bound})}."""
-    xs = {shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()
-          for shape in E2_SHAPES}
-    x = xs[E2_SHAPES[0]]
+def aos_eo_path(op, b, psi_soa, links, gen):
+    """The AoS even-odd functions on the card.  ``eo_solve_packed`` on the
+    main lattice's Wilson operator in the "aos" layout (the main links, f32)
+    from the main right-hand sides, EO_ITERS Schur CG iterations, as the
+    SoA eo path: wall, peak memory, true residual |D psi - b| / |b| (K1 on
+    the SoA operator) <= 1e-5, and psi against the SoA packed solve's
+    ``psi_soa`` within AOS_SOA_PSI_TOL; then the masked ``eo_solve`` at
+    MASKED_EO_LAT x 8 (links from seed 0), likewise.  Their colour and spin
+    contractions are torch.einsum (the spin factors keep the AoS kron
+    mode off the batched product).  Returns {"packed": (wall s, peak GiB,
+    residual, |d|/|psi|), "masked": (wall s, peak GiB, residual)}."""
+    n, a = MAIN_COLS, MASS + 4.0
+    t0 = time.perf_counter()
+    op_a = wilson_operator(MAIN_LAT, mass=MASS, links=links, layout="aos", device="cuda")
+    b_a = soa_to_aos(b, 4, 4, 3)
+    torch.cuda.synchronize()
+    print(f"aos_eo path: AoS Wilson operator {MAIN_LAT} built in "
+          f"{time.perf_counter() - t0:.2f} s (mode {op_a.mode}, blocks "
+          f"{tuple(op_a.blocks_re.shape)})", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    psi, rs = eo_solve_packed(op_a, b_a, a=a, n_iters=EO_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del op_a, b_a
+    psi_s = aos_to_soa(psi, 4)
+    del psi
+    finite = all(bool(torch.isfinite(q).all()) for q in psi_s)
+    res = true_residual(op, psi_s, b)
+    d = norm(CArray(psi_s.re - psi_soa.re, psi_s.im - psi_soa.im)) / norm(psi_soa)
+    print(f"aos_eo path {MAIN_LAT} x {n} rhs: eo_solve_packed (AoS) {EO_ITERS} iters "
+          f"{wall:.3f} s, peak memory {peak:.2f} GiB, |r_e|^2={float(rs):.4e}, true rel "
+          f"residual {res:.3e} (<= 1e-5), |psi_aos - psi_soa| / |psi_soa| {d:.3e} "
+          f"(<= {AOS_SOA_PSI_TOL}), finite {finite}", flush=True)
+    if not (finite and tuple(psi_s.re.shape) == tuple(b.re.shape) and res <= 1e-5
+            and d <= AOS_SOA_PSI_TOL):
+        raise AssertionError("the AoS packed eo solve disagrees with the SoA one")
+    del psi_s
+
+    lm = MASKED_EO_LAT
+    t0 = time.perf_counter()
+    links_m = random_su3_links(np.random.default_rng(0), lm)
+    op_m = wilson_operator(lm, mass=MASS, links=links_m, layout="aos", device="cuda")
+    op_ms = wilson_operator(lm, mass=MASS, links=links_m, layout="soa", device="cuda")
+    bm = randn_c((n, 12) + lm, gen)
+    torch.cuda.synchronize()
+    print(f"aos_eo path: masked-solve operators {lm} built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    psi_m, rs_m = eo_solve(op_m, soa_to_aos(bm, 4, 4, 3), a=a, n_iters=EO_ITERS)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
+    psi_ms = aos_to_soa(psi_m, 4)
+    res_m = true_residual(op_ms, psi_ms, bm)
+    finite = all(bool(torch.isfinite(q).all()) for q in psi_ms)
+    print(f"aos_eo path {lm} x {n} rhs: eo_solve (masked, AoS) {EO_ITERS} iters "
+          f"{wall_m:.3f} s, peak memory {peak_m:.2f} GiB, |r_e|^2={float(rs_m):.4e}, true "
+          f"rel residual {res_m:.3e} (<= 1e-5), finite {finite}", flush=True)
+    if not (finite and res_m <= 1e-5):
+        raise AssertionError("the masked AoS eo solve did not reach its residual")
+    return {"packed": (wall, peak, res, d), "masked": (wall_m, peak_m, res_m)}
+
+
+def aos_staggered_eo_path(links, gen):
+    """``eo_solve_packed`` on the AoS staggered operator of the main
+    lattice and links (f32, mass AOS_STAG_MASS, AOS_STAG_ITERS iterations),
+    8 right-hand sides: every packed hopping apply one batched product of
+    J = 8 x 3 = 24 a Gauss part on K3 (the counts set to 0 just before the
+    solve and read just after: 3 (4 N + 4) K3 launches, none of E1), and
+    the true residual |D psi - b| / |b| <= AOS_STAG_RES.  Returns (K3
+    launches, wall s, peak GiB, residual)."""
+    t0 = time.perf_counter()
+    op = staggered_operator(MAIN_LAT, mass=AOS_STAG_MASS, links=links, layout="aos",
+                            device="cuda")
+    b = randn_c(MAIN_LAT + (3, MAIN_COLS), gen)
+    torch.cuda.synchronize()
+    print(f"aos_staggered_eo path {MAIN_LAT} mass {AOS_STAG_MASS}: AoS operator built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    got = {v: roll_add(x, v) for v in VARIANTS}
+    t0 = time.perf_counter()
+    psi, rs = eo_solve_packed(op, b, a=AOS_STAG_MASS, n_iters=AOS_STAG_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = apply_staggered(op, psi)
+    res = norm(CArray(r.re - b.re, r.im - b.im)) / norm(b)
+    finite = all(bool(torch.isfinite(q).all()) for q in psi)
+    expected = 3 * (4 * AOS_STAG_ITERS + 4)
+    print(f"aos_staggered_eo path {MAIN_LAT} x {MAIN_COLS} rhs: eo_solve_packed {AOS_STAG_ITERS} "
+          f"iters {wall:.3f} s, peak memory {peak:.2f} GiB, |r_e|^2={float(rs):.4e}, true rel "
+          f"residual {res:.3e} (<= {AOS_STAG_RES}), K3 launches "
+          f"{counts['batched_small_gemm']} (expected {expected}), E1 "
+          f"{counts['batched_gemm_rowpack']}, finite {finite}", flush=True)
+    if not (counts["batched_small_gemm"] == expected and counts["batched_gemm_rowpack"] == 0
+            and res <= AOS_STAG_RES and finite):
+        raise AssertionError("the AoS staggered packed solve did not run on K3 to its residual")
+    return counts["batched_small_gemm"], wall, peak, res
+
+
+def _lattice_coords(lat):
+    return np.stack(np.meshgrid(*[np.arange(d) for d in lat], indexing="ij"), axis=-1)
+
+
+def open_t_lists(lat):
+    """(ii, jj) of a Wilson-shaped operator open in T: each row's valid
+    offsets of WILSON_OFFSETS first (the T faces lack one), the padded
+    slots pointing at the row's own site."""
+    coords = _lattice_coords(lat)
+    tgt = coords[..., None, :] + np.asarray(WILSON_OFFSETS)          # [*lat, 9, 4]
+    valid = (tgt[..., 3] >= 0) & (tgt[..., 3] < lat[3])
+    tgt = np.where(valid[..., None], tgt % np.asarray(lat), coords[..., None, :])
+    order = np.argsort(~valid, axis=-1, kind="stable")
+    return valid.sum(-1), np.take_along_axis(tgt, order[..., None], axis=-2)
+
+
+def irregular_lists(lat, seed):
+    """(ii, jj) of a truly irregular operator: row s holds its own site,
+    then GATHER_NNZ[0] - 1 to GATHER_NNZ[1] - 1 random domain sites."""
+    rng = np.random.default_rng(seed)
+    lo, hi = GATHER_NNZ
+    ii = rng.integers(lo, hi + 1, size=lat)
+    jj = np.stack([rng.integers(0, d, size=lat + (hi,)) for d in lat], axis=-1)
+    jj[..., 0, :] = _lattice_coords(lat)
+    return ii, jj
+
+
+def gather_index(ii, jj, lat):
+    """(flat domain sites [V * nnz], valid slots [V, nnz]) of neighbour
+    lists, on the card."""
+    nnz = jj.shape[-2]
+    flat = torch.as_tensor((jj * bsr._c_strides(lat)).sum(-1).reshape(-1), device="cuda")
+    mask = torch.as_tensor(np.arange(nnz)[None, :] < ii.reshape(-1, 1), device="cuda")
+    return flat, mask
+
+
+def gather_plain(index, lat, colour, x, dtype, spin=None):
+    """The plain version of a create_bsr (or, with ``spin``, create_kron_bsr)
+    apply in ``dtype``: y[s] = sum over the valid slots k of block[s, k]
+    x[jj[s, k]], by index_select and torch.einsum.  ``index``:
+    gather_index's; colour: CArray [*lat, nnz, BI, BD]; x: complex [*lat,
+    (KD,) BD, N]."""
+    flat, mask = index
+    V, nnz = mask.shape
+    c = torch.complex(colour.re, colour.im).to(dtype).reshape((V, nnz) + colour.re.shape[-2:])
+    c = c * mask[..., None, None]
+    xg = x.to(dtype).reshape((V,) + x.shape[len(lat):]).index_select(0, flat)
+    xg = xg.reshape((V, nnz) + xg.shape[1:])
+    with cplx._full_f32():
+        if spin is None:
+            y = torch.einsum("vkij,vkjn->vin", c, xg)
+        else:
+            t = torch.einsum("vkcd,vkbdn->vkbcn", c, xg)
+            y = torch.einsum("kab,vkbcn->vacn", spin.to(dtype), t)
+    return y.reshape(tuple(lat) + y.shape[1:])
+
+
+def wilson_spin_factors():
+    """The Wilson operator's 9 spin factors at MASS (the centre, then
+    -(1 -+ gamma_mu)/2 for +-mu), complex64 on the card."""
+    g = gamma_matrices()
+    eye = np.eye(4)
+    k = [(MASS + 4.0) * eye] + [-0.5 * (eye + s * g[mu]) for mu in range(4) for s in (-1, 1)]
+    return torch.as_tensor(np.stack(k), dtype=torch.complex64, device="cuda")
+
+
+def gather_path(gen):
+    """The gather modes of ``create_bsr``/``create_kron_bsr`` at GATHER_LAT
+    (131,072 rows) x GATHER_COLS columns, complex64 values from the seed:
+    (a) a Wilson-shaped 12x12-block operator open in T, merged into
+    mode "stencil" (one batched product of J = 9 x 12 = 108 a Gauss part:
+    E1); (b) a truly irregular one of 5-9 nonzeros a row, mode "gather"
+    (J = 108: E1); (c) ``create_kron_bsr`` on (b)'s lists with the Wilson
+    spin factors of 9 slots and 3x3 colour blocks (its colour stage
+    [voli*9, 3, 3] @ [voli*9, 3, 32]: K3).  Each apply through
+    ``bsr_krylov`` with the counts set to 0 just before and read just
+    after, held against the plain version in f64 within GATHER_TOL of max
+    |y|, then timed in turns with the plain version in complex64, beside
+    its bytes bound.  Returns {case: (launches {"k3", "e1"}, max abs error,
+    {"kernel", "plain"}: ms, (bound ms, by), mode)}."""
+    lat, n, bw = GATHER_LAT, GATHER_COLS, GATHER_BLOCK
+    V = int(np.prod(lat))
+    nl = len(lat)
+    labels = "xyzt"
+    t0 = time.perf_counter()
+    lists = {"a": open_t_lists(lat), "b": irregular_lists(lat, 7)}
+    print(f"gather path {lat}: neighbour lists built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out = {}
+    for case in ("a", "b", "c"):
+        ii, jj = lists["a" if case == "a" else "b"]
+        nnz = jj.shape[-2]
+        kron = case == "c"
+        blk = 3 if kron else bw
+        colour = randn_c(lat + (nnz, blk, blk), gen)
+        t0 = time.perf_counter()
+        if kron:
+            spin = wilson_spin_factors()
+            op = create_kron_bsr(labels + "Sc", lat + (4, 3), labels + "Sc", lat + (4, 3),
+                                 (1,) * nl + (1, 3), (1,) * nl + (1, 3), (1,) * nl + (4, 1),
+                                 (1,) * nl + (4, 1), ii, jj, colour, spin, device="cuda")
+            xshape, ox = lat + (4, 3, n), labels + "Scn"
+        else:
+            spin = None
+            op = create_bsr(labels + "s", lat + (bw,), labels + "c", lat + (bw,),
+                            (1,) * nl + (bw,), (1,) * nl + (bw,), ii, jj, colour,
+                            device="cuda")
+            xshape, ox = lat + (bw, n), labels + "cn"
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        x = torch.complex(torch.randn(xshape, generator=gen, device="cuda"),
+                          torch.randn(xshape, generator=gen, device="cuda"))
+        reset_counts()
+        with captured_gemms() as calls:
+            y = bsr_krylov(1.0, op, x, ox)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches = {"k3": counts["batched_small_gemm"], "e1": counts["batched_gemm_rowpack"]}
+        want_mode = "stencil" if case == "a" else "gather"
+        want_launch = {"k3": 3 if kron else 0, "e1": 0 if kron else 3}
+        index = gather_index(ii, jj, lat)
+        want = gather_plain(index, lat, colour, x, torch.complex128, spin)
+        err = float((y.to(torch.complex128) - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"check gather ({case}) {lat} x {n}: create_{'kron_' if kron else ''}bsr mode "
+              f"{op.mode} (expected {want_mode}), {len(op.offsets) or op.ndir} "
+              f"{'offsets' if op.offsets else 'slots'}, built in {build:.2f} s; launches "
+              f"{launches} (expected {want_launch}); max|d| vs the plain version in f64 "
+              f"{err:.3e} max|y| {scale:.3e} rel {err / scale:.3e} (<= {GATHER_TOL})",
+              flush=True)
+        if not (op.mode == want_mode and launches == want_launch
+                and err <= GATHER_TOL * scale and y.shape == want.shape):
+            raise AssertionError(f"gather case ({case}) disagrees or missed its kernel")
+        del y, want
+        ms = time_turns({"kernel": lambda: bsr_krylov(1.0, op, x, ox),
+                         "plain": lambda: gather_plain(index, lat, colour, x,
+                                                       torch.complex64, spin)}, reps=5)
+        slots = int(ii.sum())
+        nbytes = (2 * op.blocks_re.numel() * op.blocks_re.element_size()
+                  + x.numel() * x.element_size()
+                  + V * (4 if kron else 1) * blk * n * x.element_size())
+        flops = 8 * slots * n * (blk * blk * 4 + 16 * blk if kron else blk * blk)
+        bd_ = bound(nbytes, flops)
+        print(f"time gather ({case}) {lat} x {n}: apply {ms['kernel']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms (medians of 5 in turns); bound {bd_[0]:.4f} ms "
+              f"({bd_[1]}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP for the {slots} "
+              f"valid slots)", flush=True)
+        # one of the apply's three products alone, on its kernel and on
+        # torch.bmm (the share of the apply the kernel takes)
+        pb, px = calls[0]
+        kernel = batched_small_gemm if batched_gemm_route(
+            pb.shape[1], pb.shape[2], pb.dtype) == "small" else batched_gemm_rowpack
+        prod = {"kernel": graph_ms(lambda: kernel(pb, px)),
+                "bmm": graph_ms(lambda: torch.bmm(pb, px))}
+        print(f"time gather ({case}) product {tuple(pb.shape)} @ {tuple(px.shape)} "
+              f"{pb.dtype} device-only ({GRAPH_CALLS} calls a CUDA graph): "
+              f"{kernel.__name__} {prod['kernel']:.4f} ms, torch.bmm {prod['bmm']:.4f} ms "
+              f"(three such products an apply)", flush=True)
+        out[case] = (launches, err, ms, bd_, op.mode, prod)
+        del op, colour, x, calls, pb, px
+    return out
+
+
+def e2_path(gen, rate):
+    """E2, the bf16 roll-plus-add, through ``roll_add``: each form driven
+    once (the counts set to 0 just before and read just after): vec16 in
+    both variants at E2_SHAPES, pair in both at E2_FORM_SHAPES["pair"],
+    elem (the f32 variant) at E2_FORM_SHAPES["elem"]; f32 bit-exact
+    against the plain version, bf16x2 within one bf16 ulp (elements that
+    differ counted), every form also checked at T of E2_CHECK_T; then each
+    timed in turns with the plain version and torch.roll + add in bf16 on
+    CUDA events and device-only (GRAPH_CALLS calls a CUDA graph), beside
+    the bytes bound and the bytes over the measured copy ``rate``.  Returns
+    {(variant, form): (launches, max abs error, {shape: {name: ms}},
+    {shape: bound})}."""
+    shapes = {"vec16": E2_SHAPES, "pair": (E2_FORM_SHAPES["pair"],),
+              "elem": (E2_FORM_SHAPES["elem"],)}
+    rows = [(v, f) for f in ("vec16", "pair") for v in VARIANTS] + [("f32", "elem")]
+    xs = {shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()
+          for f in shapes for shape in shapes[f]}
+    reset_counts()
+    for v, f in rows:
+        for shape in shapes[f]:
+            roll_add(xs[shape], v)
     torch.cuda.synchronize()
     launches = read_counts()["roll_add"]
-    if launches != len(VARIANTS):
-        raise AssertionError(f"E2 path launches {launches}, expected {len(VARIANTS)}")
+    by_form = dict(roll_add.by_form)
+    expect = {f: sum(len(shapes[f]) for v, ff in rows if ff == f) for f in shapes}
+    print(f"E2 path launches {launches}, by form {by_form} (expected {expect})", flush=True)
+    if by_form != expect:
+        raise AssertionError(f"E2 forms launched {by_form}, expected {expect}")
+
+    def check(x, v, label):
+        y = roll_add(x, v)
+        want = roll_add_reference(x)
+        d = (y.float() - want.float()).abs()
+        ulp = 2.0 ** -7 * torch.clamp_min(want.float().abs(), 2.0 ** -126)
+        ndiff = int((y != want).sum())
+        ok = bool((d <= ulp).all()) and (v != "f32" or ndiff == 0)
+        print(f"check E2 {v} {label}: {ndiff} of {x.numel()} elements differ from the plain "
+              f"version, max|d| {float(d.max()):.3e} "
+              f"{'(bit-exact required)' if v == 'f32' else '(<= 1 bf16 ulp)'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"E2 {v} {label} disagrees with the plain version")
+        return float(d.max())
+
     out = {}
-    for v in VARIANTS:
-        errs = 0.0
-        for shape, xx in xs.items():
-            y = roll_add(xx, v)
-            want = roll_add_reference(xx)
-            d = (y.float() - want.float()).abs()
-            ulp = 2.0 ** -7 * torch.clamp_min(want.float().abs(), 2.0 ** -126)
-            ndiff = int((y != want).sum())
-            ok = bool((d <= ulp).all()) and (v != "f32" or ndiff == 0)
-            print(f"check E2 {v} {shape}: {ndiff} of {xx.numel()} elements differ from the "
-                  f"plain version, max|d| {float(d.max()):.3e} "
-                  f"{'(bit-exact required)' if v == 'f32' else '(<= 1 bf16 ulp)'} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise AssertionError(f"E2 {v} disagrees with the plain version")
-            errs = max(errs, float(d.max()))
-        out[v] = [launches // len(VARIANTS), errs, {}, {}]
-    del got
-    for shape, xx in xs.items():
-        fns = {v: (lambda v=v: roll_add(xx, v)) for v in VARIANTS}
-        fns.update(plain=lambda: roll_add_reference(xx),
-                   roll_bf16=lambda: torch.roll(xx, 1, dims=-1) + xx)
-        ms = time_turns(fns, reps=25)
-        bd_ = bound(2 * xx.numel() * xx.element_size(), xx.numel())
-        print(f"time E2 {shape} bf16: " + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
-              + f" (medians of 25 in turns); bound {bd_[0]:.4f} ms ({bd_[1]})", flush=True)
-        for v in VARIANTS:
-            out[v][2][shape] = {"kernel": ms[v], "plain": ms["plain"],
-                                "roll_bf16": ms["roll_bf16"]}
-            out[v][3][shape] = bd_
+    for v, f in rows:
+        err = max(check(xs[shape], v, f"{f} {shape}") for shape in shapes[f])
+        out[v, f] = [len(shapes[f]), err, {}, {}]
+    for T in E2_CHECK_T:
+        x = torch.randn((33, 17, T), generator=gen, device="cuda").bfloat16()
+        form = roll_add_form(T, x.data_ptr(), x.data_ptr())
+        for v in VARIANTS if T % 2 == 0 else ("f32",):
+            check(x, v, f"{form} (33, 17, {T})")
+    for f, fshapes in shapes.items():
+        for shape in fshapes:
+            xx = xs[shape]
+            fns = {v: (lambda v=v: roll_add(xx, v)) for v, ff in rows if ff == f}
+            fns.update(plain=lambda: roll_add_reference(xx),
+                       roll_bf16=lambda: torch.roll(xx, 1, dims=-1) + xx)
+            ms = time_turns(fns, reps=25)
+            dev = {k: graph_ms(fn) for k, fn in fns.items()}
+            nbytes = 2 * xx.numel() * xx.element_size()
+            bd_ = bound(nbytes, xx.numel())
+            print(f"time E2 {f} {shape} bf16: " + ", ".join(
+                f"{k} {t:.4f} ms (device-only {dev[k]:.4f})" for k, t in ms.items())
+                + f" (medians of 25 in turns; {GRAPH_CALLS} calls a CUDA graph); bound "
+                f"{bd_[0]:.4f} ms ({bd_[1]}), at the measured copy rate "
+                f"{nbytes / rate * 1e3:.4f} ms", flush=True)
+            for v, ff in rows:
+                if ff == f:
+                    out[v, f][2][shape] = {"kernel": ms[v], "plain": ms["plain"],
+                                           "roll_bf16": ms["roll_bf16"],
+                                           "kernel_device": dev[v], "plain_device": dev["plain"]}
+                    out[v, f][3][shape] = bd_
     return out
 
 
@@ -2273,15 +2617,18 @@ def main():
     if launches == 0:
         raise AssertionError("the Wilson path launched no stencil kernel")
     s_launches, s_err, ms = schedule_path(op, b)
-    eo_launches, eo_err, eo_ms, eo_bound = eo_path(op, b, args.profile)
+    eo_launches, eo_err, eo_ms, eo_bound, eo_psi = eo_path(op, b, args.profile)
     if eo_launches == 0:
         raise AssertionError("the even-odd path launched no packed stencil kernel")
+    aos_eo = aos_eo_path(op, b, eo_psi, links, gen)
+    del eo_psi
     k1_bound = stencil_bound(op.blocks, op.kron, b, op.offsets, 3, 3)
     del op
     p2 = p2_path(links, b, gen)
     tm_launches = twisted_mass_path(links, b)
     del b
     staggered = staggered_path(links, gen)
+    stag_eo = aos_staggered_eo_path(links, gen)
     del links
     if min(clover[0], moebius[0], staggered[0], tm_launches) == 0:
         raise AssertionError("a family's path launched no stencil kernel")
@@ -2290,9 +2637,15 @@ def main():
     if p_launches == 0:
         raise AssertionError("the dense path launched no permute kernel")
     p_ms, (p_bound_ms, p_bound_by), p_route = time_permute(gen)
-    e2 = e2_path(gen)
+    gather = gather_path(gen)
+    e2 = e2_path(gen, rate)
     e3, e3_k2_ms, e3_call_ms, e3_bound = e3_path(gen)
 
+    print(f"walls: AoS packed eo solve {aos_eo['packed'][0]:.3f} s ({aos_eo['packed'][1]:.2f} "
+          f"GiB), masked eo solve {MASKED_EO_LAT} {aos_eo['masked'][0]:.3f} s "
+          f"({aos_eo['masked'][1]:.2f} GiB), AoS staggered packed eo solve {stag_eo[1]:.3f} s "
+          f"({stag_eo[2]:.2f} GiB); gather applies " + ", ".join(
+              f"({c}) {g[2]['kernel']:.4f} ms" for c, g in gather.items()), flush=True)
     print(f"chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)
     # K1's rows: bound_ms against the operations of the spin plan,
@@ -2368,19 +2721,23 @@ def main():
         "plain_device_ms": times["plain_device"], "library_device_ms": times["bmm_device"]}
         for fn, replaces, launches, err, (times, bd) in (
             (batched_small_gemm, "superbblas_tpu/ops/batched_gemm_pallas.py:99",
-             vc_launches["batched_small_gemm"] + aos_launches["k3"],
+             vc_launches["batched_small_gemm"] + aos_launches["k3"] + stag_eo[0]
+             + gather["c"][0]["k3"],
              max(gemm_err["k3"], vc_err["k3"], aos_err), gemm_ms["k3", K3_TIME_SHAPE]),
             (batched_gemm_rowpack, "experiments/bgemm_rowpack_probe.py:32",
              c_launches + vc_launches["batched_gemm_rowpack"] + aos_launches["e1"]
-             + dc_launches, max(gemm_err["e1"], c_err, vc_err["e1"], aos_err, dc_err),
+             + dc_launches + gather["a"][0]["e1"] + gather["b"][0]["e1"],
+             max(gemm_err["e1"], c_err, vc_err["e1"], aos_err, dc_err),
              gemm_ms["e1", E1_TIME_SHAPE]))] + [{
-        "name": f"roll_add[{v}]", "route": "cuda",
+        "name": f"roll_add[{v} {f}]", "route": "cuda", "form": f,
         "source": "superbblas_tpu_torch/csrc/roll_add.cu",
         "replaces": "experiments/stencil_bf16_roll_probe.py:88",
-        "launches": e2[v][0], "max_abs_err": e2[v][1],
-        "ms": e2[v][2][E2_SHAPES[1]]["kernel"], "plain_ms": e2[v][2][E2_SHAPES[1]]["plain"],
-        "bound_ms": e2[v][3][E2_SHAPES[1]][0], "bound_by": e2[v][3][E2_SHAPES[1]][1],
-        "library_ms": None} for v in VARIANTS] + [{
+        "launches": launches, "max_abs_err": err, "shape": list(shape),
+        "ms": t[shape]["kernel"], "plain_ms": t[shape]["plain"],
+        "device_ms": t[shape]["kernel_device"], "plain_device_ms": t[shape]["plain_device"],
+        "bound_ms": bd_[shape][0], "bound_by": bd_[shape][1], "library_ms": None}
+        for (v, f), (launches, err, t, bd_) in e2.items()
+        for shape in (E2_SHAPES[1] if f == "vec16" else E2_FORM_SHAPES[f],)] + [{
         "name": f"permute_4d_tiled[{','.join(map(str, tile))}]", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/permute.cu",
         "replaces": "experiments/permute_pallas.py:45", "form": tile[0],

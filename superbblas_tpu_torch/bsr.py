@@ -1,6 +1,6 @@
 """Block-sparse lattice operators (counterpart of ``superbblas_tpu/bsr.py``).
 
-Two storage modes of a regular nearest-neighbour stencil:
+Three storage modes:
 
 * ``"stencil"`` (AoS, label order): ``blocks [*lat, ndir, BI, BD]``,
   optional spin factors ``kron [ndir, KI, KD]``.  The matvec
@@ -12,11 +12,19 @@ Two storage modes of a regular nearest-neighbour stencil:
 * ``"stencil_soa"`` (structure of arrays): ``blocks [ndir, BI*BD, *lat]``
   (split complex); the matvec is the stencil kernel of ``ops/stencil.py``
   on operands ``[ncols, KD*BD, *lat]``.
+* ``"gather"`` (irregular neighbour lists): ``blocks [*lat_i, nnz, BI,
+  BD]`` (padded slots zero), ``jj_flat [voli, nnz]`` flat domain sites,
+  ``row_counts [voli]``.  ``_apply_gather`` gathers the operand rows and
+  runs ONE batched product [voli, BI, nnz*BD] @ [voli, nnz*BD, N] through
+  ``ops/batched_gemm.py``; ``_apply_gather_kron`` contracts colour for
+  each (site, slot) as one batched product, then the spin factors.
 
-``bsr_krylov`` applies either to fields in any label order, with
-``alpha``/``beta``/``y`` and operator powers (``okr``).  The gather modes
-of irregular operators (``create_bsr``, ``create_kron_bsr``) are still to
-port.
+``create_bsr`` builds an operator from the reference's per-row neighbour
+lists (``ii``/``jj``) and picks the mode as the JAX package does: a
+uniform stencil, a near-uniform pattern merged into a stencil with zero
+blocks, else a gather plan; ``create_kron_bsr`` adds spin factors.
+``bsr_krylov`` applies any mode to fields in any label order, with
+``alpha``/``beta``/``y`` and operator powers (``okr``).
 """
 
 from __future__ import annotations
@@ -36,11 +44,10 @@ from .ops.stencil import aos_to_soa, soa_eligible, soa_to_aos, stencil_matvec_so
 
 __all__ = ["BSROperator", "bsr_from_stencil", "bsr_cast_storage",
            "apply_stencil_soa", "operator_from_numpy", "bsr_krylov",
-           "bsr_get_preferred_layout", "create_bsr", "create_kron_bsr"]
+           "bsr_get_preferred_layout", "bsr_allowed_layouts", "create_bsr",
+           "create_kron_bsr"]
 
-_GATHER_TODO = ("the gather modes of irregular operators (create_bsr, "
-                "create_kron_bsr, _apply_gather*) are still to port: ROADMAP.md "
-                "Queue 1 item 3")
+MODES = ("stencil", "stencil_soa", "gather")
 
 
 def _coor(v) -> Coor:
@@ -69,26 +76,35 @@ def _astype(a, dtype):
 
 
 class BSROperator(nn.Module):
-    """A nearest-neighbour lattice operator in mode ``"stencil"`` (AoS
-    blocks ``[*lat, ndir, BI, BD]``) or ``"stencil_soa"`` (blocks
-    ``[ndir, BI*BD, *lat]``).
+    """A lattice operator in mode ``"stencil"`` (AoS blocks ``[*lat, ndir,
+    BI, BD]``), ``"stencil_soa"`` (blocks ``[ndir, BI*BD, *lat]``) or
+    ``"gather"`` (AoS blocks ``[*lat_i, nnz, BI, BD]`` with ``jj_flat``
+    [voli, nnz] flat domain sites and ``row_counts`` [voli] valid slots a
+    row).
 
     ``blocks``/``kron`` are held as buffers (``blocks_re``, ``blocks_im``,
-    ``kron_re``, ``kron_im``; an ``_im`` of None marks real AoS data), so
+    ``kron_re``, ``kron_im``; an ``_im`` of None marks real AoS data), and
+    so are ``jj_flat`` (int64) and ``row_counts`` (int32), so
     ``.to(device)`` moves them; ``offsets[d]`` is the lattice offset of
-    direction d (domain site = image site + offset, toroidal);
-    ``bi``/``bd``/``ki``/``kd`` are the block and spin factor extents;
-    ``oim``/``odm`` the image and domain labels, of which ``blk_*`` and
-    ``kron_*`` are the block and spin labels and ``lat_*`` the rest.
-    ``forward(x)`` is ``apply_stencil_soa`` for SoA operators."""
+    direction d (domain site = image site + offset, toroidal; none in
+    gather mode); ``dim`` the image lattice and ``dim_d`` the domain one
+    (``dim`` where None); ``bi``/``bd``/``ki``/``kd`` are the block and
+    spin factor extents; ``oim``/``odm`` the image and domain labels, of
+    which ``blk_*`` and ``kron_*`` are the block and spin labels and
+    ``lat_*`` the rest.  ``forward(x)`` is ``apply_stencil_soa`` for SoA
+    operators."""
 
     def __init__(self, blocks, kron, offsets: Sequence[Coor], dim: Sequence[int],
                  bi, bd, ki=(), kd=(), oim: str = "", odm: str = "",
                  mode: str = "stencil_soa", blk_i: str = "", blk_d: str = "",
-                 kron_i: str = "", kron_d: str = ""):
+                 kron_i: str = "", kron_d: str = "", dim_d: Optional[Sequence[int]] = None,
+                 jj_flat: Optional[torch.Tensor] = None,
+                 row_counts: Optional[torch.Tensor] = None):
         super().__init__()
-        if mode not in ("stencil", "stencil_soa"):
-            raise NotImplementedError(f"mode {mode!r}: {_GATHER_TODO}")
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r}: one of {MODES}")
+        if (mode == "gather") != (jj_flat is not None):
+            raise ValueError("jj_flat is given in gather mode and only there")
         self.mode = mode
         b = cplx.from_complex(blocks) if mode == "stencil_soa" else blocks
         self.register_buffer("blocks_re", b.re if cplx.is_carray(b) else b)
@@ -96,8 +112,11 @@ class BSROperator(nn.Module):
         self.register_buffer("kron_re", None if kron is None else
                              (kron.re if cplx.is_carray(kron) else kron))
         self.register_buffer("kron_im", kron.im if cplx.is_carray(kron) else None)
+        self.register_buffer("jj_flat", jj_flat)
+        self.register_buffer("row_counts", row_counts)
         self.offsets = tuple(tuple(int(v) for v in o) for o in offsets)
-        self.dim_i = self.dim_d = tuple(int(v) for v in dim)
+        self.dim_i = tuple(int(v) for v in dim)
+        self.dim_d = self.dim_i if dim_d is None else tuple(int(v) for v in dim_d)
         self.bi, self.bd = _coor(bi), _coor(bd)
         self.ki, self.kd = _coor(ki), _coor(kd)
         self.oim, self.odm = oim, odm
@@ -124,12 +143,16 @@ class BSROperator(nn.Module):
         return self.blocks_re.shape[len(self.dim_i)]
 
     def replace(self, **changes) -> "BSROperator":
-        """A new operator with some of blocks, kron, offsets and dim replaced."""
+        """A new operator with some of its arguments replaced; a new ``dim``
+        alone sets both lattices."""
         kw = dict(blocks=self.blocks, kron=self.kron, offsets=self.offsets,
                   dim=self.dim_i, bi=self.bi, bd=self.bd, ki=self.ki,
                   kd=self.kd, oim=self.oim, odm=self.odm, mode=self.mode,
                   blk_i=self.blk_i, blk_d=self.blk_d, kron_i=self.kron_i,
-                  kron_d=self.kron_d)
+                  kron_d=self.kron_d, dim_d=self.dim_d, jj_flat=self.jj_flat,
+                  row_counts=self.row_counts)
+        if "dim" in changes and "dim_d" not in changes:
+            kw["dim_d"] = None
         kw.update(changes)
         return BSROperator(**kw)
 
@@ -234,14 +257,181 @@ def bsr_from_stencil(
         blk_i=blk_i, blk_d=blk_d, kron_i=kron_i_s, kron_d=kron_d_s)
 
 
-def create_bsr(*args, **kwargs):
-    """Reference-parity constructor of irregular operators: still to port."""
-    raise NotImplementedError(_GATHER_TODO)
+def _block_labels(o: str, block: Sequence[int]) -> Tuple[str, Coor]:
+    """(block labels, block dims) of full labels given the reference-style
+    block extent vector (1 for lattice dims)."""
+    return ("".join(c for c, b in zip(o, block) if b > 1),
+            tuple(int(b) for b in block if b > 1))
 
 
-def create_kron_bsr(*args, **kwargs):
-    """Kronecker-factored irregular operators: still to port."""
-    raise NotImplementedError(_GATHER_TODO)
+def _c_strides(dims: Sequence[int]) -> np.ndarray:
+    """Row-major strides of a lattice, int64."""
+    strides = np.ones(len(dims), dtype=np.int64)
+    for a in range(len(dims) - 2, -1, -1):
+        strides[a] = strides[a + 1] * dims[a + 1]
+    return strides
+
+
+def create_bsr(
+    oim: str,
+    dim_im: Sequence[int],
+    odm: str,
+    dim_dm: Sequence[int],
+    block_im: Sequence[int],
+    block_dm: Sequence[int],
+    ii: np.ndarray,
+    jj: np.ndarray,
+    values,
+    block_image_fast: bool = False,
+    pattern_merge: bool = True,
+    device="cuda",
+) -> BSROperator:
+    """Reference-parity constructor (create_bsr, bsr.h:2287-2320).
+
+    * ``oim``/``dim_im``: image labels and extents (block dims included);
+      ``block_im`` gives the block extent per label (1 on lattice dims).
+    * ``ii``: [*lat_i] per-row nonzero counts (host numpy).
+    * ``jj``: [*lat_i, max_nnz, nlat] absolute domain lattice coordinates
+      of each nonzero block (host numpy).
+    * ``values``: [*lat_i, max_nnz, BI, BD] blocks ([..., BD, BI] when
+      ``block_image_fast``): a CArray, a complex or a real array or tensor.
+
+    The structure is detected as in the JAX package, fastest first: a
+    uniform stencil (the same offsets in the same slots on every row) in
+    mode "stencil"; with ``pattern_merge``, a near-uniform one (the union
+    of the rows' offsets at most 2 max_nnz) scatter-merged into that union
+    with zero blocks where a row lacks an offset and duplicate offsets of
+    a row summed, in mode "stencil"; else a gather plan, padded blocks
+    zeroed.  The detection runs in numpy on ``ii``/``jj``; the blocks are
+    formed on ``device`` (the card unless the caller names the CPU)."""
+    check_order(oim)
+    check_order(odm)
+    blk_i, bi = _block_labels(oim, block_im)
+    blk_d, bd = _block_labels(odm, block_dm)
+    dim_i = tuple(int(d) for d, b in zip(dim_im, block_im) if b == 1)
+    dim_d = tuple(int(d) for d, b in zip(dim_dm, block_dm) if b == 1)
+    nlat = len(dim_i)
+    BI, BD = volume(bi), volume(bd)
+
+    ii = np.asarray(ii).reshape(dim_i)
+    jj = np.asarray(jj).reshape(dim_i + (-1, nlat))
+    max_nnz = jj.shape[-2]
+    values = _to_device(values, device)
+
+    def shape_values(v):
+        if block_image_fast:
+            v = v.transpose(-1, -2)
+        return v.reshape(dim_i + (max_nnz, BI, BD))
+
+    values = cplx.cmap(shape_values, values) if cplx.is_carray(values) \
+        else shape_values(values)
+    common = dict(offsets=(), dim=dim_i, dim_d=dim_d, bi=bi, bd=bd, oim=oim, odm=odm,
+                  blk_i=blk_i, blk_d=blk_d)
+
+    first = int(ii.reshape(-1)[0])
+    uniform = bool((ii == first).all()) and first == max_nnz
+    rel = None
+    if dim_i == dim_d and (uniform or pattern_merge):
+        site_coords = np.stack(np.meshgrid(*[np.arange(d) for d in dim_i], indexing="ij"),
+                               axis=-1)                          # [*lat, nlat]
+        rel = (jj - site_coords[..., None, :]) % np.asarray(dim_i)
+        if uniform:
+            head = rel.reshape(-1, max_nnz, nlat)[0]
+            if (rel == head).all():
+                offsets = tuple(tuple(int(v) for v in head[k]) for k in range(max_nnz))
+                return BSROperator(values, None, mode="stencil",
+                                   **{**common, "offsets": offsets})
+
+    if pattern_merge and rel is not None:
+        # near-uniform: offsets encoded to scalar keys; np.unique gives the
+        # union, searchsorted each entry's slot
+        voli = volume(dim_i)
+        rel_f = rel.reshape(voli, max_nnz, nlat).astype(np.int64)
+        valid = np.arange(max_nnz)[None, :] < ii.reshape(-1)[:, None]
+        keys = (rel_f * _c_strides(dim_i)).sum(-1)
+        uniq = np.unique(keys[valid]) if valid.any() else np.zeros(0, np.int64)
+        P = len(uniq)
+        if 0 < P <= 2 * max_nnz:
+            pattern = tuple(tuple(int(v) for v in np.unravel_index(k, dim_i)) for k in uniq)
+            slot = np.searchsorted(uniq, keys)
+            slot[~valid] = P                                     # the pad bucket
+            flat = (np.arange(voli)[:, None] * (P + 1) + slot).reshape(-1)
+
+            def merge(v):
+                idx = torch.as_tensor(flat, device=v.device)
+                big = torch.zeros((voli * (P + 1), BI, BD), dtype=v.dtype, device=v.device)
+                big.index_add_(0, idx, v.reshape(-1, BI, BD))
+                return big.reshape(voli, P + 1, BI, BD)[:, :P].reshape(
+                    dim_i + (P, BI, BD)).contiguous()
+
+            merged = cplx.cmap(merge, values) if cplx.is_carray(values) else merge(values)
+            return BSROperator(merged, None, mode="stencil", **{**common, "offsets": pattern})
+
+    # gather plan: flat domain sites, padded blocks zeroed so the apply
+    # ignores the row counts
+    jj_flat = (jj % np.asarray(dim_d) * _c_strides(dim_d)).sum(-1).reshape(-1, max_nnz)
+    nnz_mask = np.arange(max_nnz)[None, :] < ii.reshape(-1)[:, None]
+    sample = values.re if cplx.is_carray(values) else values
+    mask = torch.as_tensor(nnz_mask.reshape(dim_i + (max_nnz, 1, 1)), device=sample.device)
+
+    def zero_pads(v):
+        return torch.where(mask, v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+    values = cplx.cmap(zero_pads, values) if cplx.is_carray(values) else zero_pads(values)
+    return BSROperator(
+        values, None, mode="gather",
+        jj_flat=torch.as_tensor(jj_flat.astype(np.int64), device=sample.device),
+        row_counts=torch.as_tensor(ii.reshape(-1).astype(np.int32), device=sample.device),
+        **common)
+
+
+def create_kron_bsr(
+    oim: str,
+    dim_im: Sequence[int],
+    odm: str,
+    dim_dm: Sequence[int],
+    block_im: Sequence[int],
+    block_dm: Sequence[int],
+    kron_im: Sequence[int],
+    kron_dm: Sequence[int],
+    ii: np.ndarray,
+    jj: np.ndarray,
+    values,
+    kron_values,
+    block_image_fast: bool = False,
+    device="cuda",
+) -> BSROperator:
+    """Kronecker-factored BSR (create_kron_bsr, bsr.h:2302-2336): each
+    nonzero block is kron(spin factor, colour block); spin factors depend
+    only on the slot, colour blocks on (site, slot).
+
+    ``kron_im``/``kron_dm``: per-label kron-block extents (1 elsewhere).
+    ``kron_values``: [nnz, KI, KD] ([nnz, KD, KI] if ``block_image_fast``).
+    No pattern merge: the spin factor of slot k applies to every row's
+    k-th neighbour, a pairing a merge would break; a uniform structure
+    gives mode "stencil", any other a gather plan."""
+    base = create_bsr(
+        "".join(c for c, k in zip(oim, kron_im) if k == 1),
+        [d for d, k in zip(dim_im, kron_im) if k == 1],
+        "".join(c for c, k in zip(odm, kron_dm) if k == 1),
+        [d for d, k in zip(dim_dm, kron_dm) if k == 1],
+        [b for b, k in zip(block_im, kron_im) if k == 1],
+        [b for b, k in zip(block_dm, kron_dm) if k == 1],
+        ii, jj, values, block_image_fast, pattern_merge=False, device=device)
+    kron_i = "".join(c for c, k in zip(oim, kron_im) if k > 1)
+    kron_d = "".join(c for c, k in zip(odm, kron_dm) if k > 1)
+    ki = tuple(int(k) for k in kron_im if k > 1)
+    kd = tuple(int(k) for k in kron_dm if k > 1)
+    kv = _to_device(kron_values, device)
+
+    def shape_kron(v):
+        if block_image_fast:
+            return v.reshape(-1, volume(kd), volume(ki)).transpose(-1, -2).contiguous()
+        return v.reshape(-1, volume(ki), volume(kd))
+
+    kv = cplx.cmap(shape_kron, kv) if cplx.is_carray(kv) else shape_kron(kv)
+    return base.replace(kron=kv, oim=oim, odm=odm, kron_i=kron_i, kron_d=kron_d,
+                        ki=ki, kd=kd)
 
 
 def operator_from_numpy(blocks_re: np.ndarray, blocks_im: np.ndarray,
@@ -263,11 +453,12 @@ def operator_from_numpy(blocks_re: np.ndarray, blocks_im: np.ndarray,
     return op if storage_dtype is None else bsr_cast_storage(op, storage_dtype)
 
 
-def apply_stencil_soa(op: BSROperator, x_soa: CArray,
+def apply_stencil_soa(op: BSROperator, x_soa: CArray, interpret: Optional[bool] = None,
                       packed_parity: Optional[int] = None) -> CArray:
     """SoA stencil matvec: ``x_soa`` [ncols, KD*BD, *lat] ->
     [ncols, KI*BI, *lat]; the CUDA kernel for CUDA operands, the plain
-    version for CPU operands."""
+    version for CPU operands.  ``interpret`` (the Pallas interpreter's
+    switch in the JAX package) is accepted and unused."""
     if op.mode != "stencil_soa":
         raise ValueError("operator was not built with layout='soa'")
     return stencil_matvec_soa(op.blocks, op.kron, x_soa, op.offsets,
@@ -278,7 +469,8 @@ def apply_stencil_soa(op: BSROperator, x_soa: CArray,
 def bsr_get_preferred_layout(op: BSROperator) -> Tuple[str, str]:
     """The x and y label orders :func:`bsr_krylov` takes with no data
     movement ('n' stands for the caller's column labels): lattice, kron and
-    block labels, columns innermost for "stencil"; columns outermost, then
+    block labels, columns innermost for "stencil" and "gather"; columns
+    outermost, then
     kron and block labels, then lattice for "stencil_soa" (fields in that
     order reach the stencil kernel by reshape alone)."""
     if op.mode == "stencil_soa":
@@ -286,6 +478,15 @@ def bsr_get_preferred_layout(op: BSROperator) -> Tuple[str, str]:
                 "n" + op.kron_i + op.blk_i + op.lat_i)
     return (op.lat_d + op.kron_d + op.blk_d + "n",
             op.lat_i + op.kron_i + op.blk_i + "n")
+
+
+def bsr_allowed_layouts(op: BSROperator) -> dict:
+    """Which field layouts each mode runs and at what cost (the
+    SpMMAllowedLayout negotiation of bsr.h:255-260): ``preferred`` is the
+    one zero-copy (ox, oy) pair, ``zero_copy`` every such pair, and
+    ``any_order`` True: other label orders pay one permutation a side."""
+    pref = bsr_get_preferred_layout(op)
+    return {"mode": op.mode, "preferred": pref, "zero_copy": (pref,), "any_order": True}
 
 
 def _roll_lat(x, offset, nlat):
@@ -354,6 +555,64 @@ def _apply_stencil(op: BSROperator, xc, shift=None):
         else ys.transpose(nlat, nlat + 1)
 
 
+def _gather_rows(xc, op: BSROperator, inner: Tuple[int, ...]):
+    """The operand rows of each (site, slot): ``xc`` [*lat_d, *inner] ->
+    [voli * nnz, *inner], an index_select of the flattened lattice."""
+    idx = op.jj_flat.reshape(-1)
+
+    def g(a):
+        return a.reshape((-1,) + inner).index_select(0, idx)
+
+    return cplx.cmap(g, xc) if cplx.is_carray(xc) else g(xc)
+
+
+def _apply_gather(op: BSROperator, xc):
+    """General BSR matvec on irregular neighbour lists: xc [*lat_d, BD, N]
+    -> [*lat_i, BI, N], as ONE split-complex batched product [voli, BI,
+    nnz*BD] @ [voli, nnz*BD, N] through ``batched_small_gemm`` (K3 for
+    nnz*BD <= 64, E1 above); the blocks are laid out for it on each apply
+    (a contiguous copy), as the AoS stencil mode does."""
+    BD, N = xc.shape[-2], xc.shape[-1]
+    voli, nnz, BI = volume(op.dim_i), op.ndir, volume(op.bi)
+    xdt = xc.dtype
+    acc = _acc_dtype(torch.promote_types(op.blocks_re.dtype, xdt))
+    xg = _reshape(_gather_rows(xc, op, (BD, N)), (voli, nnz * BD, N))
+
+    def lay(a):
+        return a.reshape(voli, nnz, BI, BD).transpose(1, 2).reshape(voli, BI, nnz * BD)
+
+    b = cplx.cmap(lay, op.blocks) if cplx.is_carray(op.blocks) else lay(op.blocks)
+    y = cplx.cbilinear(lambda bb, xx: batched_small_gemm(bb.to(acc), xx.to(acc)), b, xg)
+    return _astype(_reshape(y, tuple(op.dim_i) + (BI, N)), xdt)
+
+
+def _apply_gather_kron(op: BSROperator, xc):
+    """Kronecker-factored matvec on irregular neighbour lists (bsr.h:398-451):
+    xc [*lat_d, KD, BD, N] -> [*lat_i, KI, BI, N].  Stage 1 contracts
+    colour for each (site, slot) as one batched product [voli*nnz, BI, BD]
+    @ [voli*nnz, BD, KD*N] (K3 for BI, BD <= 64); stage 2 applies the spin
+    factor of each slot, summed over slot and KD (``torch.einsum``).
+    Padded slots carry zero colour blocks and add nothing."""
+    KD, BD, N = xc.shape[-3], xc.shape[-2], xc.shape[-1]
+    voli, nnz, BI = volume(op.dim_i), op.ndir, volume(op.bi)
+    xdt = xc.dtype
+    acc = _acc_dtype(torch.promote_types(op.blocks_re.dtype, xdt))
+    xg = _gather_rows(xc, op, (KD, BD, N))                   # [voli*nnz, KD, BD, N]
+    xg = cplx.cmap(lambda a: a.transpose(1, 2).reshape(voli * nnz, BD, KD * N), xg) \
+        if cplx.is_carray(xg) else xg.transpose(1, 2).reshape(voli * nnz, BD, KD * N)
+    b = _reshape(op.blocks, (voli * nnz, BI, BD))
+    t = cplx.cbilinear(lambda bb, xx: batched_small_gemm(bb.to(acc), xx.to(acc)), b, xg)
+    t = _reshape(t, (voli, nnz, BI, KD, N))
+
+    def spin(kk, tt):
+        dt = torch.promote_types(kk.dtype, tt.dtype)
+        with cplx._full_f32():
+            return torch.einsum("kab,vkibn->vain", kk.to(dt), tt.to(dt))
+
+    y = cplx.cbilinear(spin, op.kron, t)                       # [voli, KI, BI, N]
+    return _astype(_reshape(y, tuple(op.dim_i) + (volume(op.ki), BI, N)), xdt)
+
+
 def _zeros_im(x) -> CArray:
     return x if cplx.is_carray(x) else CArray(x, torch.zeros_like(x))
 
@@ -388,8 +647,6 @@ def bsr_krylov(alpha, op: BSROperator, x, ox: str, beta=0.0, y=None,
         if y is not None:
             power = y.shape[oy.index(okr)]
     oy_data = "".join(c for c in oy if c != okr)
-    if op.mode not in ("stencil", "stencil_soa"):
-        raise NotImplementedError(_GATHER_TODO)
 
     kron = op.kron_re is not None
     KD = volume(op.kd) if kron else 1
@@ -439,8 +696,10 @@ def bsr_krylov(alpha, op: BSROperator, x, ox: str, beta=0.0, y=None,
                     v = cplx.cmap(lambda a: a[..., None, :, :], v)
                 yv = soa_to_aos(apply_stencil_soa(o, aos_to_soa(v, nl)), nl, KI, BI)
                 return yv if kron else cplx.cmap(lambda a: a[..., 0, :, :], yv)
-        else:
+        elif op.mode == "stencil":
             apply_fn = _apply_stencil
+        else:
+            apply_fn = _apply_gather_kron if kron else _apply_gather
 
     if power > 1 and (BI != BD or op.dim_i != op.dim_d or KI != KD):
         raise ValueError(

@@ -58,6 +58,10 @@
 //     KS - 1: the result is the same bits from run to run.  Each output
 //     is a sum of J rounded products in some fixed order, so its error
 //     stays within J * 2^-24 * sum |b| |x| in f32.
+//  5. Any I and N.  Row tiles go on grid.y and column tiles on grid.z, each
+//     at most 65535.  Past that a second instantiation of the kernel walks
+//     its row and column tiles in strides of the grid; up to there the
+//     one-tile kernel runs, without the loop's registers.
 // Host cost is the wrapper's: its tile choice is cached per (V, I, J, N),
 // and the shared-memory opt-in is made once a device and instantiation.
 //
@@ -218,12 +222,12 @@ __device__ __forceinline__ void stage_step(T* bs, T* xs, const T* __restrict__ b
     }
 }
 
-// y tile of sites v0 .. v0 + SB - 1 (fewer at the end of V), rows
-// blockIdx.y * IT .., columns blockIdx.z * NT ..
+// one y tile: sites v0 .. v0 + SB - 1 (fewer at the end of V), rows i0
+// .., columns n0 ..
 template <typename T, typename C>
-__global__ void __launch_bounds__(C::THREADS, C::MINB)
-gemm_kernel(const T* __restrict__ b, const T* __restrict__ x, T* __restrict__ y, int64_t V,
-            int I, int J, int N, int SB, bool vb, bool vx, bool vy) {
+__device__ __forceinline__ void gemm_tile(const T* __restrict__ b, const T* __restrict__ x,
+                                          T* __restrict__ y, int64_t V, int I, int J, int N,
+                                          int SB, int i0, int n0, bool vb, bool vx, bool vy) {
     using L = Layout<T, C>;
     constexpr int VK = L::VK, RR = C::RR, CC = C::CC, STAGES = L::STAGES;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -236,7 +240,6 @@ gemm_kernel(const T* __restrict__ b, const T* __restrict__ x, T* __restrict__ y,
     const int cg = tg & (C::COLS - 1), rg = tg / C::COLS;
     const int64_t v0 = static_cast<int64_t>(blockIdx.x) * SB;
     const int ns = static_cast<int>(V - v0 < SB ? V - v0 : SB);
-    const int i0 = blockIdx.y * C::IT, n0 = blockIdx.z * C::NT;
     const int nchunk = (J + C::JW - 1) / C::JW;   // once a block
     const int total = ns * nchunk;
 
@@ -344,6 +347,29 @@ gemm_kernel(const T* __restrict__ b, const T* __restrict__ x, T* __restrict__ y,
     copy_wait<0>();
 }
 
+// y tiles of sites v0 .. v0 + SB - 1 (fewer at the end of V): with kWalk
+// false the one tile of rows blockIdx.y * IT .., columns blockIdx.z * NT
+// ..; with kWalk, rows by * IT .., columns bz * NT .. for by =
+// blockIdx.y, blockIdx.y + gridDim.y, .. below gy and bz likewise below
+// gz, so a grid of at most 65535 on y and z walks any I and N.  The walk
+// is its own instantiation: the loop's registers stay out of the
+// one-tile kernel every smaller shape runs.
+template <typename T, typename C, bool kWalk>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+gemm_kernel(const T* __restrict__ b, const T* __restrict__ x, T* __restrict__ y, int64_t V,
+            int I, int J, int N, int SB, int gy, int gz, bool vb, bool vx, bool vy) {
+    if constexpr (!kWalk) {
+        gemm_tile<T, C>(b, x, y, V, I, J, N, SB, blockIdx.y * C::IT, blockIdx.z * C::NT, vb,
+                        vx, vy);
+    } else {
+        for (int by = blockIdx.y; by < gy; by += gridDim.y)
+            for (int bz = blockIdx.z; bz < gz; bz += gridDim.z) {
+                gemm_tile<T, C>(b, x, y, V, I, J, N, SB, by * C::IT, bz * C::NT, vb, vx, vy);
+                __syncthreads();   // the ring and partial sums are free for the next tile
+            }
+    }
+}
+
 // The tiles, by number.  This table is their only copy: ops/batched_gemm.py
 // reads it from this file (CONFIGS) to pick one per shape.
 //   X(number, IT, NT, RR, CC, JC, KS, MINB)
@@ -367,7 +393,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // kMaxDevices), and on every launch on any other.
 constexpr int kMaxDevices = 64;
 
-template <typename T, typename C>
+template <typename T, typename C, bool kWalk>
 cudaError_t opt_in() {
     constexpr size_t BYTES = Layout<T, C>::BYTES;
     if constexpr (BYTES <= 48 * 1024) {
@@ -379,7 +405,7 @@ cudaError_t opt_in() {
         if (err != cudaSuccess) return err;
         const bool known = dev < kMaxDevices;
         if (known && done[dev].load(std::memory_order_relaxed)) return cudaSuccess;
-        err = cudaFuncSetAttribute(gemm_kernel<T, C>,
+        err = cudaFuncSetAttribute(gemm_kernel<T, C, kWalk>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(BYTES));
         if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_relaxed);
@@ -387,22 +413,34 @@ cudaError_t opt_in() {
     }
 }
 
-template <typename T, typename C>
-int launch(int64_t V, int I, int J, int N, int SB, const void* b, const void* x, void* y,
-           cudaStream_t stream) {
+template <typename T, typename C, bool kWalk>
+int launch_grid(dim3 grid, int64_t V, int I, int J, int N, int SB, int gy, int gz,
+                const void* b, const void* x, void* y, cudaStream_t stream) {
     using L = Layout<T, C>;
-    const cudaError_t opt = opt_in<T, C>();
+    const cudaError_t opt = opt_in<T, C, kWalk>();
     if (opt != cudaSuccess) return static_cast<int>(opt);
-    const int64_t gx = (V + SB - 1) / SB;
-    const int gy = (I + C::IT - 1) / C::IT, gz = (N + C::NT - 1) / C::NT;
-    if (gx > 0x7fffffff || gy > 65535 || gz > 65535) return cudaErrorInvalidConfiguration;
     const bool vb = J % L::VK == 0 && aligned16(b);
     const bool vx = N % L::VK == 0 && aligned16(x);
     const bool vy = N % C::CC == 0 && aligned16(y);
-    gemm_kernel<T, C><<<dim3(static_cast<unsigned>(gx), gy, gz), C::THREADS, L::BYTES,
-                        stream>>>(static_cast<const T*>(b), static_cast<const T*>(x),
-                                  static_cast<T*>(y), V, I, J, N, SB, vb, vx, vy);
+    gemm_kernel<T, C, kWalk><<<grid, C::THREADS, L::BYTES, stream>>>(
+        static_cast<const T*>(b), static_cast<const T*>(x), static_cast<T*>(y), V, I, J, N, SB,
+        gy, gz, vb, vx, vy);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename C>
+int launch(int64_t V, int I, int J, int N, int SB, const void* b, const void* x, void* y,
+           cudaStream_t stream) {
+    const int64_t gx = (V + SB - 1) / SB;
+    const int gy = (I + C::IT - 1) / C::IT, gz = (N + C::NT - 1) / C::NT;
+    if (gx > 0x7fffffff) return cudaErrorInvalidConfiguration;
+    constexpr int kMaxYZ = 65535;
+    if (gy <= kMaxYZ && gz <= kMaxYZ)
+        return launch_grid<T, C, false>(dim3(static_cast<unsigned>(gx), gy, gz), V, I, J, N,
+                                        SB, gy, gz, b, x, y, stream);
+    const dim3 grid(static_cast<unsigned>(gx), gy < kMaxYZ ? gy : kMaxYZ,
+                    gz < kMaxYZ ? gz : kMaxYZ);
+    return launch_grid<T, C, true>(grid, V, I, J, N, SB, gy, gz, b, x, y, stream);
 }
 
 template <typename T>

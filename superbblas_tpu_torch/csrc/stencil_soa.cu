@@ -72,26 +72,30 @@ __global__ void __launch_bounds__(256) stencil_soa_kernel(
 
     const int64_t V = (int64_t)X * Y * Z * T;
     const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const int col = blockIdx.y * blockDim.y + threadIdx.y;
-    if (s >= V || col >= n) return;
+    if (s >= V) return;
 
     const int ct = (int)(s % T);
     const int cz = (int)((s / T) % Z);
     const int cy = (int)((s / ((int64_t)T * Z)) % Y);
     const int cx = (int)(s / ((int64_t)T * Z * Y));
-    const FT* xr = x_re + (int64_t)col * F * V;
-    const FT* xi = x_im + (int64_t)col * F * V;
+    // the columns walk grid.y in strides of the whole grid's columns, so
+    // any n fits the 65535 blocks grid.y allows
+    for (int64_t col = (int64_t)blockIdx.y * blockDim.y + threadIdx.y; col < n;
+         col += (int64_t)gridDim.y * blockDim.y) {
+        const FT* xr = x_re + col * F * V;
+        const FT* xi = x_im + col * F * V;
 
-    // neighbour site s + o_d on the torus, read from device memory
-    auto fetch = [&](int d, A (&v_re)[F], A (&v_im)[F]) {
-        load_site<F>(xr, xi, V, neighbour(dirs, d, s, cx, cy, cz, ct, X, Y, Z, T), v_re,
-                     v_im);
-    };
+        // neighbour site s + o_d on the torus, read from device memory
+        auto fetch = [&](int d, A (&v_re)[F], A (&v_im)[F]) {
+            load_site<F>(xr, xi, V, neighbour(dirs, d, s, cx, cy, cz, ct, X, Y, Z, T), v_re,
+                         v_im);
+        };
 
-    A acc_re[KO], acc_im[KO];
-    site_matvec<KI, KD, BI, BD, ST>(b_re, b_im, V, s, skron, skron + nk, dirs.ndir, fetch,
-                                    acc_re, acc_im);
-    store_site<KO>(y_re, y_im, col, V, s, acc_re, acc_im);
+        A acc_re[KO], acc_im[KO];
+        site_matvec<KI, KD, BI, BD, ST>(b_re, b_im, V, s, skron, skron + nk, dirs.ndir,
+                                        fetch, acc_re, acc_im);
+        store_site<KO>(y_re, y_im, static_cast<int>(col), V, s, acc_re, acc_im);
+    }
 }
 
 template <int KI, int KD, int BI, int BD, typename ST, typename FT>
@@ -103,8 +107,9 @@ struct LaunchK1 {
         if (sites < 32) sites = 32;
         const int64_t V = (int64_t)a.X * a.Y * a.Z * a.T;
         const dim3 block(sites, cols);
+        const int col_blocks = (a.n + cols - 1) / cols;
         const dim3 grid((unsigned)((V + sites - 1) / sites),
-                        (unsigned)((a.n + cols - 1) / cols));
+                        (unsigned)(col_blocks < 65535 ? col_blocks : 65535));
         using A = acc_t<ST, FT>;
         const size_t smem = 2 * sizeof(A) * dirs.ndir * KI * KD;
         stencil_soa_kernel<KI, KD, BI, BD, ST, FT><<<grid, block, smem, stream>>>(

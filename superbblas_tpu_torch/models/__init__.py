@@ -8,9 +8,10 @@ from .staggered import apply_staggered, eta_phases, staggered_operator
 from .clover import CloverOperator, apply_clover, clover_field_strength, wilson_clover_operator
 from .domain_wall import (DomainWallSoAOperator, apply_domain_wall, domain_wall_operator,
                           mobius_operator)
-from .even_odd import checkerboard_masks, schur_cg  # noqa: I001  (after wilson)
-from .eo_packed import (apply_hopping_packed_soa, cb_pack_soa, cb_unpack_soa,
-                        eo_solve_packed_soa, hopping_packed_soa)
+from .even_odd import checkerboard_masks, eo_solve, schur_cg, schur_matvec  # noqa: I001
+from .eo_packed import (apply_hopping_packed, apply_hopping_packed_soa, cb_pack, cb_pack_soa,
+                        cb_unpack, cb_unpack_soa, eo_solve_packed, eo_solve_packed_soa,
+                        hopping_packed, hopping_packed_soa)
 from .coarse import apply_coarse, coarse_operator
 from . import multigrid
 from .multigrid import (build_hierarchy, build_prolongator, chebyshev_smoother,
@@ -26,8 +27,9 @@ __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets",
            "wilson_clover_operator",
            "apply_domain_wall", "DomainWallSoAOperator", "domain_wall_operator",
            "mobius_operator",
-           "checkerboard_masks", "schur_cg",
-           "cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
+           "checkerboard_masks", "eo_solve", "schur_matvec", "schur_cg",
+           "cb_pack", "cb_unpack", "hopping_packed", "apply_hopping_packed",
+           "eo_solve_packed", "cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
            "apply_hopping_packed_soa", "eo_solve_packed_soa",
            "coarse_operator", "apply_coarse", "multigrid",
            "build_prolongator", "build_hierarchy", "chebyshev_smoother",

@@ -1,17 +1,20 @@
-"""Packed checkerboard (even-odd) layout in the SoA stencil: half-lattice
-hopping applies and the even-odd preconditioned solve (counterpart of the
-SoA part of ``superbblas_tpu/models/eo_packed.py``).
+"""Packed checkerboard (even-odd) layout: half-lattice hopping applies and
+the even-odd preconditioned solve (counterpart of
+``superbblas_tpu/models/eo_packed.py``).
 
 Each parity is stored as a packed half-lattice array, X halved: site
 (x, y, z, t) goes to (x // 2, y, z, t).  The hopping term (the centre
-direction dropped) is applied directly between packings by the stencil
-kernel with ``packed_parity``: a direction along X reads the unshifted or
-the shifted packed slot, chosen by the parity of the image site; every
-other direction is a plain shift.  Every matvec of the Schur solve is one
-such half-lattice apply.  Requires one-hot +-1 offsets and an even X.
+direction dropped) is applied directly between packings: a direction
+along X reads the unshifted or the shifted packed slot, chosen by the
+parity of the image site; every other direction is a plain shift.  Every
+matvec of the Schur solve is one such half-lattice apply.  Requires
+one-hot +-1 offsets and an even X.
 
-The AoS part (``cb_pack``, ``hopping_packed``, ``eo_solve_packed``) needs
-the AoS stencil mode and is still to port (ROADMAP.md Queue 1).
+Two layouts: AoS operators (``cb_pack``, ``hopping_packed``,
+``apply_hopping_packed``, ``eo_solve_packed``) apply through ``bsr``'s
+AoS stencil matvec with the parity-select shift (a no-kron operator,
+such as the staggered one, as one batched product on K3/E1); SoA
+operators (``*_soa``) through the stencil kernel with ``packed_parity``.
 """
 
 from __future__ import annotations
@@ -20,13 +23,15 @@ import numpy as np
 import torch
 
 from .. import cplx
-from ..bsr import BSROperator, apply_stencil_soa
+from ..bsr import BSROperator, _apply_stencil, _reshape, apply_stencil_soa
 from ..cplx import CArray
+from ..labels import volume
 from ..ops.stencil import derive_kron
 from .even_odd import schur_cg
 from .wilson import adjoint_operator
 
-__all__ = ["cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
+__all__ = ["cb_pack", "cb_unpack", "hopping_packed", "apply_hopping_packed",
+           "eo_solve_packed", "cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
            "apply_hopping_packed_soa", "eo_solve_packed_soa"]
 
 
@@ -42,6 +47,142 @@ def _check_one_hot(offsets):
 def _rest_par_np(rest):
     coords = np.meshgrid(*[np.arange(d) for d in rest], indexing="ij")
     return (sum(coords) % 2) if coords else np.zeros((), np.int64)
+
+
+def _rest_parity(lat_dims, trailing: int, device) -> torch.Tensor:
+    """(y + z + t) % 2 (the sum over every lattice axis but the first),
+    shaped [1, *rest] + [1]*trailing, on ``device``."""
+    rest = tuple(lat_dims[1:])
+    rp = np.asarray(_rest_par_np(rest)).reshape((1,) + rest + (1,) * trailing)
+    return torch.from_numpy(np.ascontiguousarray(rp)).to(device)
+
+
+def cb_pack(a, nlat: int, parity: int):
+    """[X, *rest, ...] -> packed [X/2, *rest, ...] holding the sites with
+    (x + sum(rest)) % 2 == parity (``nlat`` leading lattice axes)."""
+    def pk(v):
+        rest_par = _rest_parity(v.shape[:nlat], v.ndim - nlat, v.device)
+        # x parity of the kept sites: (parity + rest_par) mod 2
+        return torch.where((parity + rest_par) % 2 == 1, v[1::2], v[0::2])
+    return cplx.cmap(pk, a) if cplx.is_carray(a) else pk(a)
+
+
+def cb_unpack(a_even, a_odd, nlat: int):
+    """Inverse of :func:`cb_pack` for both parities: the full [X, *rest,
+    ...]."""
+    def up(ae, ao):
+        rest_par = _rest_parity((2 * ae.shape[0],) + tuple(ae.shape[1:nlat]),
+                                ae.ndim - nlat, ae.device)
+        ev = torch.where(rest_par == 1, ao, ae)     # the even-x slots
+        od = torch.where(rest_par == 0, ao, ae)     # the odd-x slots
+        return torch.stack([ev, od], dim=1).reshape((2 * ae.shape[0],) + tuple(ae.shape[1:]))
+    if cplx.is_carray(a_even):
+        return CArray(up(a_even.re, a_odd.re), up(a_even.im, a_odd.im))
+    return up(a_even, a_odd)
+
+
+def hopping_packed(op: BSROperator, to_parity: int) -> BSROperator:
+    """The AoS hopping operator (centre dropped) packed onto ``to_parity``
+    image sites: blocks [X/2, *rest, ndir-1, BI, BD] on the half lattice
+    (both ``dim_i`` and ``dim_d``); its apply is
+    :func:`apply_hopping_packed`."""
+    if op.mode != "stencil":
+        raise ValueError("packed checkerboarding needs an AoS stencil op")
+    if op.dim_d[0] % 2:
+        raise ValueError("X extent must be even")
+    _check_one_hot(op.offsets)
+    nlat = len(op.dim_d)
+    keep = [k for k, off in enumerate(op.offsets) if any(off)]
+    kidx = torch.tensor(keep, device=op.blocks_re.device)
+    blocks = cb_pack(cplx.cmap(lambda v: v.index_select(nlat, kidx), op.blocks)
+                     if cplx.is_carray(op.blocks) else op.blocks.index_select(nlat, kidx),
+                     nlat, to_parity)
+    kron = op.kron
+    if kron is not None:
+        kron = cplx.cmap(lambda v: v[kidx], kron) if cplx.is_carray(kron) else kron[kidx]
+    dim = (op.dim_d[0] // 2,) + tuple(op.dim_d[1:])
+    return op.replace(blocks=blocks, kron=kron, offsets=tuple(op.offsets[k] for k in keep),
+                      dim=dim)
+
+
+def apply_hopping_packed(hop: BSROperator, x_from, to_parity: int):
+    """y_to = H x_from between AoS packings (``x_from`` holds the opposite
+    parity), on the canonical operand [X/2, *rest, KD?, BD, N]: the AoS
+    stencil matvec with a parity-select X shift (a +x neighbour is the
+    next packed slot where the image site's x is odd, else the same slot;
+    a -x neighbour the same slot where it is odd, else the one before),
+    every other direction a plain roll."""
+    nlat = len(hop.dim_d)
+    lat_full = (2 * hop.dim_d[0],) + tuple(hop.dim_d[1:])
+    sample = x_from.re if cplx.is_carray(x_from) else x_from
+    rest_par = _rest_parity(lat_full, sample.ndim - nlat, sample.device)
+    # x parity of the IMAGE site: (to_parity + rest_par) % 2
+    img_x_odd = (to_parity + rest_par) % 2 == 1
+
+    def shift(v, off, nl):
+        def sh(a):
+            ax = next(i for i, o in enumerate(off) if o)
+            s = off[ax]
+            if ax == 0:
+                if s > 0:
+                    # neighbour xh' = xh + [image x odd]
+                    return torch.where(img_x_odd, torch.roll(a, -1, dims=0), a)
+                # neighbour xh' = xh - [image x even]
+                return torch.where(img_x_odd, a, torch.roll(a, 1, dims=0))
+            return torch.roll(a, -s, dims=ax)
+        return cplx.cmap(sh, v) if cplx.is_carray(v) else sh(v)
+
+    return _apply_stencil(hop, x_from, shift=shift)
+
+
+def eo_solve_packed(op: BSROperator, b, a: float, n_iters: int = 50):
+    """Even-odd preconditioned solve with packed half-lattice AoS arrays
+    (the matvecs run on X/2 arrays, no masked waste); the contract of
+    :func:`superbblas_tpu_torch.models.even_odd.eo_solve`: ``b`` [*lat,
+    ...] whose trailing axes hold (KD,) BD and the columns, a CArray or a
+    tensor (a complex one is solved split and returned complex).  Returns
+    (psi shaped as ``b``, |r_e|^2 of the Schur CG)."""
+    if not cplx.is_carray(b) and b.is_complex():
+        psi, rs = eo_solve_packed(op, cplx.from_complex(b), a, n_iters)
+        return cplx.to_complex(psi), rs
+    nlat = len(op.dim_d)
+    cols_shape = tuple((b.re if cplx.is_carray(b) else b).shape[nlat:])
+    kron = op.kron_re is not None
+    KD = volume(op.kd) if kron else 1
+    BD = volume(op.bd)
+    N = volume(cols_shape) // (KD * BD)
+    bc = _reshape(b, tuple(op.dim_d) + ((KD, BD, N) if kron else (BD, N)))
+    b_e = cb_pack(bc, nlat, 0)
+    b_o = cb_pack(bc, nlat, 1)
+
+    hop_e = hopping_packed(op, 0)          # -> even
+    hop_o = hopping_packed(op, 1)          # -> odd
+    op_h = adjoint_operator(op)
+    hop_e_h = hopping_packed(op_h, 0)
+    hop_o_h = hopping_packed(op_h, 1)
+    del op_h
+
+    def Dhat(v_e):
+        t_o = apply_hopping_packed(hop_o, v_e, 1)
+        t_e = apply_hopping_packed(hop_e, t_o, 0)
+        return cplx.add(cplx.scale(a, v_e), cplx.scale(-1.0 / a, t_e))
+
+    def Dhat_h(v_e):
+        t_o = apply_hopping_packed(hop_o_h, v_e, 1)
+        t_e = apply_hopping_packed(hop_e_h, t_o, 0)
+        return cplx.add(cplx.scale(a, v_e), cplx.scale(-1.0 / a, t_e))
+
+    rhs = cplx.add(b_e, cplx.scale(-1.0 / a, apply_hopping_packed(hop_e, b_o, 0)))
+    psi_e, rs = schur_cg(Dhat, Dhat_h, rhs, n_iters)
+    psi_o = cplx.scale(1.0 / a, cplx.add(
+        b_o, cplx.scale(-1.0, apply_hopping_packed(hop_o, psi_e, 1))))
+    full = cb_unpack(psi_e, psi_o, nlat)
+    return _reshape(full, tuple(op.dim_d) + cols_shape), rs
+
+
+# ---------------------------------------------------------------------------
+# SoA (stencil kernel) packed checkerboarding
+# ---------------------------------------------------------------------------
 
 
 def _rest_par(rest, device) -> torch.Tensor:
@@ -96,10 +237,10 @@ def hopping_packed_soa(op: BSROperator, to_parity: int) -> BSROperator:
 
 
 def apply_hopping_packed_soa(hop: BSROperator, x_from: CArray,
-                             to_parity: int) -> CArray:
+                             to_parity: int, interpret=None) -> CArray:
     """y_to = H x_from between SoA packings (``x_from`` holds the opposite
     parity): the stencil kernel for CUDA operands, its plain version for
-    CPU ones."""
+    CPU ones.  ``interpret`` is accepted and unused."""
     return apply_stencil_soa(hop, x_from, packed_parity=to_parity)
 
 

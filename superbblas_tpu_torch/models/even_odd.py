@@ -12,11 +12,12 @@ and solving D psi = b reduces to the half-size Schur system
 
 with psi_o = (b_o - D_oe psi_e) / a reconstructed site-locally.
 
-Ported here: the Schur CG shared by the solves (``schur_cg``) and the
-parity masks.  The packed half-lattice solve on the SoA stencil is
-``models/eo_packed.py``; the masked full-lattice ``eo_solve`` and
-``schur_matvec`` need the AoS stencil mode and are still to port
-(ROADMAP.md Queue 1).
+Here the checkerboard is a site mask over the full lattice: the hopping
+operator H = D - a I maps even-supported fields to odd-supported ones, so
+D_eo z = P_e H z with H applied through the ordinary stencil matvec
+(``eo_solve``, ``schur_matvec``, on AoS operators through ``bsr_krylov``).
+The Schur CG shared by the solves is ``schur_cg``; the packed
+half-lattice solves (no masked waste) are ``models/eo_packed.py``.
 """
 
 from __future__ import annotations
@@ -26,9 +27,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .wilson import _axpy, _inner, _zeros_like
+from .. import cplx
+from ..bsr import BSROperator
+from ..cplx import CArray
+from .wilson import _axpy, _inner, _zeros_like, adjoint_operator, apply_wilson
 
-__all__ = ["checkerboard_masks", "schur_cg"]
+__all__ = ["checkerboard_masks", "eo_solve", "schur_matvec", "schur_cg"]
 
 
 def schur_cg(Dhat, Dhat_h, rhs, n_iters: int):
@@ -60,3 +64,58 @@ def checkerboard_masks(lat_dims: Tuple[int, ...], trailing: int, device="cuda"):
     shape = tuple(lat_dims) + (1,) * trailing
     even = torch.from_numpy(even.reshape(shape)).to(device)
     return even, 1.0 - even
+
+
+def _mask(m, x):
+    if cplx.is_carray(x):
+        return CArray(m * x.re, m * x.im)
+    return m * x
+
+
+def _scale(a, x):
+    return cplx.scale(a, x)
+
+
+def schur_matvec(op: BSROperator, a: float, even, odd, v):
+    """Dhat v = a v - (1/a) P_e H (H v) for even-supported v (H = D - a I
+    maps parities, so the inner product is odd-supported automatically)."""
+    hv = _mask(odd, cplx.add(apply_wilson(op, v), _scale(-a, v)))
+    hhv = _mask(even, cplx.add(apply_wilson(op, hv), _scale(-a, hv)))
+    return cplx.add(_scale(a, v), _scale(-1.0 / a, hhv))
+
+
+def _schur_matvec_dagger(op_h: BSROperator, a: float, even, odd, v):
+    """Dhat^H v from the adjoint operator ``op_h``."""
+    def hdag(x):
+        return cplx.add(apply_wilson(op_h, x), _scale(-a, x))
+    hv = _mask(odd, hdag(v))
+    hhv = _mask(even, hdag(hv))
+    return cplx.add(_scale(a, v), _scale(-1.0 / a, hhv))
+
+
+def eo_solve(op: BSROperator, b, a: float, n_iters: int = 50):
+    """Solve D psi = b by CG on the normal equations of the even-odd Schur
+    complement, for ``n_iters`` iterations; returns (psi, |r_e|^2 of the
+    Schur CG).
+
+    ``op`` is the AoS Wilson operator, ``a`` its site-diagonal scalar
+    (mass + 4 r), ``b`` [*lat, NS, NC, ncols] (a CArray or a complex
+    tensor).  The masks are made on ``b``'s device; the adjoint is built
+    once a call and kept by no one."""
+    nlat = len(op.dim_d)
+    even, odd = checkerboard_masks(op.dim_i, b.ndim - nlat, device=b.device)
+    op_h = adjoint_operator(op)
+
+    b_e = _mask(even, b)
+    b_o = _mask(odd, b)
+    # rhs_e = b_e - (1/a) D_eo b_o
+    h_bo = _mask(even, cplx.add(apply_wilson(op, b_o), _scale(-a, b_o)))
+    rhs = cplx.add(b_e, _scale(-1.0 / a, h_bo))
+
+    x, rs = schur_cg(lambda v: schur_matvec(op, a, even, odd, v),
+                     lambda v: _schur_matvec_dagger(op_h, a, even, odd, v), rhs, n_iters)
+    psi_e = _mask(even, x)
+    # psi_o = (b_o - D_oe psi_e) / a
+    h_pe = _mask(odd, cplx.add(apply_wilson(op, psi_e), _scale(-a, psi_e)))
+    psi_o = _scale(1.0 / a, cplx.add(b_o, _scale(-1.0, h_pe)))
+    return cplx.add(psi_e, psi_o), rs

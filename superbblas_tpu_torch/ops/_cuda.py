@@ -138,7 +138,7 @@ def library() -> ctypes.CDLL:
     # stream
     lib.sbt_permute_4d_tiled.argtypes = [i] * 6 + [i64] * 8 + [p, p, p]
     lib.sbt_permute_4d_tiled.restype = i
-    lib.sbt_roll_add.argtypes = [i, i64, i64, p, p, p]
+    lib.sbt_roll_add.argtypes = [i, i, i64, i64, p, p, i, p]
     lib.sbt_roll_add.restype = i
     # (f64, V, I, J, N, tile, sites) as ops/batched_gemm.py picks them + b,
     # x, y, stream

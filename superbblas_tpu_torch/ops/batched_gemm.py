@@ -208,14 +208,17 @@ def batched_gemm_rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _rowpack(b, x)
 
 
-def batched_small_gemm(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def batched_small_gemm(b: torch.Tensor, x: torch.Tensor, interpret: bool = False,
+                       force_pallas: bool = False) -> torch.Tensor:
     """y[v] = b[v] @ x[v] for a batch of small matrices.
 
     ``b``: [V, I, J]; ``x``: [V, J, N]; returns [V, I, N] in their dtype
     (f32 or f64, one for both).  CPU tensors run the plain version.  CUDA
     tensors run K3 for I, J <= 64 (``batched_small_gemm.launches`` counts
     its launches) and E1 otherwise (counted as
-    :func:`batched_gemm_rowpack`'s), or raise."""
+    :func:`batched_gemm_rowpack`'s), or raise.  ``interpret`` and
+    ``force_pallas`` (the JAX package's switches to its Pallas kernel) are
+    accepted and unused: the card always runs its kernels."""
     route = _check(b, x, "batched_small_gemm")
     if _on_cpu(b, "batched_small_gemm"):
         return batched_small_gemm_reference(b, x)

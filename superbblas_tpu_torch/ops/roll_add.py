@@ -8,17 +8,25 @@ the last axis).  ``roll_add`` runs the plain version on CPU tensors and
 the kernel ``csrc/roll_add.cu`` on CUDA ones, in one of two variants:
 ``"f32"`` (convert, add in f32, round once; bit-exact against the plain
 version) or ``"bf16x2"`` (native bf16 pair adds; within one bf16 ulp of
-it, even T only).  It answers whether native bf16 arithmetic pays on the
-card; nothing in the package calls it.
+it, on 4-byte aligned pairs only), and in the form ``roll_add_form`` picks
+from the shape and the pointers' alignment: ``"vec16"`` (16-byte words),
+``"pair"`` (4-byte pairs) or ``"elem"`` (one element a thread).  It
+answers whether native bf16 arithmetic pays on the card; nothing in the
+package calls it.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
-__all__ = ["roll_add", "roll_add_reference", "VARIANTS"]
+__all__ = ["roll_add", "roll_add_reference", "roll_add_form", "VARIANTS", "FORMS"]
 
 VARIANTS = ("f32", "bf16x2")
+#: the kernel's forms, by their number at its C entry
+FORMS = ("vec16", "pair", "elem")
 
 
 def roll_add_reference(x: torch.Tensor) -> torch.Tensor:
@@ -28,10 +36,32 @@ def roll_add_reference(x: torch.Tensor) -> torch.Tensor:
     return (torch.roll(xf, 1, dims=-1) + xf).to(x.dtype)
 
 
+def roll_add_form(T: int, x_ptr: int, y_ptr: int, variant: str = "f32") -> str:
+    """The kernel's form for rows of ``T`` bf16 at the data pointers
+    ``x_ptr`` and ``y_ptr``: "vec16" where T % 8 == 0 and both are 16-byte
+    aligned, "pair" where T is even and both are 4-byte aligned, else
+    "elem" (the f32 variant only: the bf16x2 variant raises ValueError)."""
+    if T % 8 == 0 and x_ptr % 16 == 0 and y_ptr % 16 == 0:
+        return "vec16"
+    if T % 2 == 0 and x_ptr % 4 == 0 and y_ptr % 4 == 0:
+        return "pair"
+    if variant == "bf16x2":
+        raise ValueError(f"roll_add: the bf16x2 variant adds 4-byte aligned pairs and takes "
+                         f"an even last axis on aligned data, got {T}")
+    return "elem"
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
     """``roll(x, 1, -1) + x`` of a bf16 tensor.  CPU tensors run the plain
-    version; CUDA tensors the kernel's ``variant`` (``roll_add.launches``
-    counts its launches) or raise where it does not take the case."""
+    version; CUDA tensors the kernel's ``variant`` in the form
+    :func:`roll_add_form` picks (``roll_add.launches`` counts its launches,
+    ``roll_add.by_form`` them by form) or raise where it does not take the
+    case."""
     if variant not in VARIANTS:
         raise ValueError(f"roll_add: variant {variant!r} is not one of {VARIANTS}")
     if x.dtype != torch.bfloat16 or x.ndim < 1 or x.numel() == 0:
@@ -50,14 +80,18 @@ def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
     from . import _cuda
 
     y = torch.empty_like(x)
+    form = roll_add_form(T, x.data_ptr(), y.data_ptr(), variant)
     with torch.cuda.device(x.device):
-        err = _cuda.library().sbt_roll_add(int(variant == "bf16x2"), x.numel() // T, T,
-                                           x.data_ptr(), y.data_ptr(),
+        err = _cuda.library().sbt_roll_add(int(variant == "bf16x2"), FORMS.index(form),
+                                           x.numel() // T, T, x.data_ptr(), y.data_ptr(),
+                                           _sms(x.device.index),
                                            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roll_add kernel launch failed: cudaError {err}")
     roll_add.launches += 1
+    roll_add.by_form[form] += 1
     return y
 
 
 roll_add.launches = 0
+roll_add.by_form = collections.Counter()

@@ -539,8 +539,9 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                              f"{c.re.dtype}/{c.im.dtype}, expected {shape}")
         if not (c.re.is_contiguous() and c.im.is_contiguous()):
             raise ValueError(f"{name}: the CUDA stencil kernel needs contiguous parts")
-    if n < 1 or n > 8 * 65535 or any(v > 2 ** 31 - 1 for v in lat):
-        raise ValueError(f"{n} columns on lattice {lat}: outside the kernel's grid")
+    if n < 1 or n > 2 ** 31 - 1 or any(v > 2 ** 31 - 1 for v in lat):
+        raise ValueError(f"{n} columns on lattice {lat}: outside the kernels' 32-bit "
+                         "extents")
     return KI, KD
 
 
@@ -815,9 +816,13 @@ def _on_cpu(blocks: CArray, x: CArray, name: str) -> bool:
 
 def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
                        offsets: Sequence[Tuple[int, ...]], bi: int, bd: int,
-                       packed_parity: Optional[int] = None) -> CArray:
+                       interpret: bool = False, packed_parity: Optional[int] = None,
+                       chunks: Optional[Tuple[int, int]] = None) -> CArray:
     """y[n, KI*BI, X, Y, Z, T] = SoA stencil matvec; with ``packed_parity``
     (0 or 1) the operands hold one checkerboard parity with X halved.
+    ``interpret`` and ``chunks`` (the TPU kernel's interpreter switch and
+    its (nc, Yc) VMEM chunks) are accepted and unused; ``chunks`` that do
+    not divide (n, Y) raise the JAX package's ValueError.
 
     CPU operands run the plain version.  CUDA operands run the kernel:
     the tiled kernel with the kron's spin plan at TILED_SHAPES, the
@@ -828,6 +833,11 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     raises.  Above MAX_BLOCK it raises ValueError on every device."""
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     check_block(KI, KD, bi, bd)
+    if chunks is not None:
+        nc, Yc = chunks
+        if x.shape[0] % nc or blocks.shape[3] % Yc:
+            raise ValueError(f"chunks {chunks} must divide (n={x.shape[0]}, "
+                             f"Y={blocks.shape[3]})")
     if _on_cpu(blocks, x, "stencil_matvec_soa"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                             packed_parity=packed_parity)
@@ -916,13 +926,14 @@ def _schedule(entry: str, blocks: CArray, kron: Optional[CArray], x: CArray, off
 
 def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
                            offsets: Sequence[Tuple[int, ...]], bi: int,
-                           bd: int) -> CArray:
+                           bd: int, interpret: bool = False) -> CArray:
     """X-inside schedule of :func:`stencil_matvec_soa` (same contract, no
     packed parity, every shape and pair K1 takes, K1's bits): each block
     holds its tile's whole X lines of one column group in shared memory.
     Raises ValueError where no tile fits (``xin_tile``), on every device.
     CPU operands run the plain version; CUDA operands the kernel
-    (``stencil_matvec_soa_xin.launches``) or raise."""
+    (``stencil_matvec_soa_xin.launches``) or raise.  ``interpret`` is
+    accepted and unused."""
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     n, X = x.shape[0], x.shape[2]
     elem = x.re.element_size()
@@ -938,14 +949,16 @@ def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
 
 def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
                               offsets: Sequence[Tuple[int, ...]], bi: int,
-                              bd: int, nc: Optional[int] = None) -> CArray:
+                              bd: int, interpret: bool = False,
+                              nc: Optional[int] = None) -> CArray:
     """X-streaming schedule of :func:`stencil_matvec_soa` (same contract,
     no packed parity, every shape and pair K1 takes, K1's bits): each block
     walks X with a ring of X planes of its tile in shared memory.  ``nc``:
     the columns of a block (``stream_tile``), a divisor of n, else
     ValueError on every device, as the TPU wrapper.  CPU operands run the
     plain version; CUDA operands the kernel
-    (``stencil_matvec_soa_stream.launches``) or raise."""
+    (``stencil_matvec_soa_stream.launches``) or raise.  ``interpret`` is
+    accepted and unused."""
     n = x.shape[0]
     if nc is not None and (nc < 1 or n % nc):
         raise ValueError(f"nc={nc} must divide the column count n={n}")

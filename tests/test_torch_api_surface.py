@@ -2,12 +2,16 @@
 ``__all__`` of a reference module that the port has a counterpart of
 exists in that counterpart, or stands in this file's list of names still
 to port (or not carried over, with the reason).  The reference modules are
-read with ``ast``, so the surface test imports no JAX.  Then the names
-fault P4 found missing, against the JAX package's: ``cplx.asarray``,
-``cplx.cmatmul`` and ``cg_solve``'s ``tol``."""
+read with ``ast``, so the surface test imports no JAX.  Every ported
+public function takes the reference's parameters in the reference's
+positions (fault P5: the port may only append its own, such as
+``device``), and a positional ``interpret`` leaves the apply unpacked.
+Then the names fault P4 found missing, against the JAX package's:
+``cplx.asarray``, ``cplx.cmatmul`` and ``cg_solve``'s ``tol``."""
 
 import ast
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -42,8 +46,6 @@ COUNTERPARTS = {
     "ops/permute_pallas.py": "superbblas_tpu_torch.ops.permute",
 }
 
-_AOS_EO = "the AoS even-odd functions: ROADMAP.md Queue 1 item 2"
-_GATHER = "the gather modes of bsr.py: ROADMAP.md Queue 1 item 3"
 _DENSE = "dense.py: ROADMAP.md Queue 1 item 4"
 _STORAGE = "storage.py and the native plan engine: ROADMAP.md Queue 1 item 5"
 _UTILS = "the utilities: ROADMAP.md Queue 1 item 6"
@@ -55,18 +57,10 @@ STILL_TO_PORT = {
         "aot": _UTILS, "context": _UTILS, "flags": _UTILS, "utils": _UTILS,
         "dense": _DENSE, "cholesky": _DENSE, "trsm": _DENSE, "gesm": _DENSE,
         "inversion": _DENSE, "native": _STORAGE, "storage": _STORAGE,
-        "create_bsr": _GATHER, "create_kron_bsr": _GATHER,
         "parallel": _DIST, "Partition": _DIST, "basic_partitioning": _DIST,
         "contraction": _DIST, "copy": _DIST, "make_hole": _DIST, "make_mesh": _DIST,
         "partition_sharding": _DIST, "partitioning_distributed_procs": _DIST,
         "reshard": _DIST},
-    "bsr.py": {"bsr_allowed_layouts": _GATHER},
-    "models/__init__.py": {name: _AOS_EO for name in (
-        "eo_solve", "schur_matvec", "apply_hopping_packed", "cb_pack", "cb_unpack",
-        "eo_solve_packed", "hopping_packed")},
-    "models/even_odd.py": {"eo_solve": _AOS_EO, "schur_matvec": _AOS_EO},
-    "models/eo_packed.py": {name: _AOS_EO for name in (
-        "cb_pack", "cb_unpack", "hopping_packed", "apply_hopping_packed", "eo_solve_packed")},
 }
 #: names the port does not carry over, with the reason
 NOT_CARRIED = {
@@ -124,8 +118,75 @@ def test_top_level_bsr_names():
     from superbblas_tpu_torch import bsr
 
     for name in ("BSROperator", "bsr_from_stencil", "bsr_cast_storage",
-                 "bsr_get_preferred_layout", "bsr_krylov"):
+                 "bsr_get_preferred_layout", "bsr_krylov", "create_bsr", "create_kron_bsr"):
         assert getattr(sbt, name) is getattr(bsr, name), name
+
+
+def reference_functions(rel: str) -> dict:
+    """{name: positional parameter names} of the functions a reference
+    module defines at top level, read with ``ast``."""
+    tree = ast.parse((REF / rel).read_text())
+    return {node.name: [a.arg for a in node.args.posonlyargs + node.args.args]
+            for node in tree.body if isinstance(node, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("rel", sorted(COUNTERPARTS))
+def test_ported_functions_take_the_reference_parameters(rel):
+    """Each public function of a reference module that the port has takes
+    the reference's positional parameters, in order, before any of the
+    port's own (which have defaults): a positional call written for the
+    JAX package means the same to the port."""
+    funcs = reference_functions(rel)
+    port = importlib.import_module(COUNTERPARTS[rel])
+    public = set(reference_all(rel) or ()) | {n for n in funcs if not n.startswith("_")}
+    checked = 0
+    for name in sorted(public & set(funcs)):
+        fn = getattr(port, name, None)
+        if fn is None or inspect.isclass(fn) or not callable(fn):
+            continue
+        params = list(inspect.signature(fn).parameters.values())
+        positional = [p for p in params if p.kind in (p.POSITIONAL_ONLY,
+                                                      p.POSITIONAL_OR_KEYWORD)]
+        ref = funcs[name]
+        assert [p.name for p in positional[:len(ref)]] == ref, \
+            f"{COUNTERPARTS[rel]}.{name}{inspect.signature(fn)} against the reference's {ref}"
+        extra = positional[len(ref):]
+        assert all(p.default is not p.empty for p in extra), \
+            f"{COUNTERPARTS[rel]}.{name}: appended parameters need defaults"
+        checked += 1
+    assert checked or not (public & set(funcs)), rel
+
+
+def test_positional_interpret_applies_unpacked():
+    """``apply_stencil_soa(op, x, True)`` reads True as the reference's
+    ``interpret`` (accepted, unused), not as a packed parity; likewise
+    ``stencil_matvec_soa``'s seventh argument and ``batched_small_gemm``'s
+    third."""
+    from superbblas_tpu_torch import bsr
+    from superbblas_tpu_torch.models import wilson as TW
+    from superbblas_tpu_torch.ops import batched_gemm as G
+    from superbblas_tpu_torch.ops import stencil as S
+
+    lat = (4, 4, 4, 4)
+    op = TW.wilson_operator(lat, mass=0.3, key=1, dtype=torch.complex128, layout="soa",
+                            device="cpu")
+    rng = np.random.default_rng(4)
+    x = TW.CArray(*(torch.from_numpy(rng.standard_normal((2, 12) + lat)) for _ in range(2)))
+    want = bsr.apply_stencil_soa(op, x)
+    for got in (bsr.apply_stencil_soa(op, x, True),
+                S.stencil_matvec_soa(op.blocks, op.kron, x, op.offsets, 3, 3, True)):
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    from superbblas_tpu_torch.models import eo_packed as E
+
+    hop, src = E.hopping_packed_soa(op, 0), E.cb_pack_soa(x, 1)
+    packed = bsr.apply_stencil_soa(hop, src, None, 0)
+    want = E.apply_hopping_packed_soa(hop, src, 0, None)
+    assert torch.equal(packed.re, want.re) and torch.equal(packed.im, want.im)
+    with pytest.raises(ValueError, match="chunks"):
+        S.stencil_matvec_soa(op.blocks, op.kron, x, op.offsets, 3, 3, False, None, (3, 1))
+    b = torch.from_numpy(rng.standard_normal((5, 3, 4)))
+    xx = torch.from_numpy(rng.standard_normal((5, 4, 2)))
+    assert torch.equal(G.batched_small_gemm(b, xx, True, True), G.batched_small_gemm(b, xx))
 
 
 @pytest.mark.parametrize("case", ["complex", "real", "carray", "complex_tensor"])

@@ -243,9 +243,22 @@ def test_soa_operator_through_bsr_krylov():
 
 
 def test_gather_modes_are_still_to_port():
-    for fn in (TB.create_bsr, TB.create_kron_bsr):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn("Xc", (4, 2), "Xc", (4, 2), (1, 2), (1, 2), None, None, None)
+    """Once a refusal of the gather modes, now their port's entry checks
+    (the modes themselves are held against the JAX package in
+    test_torch_bsr_gather.py): create_bsr and create_kron_bsr build
+    operators; a gather operator needs its neighbour lists, and a mode
+    outside MODES is refused."""
+    ii, jj = np.array([1, 2, 1, 2]), np.array([[0, 0], [1, 3], [2, 2], [3, 1]])[..., None]
+    vals = np.random.default_rng(0).standard_normal((4, 2, 2, 2))
+    op = TB.create_bsr("Xc", (4, 2), "Xc", (4, 2), (1, 2), (1, 2), ii, jj, vals,
+                       pattern_merge=False, device="cpu")
+    assert op.mode == "gather" and op.jj_flat.shape == (4, 2)
+    kop = TB.create_kron_bsr("XSc", (4, 2, 2), "XSc", (4, 2, 2), (1, 1, 2), (1, 1, 2),
+                             (1, 2, 1), (1, 2, 1), ii, jj, vals, np.ones((2, 2, 2)),
+                             device="cpu")
+    assert kop.mode == "gather" and kop.kron is not None
     _, top, _, _ = make_ops((4,), 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="jj_flat"):
         top.replace(mode="gather")
+    with pytest.raises(ValueError, match="mode"):
+        top.replace(mode="csr")

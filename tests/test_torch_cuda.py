@@ -17,7 +17,10 @@ shape (both forms, every f32-summed pair) against the plain version and
 the runtime-shape route; the permute kernel against its plain version,
 alone and inside ``local_copy``, on both its routes; the batched-GEMM kernels K3 and E1
 against their plain version and a float64 product, and ``apply_coarse``
-on the card against the CPU port.  The kernels at the main path's shapes
+on the card against the CPU port; K1 past 524,280 columns and K3/E1 past
+65535 tiles on grid.y and grid.z (fault P6); E2's forms (vec16, pair,
+elem); the gather applies of ``create_bsr``/``create_kron_bsr`` on E1 and
+K3, and the AoS staggered packed solve on K3.  The kernels at the main path's shapes
 are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -876,3 +879,161 @@ def test_permute_vec_route_attrs(cuda_device):
     assert _cuda_lib().sbt_permute_4d_vec_attrs(out) == 0
     regs, local, threads, blocks = out
     assert local == 0 and threads == 256 and blocks >= 2, tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["runtime", "templated"])
+def test_k1_takes_more_than_524280_columns(cuda_device, route):
+    """No cap of 8 x 65535 columns on K1 (fault P6): 524,281 columns of a
+    2^4 lattice at (1, 1, 2, 2) f32 (the runtime-shape route) and at the
+    clover term's (1, 1, 12, 12) in f64 (the templated route, whose
+    columns walk grid.y), against the plain version."""
+    lat, n = (2, 2, 2, 2), 8 * 65535 + 1
+    if route == "runtime":
+        dt, bi, offsets = torch.float32, 2, OFFSETS
+    else:
+        dt, bi, offsets = torch.float64, 12, [(0, 0, 0, 0)]
+    blocks = crand((len(offsets), bi * bi) + lat, 0, cuda_device, dt)
+    x = crand((n, bi) + lat, 1, cuda_device, dt)
+    args = (blocks, None, x, offsets, bi, bi)
+    assert S.k1_route((1, 1, bi, bi), dt, dt, 16) == route
+    got = S.stencil_matvec_soa(*args)
+    want = S.stencil_matvec_soa_reference(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    assert got.re.shape == want.re.shape
+    assert err <= (1e-5 if dt == torch.float32 else 1e-12) * scale, (route, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k3_columns", "e1_columns", "e1_rows"])
+def test_batched_gemm_walks_past_65535_tiles(cuda_device, case):
+    """K3 and E1 past 65535 tiles on grid.z (N / NT) and grid.y (I / IT)
+    (fault P6): each against the plain version and a float64 product."""
+    V, I, J, N, fn = {"k3_columns": (1, 2, 3, 65536 * 128 + 3, G.batched_small_gemm),
+                      "e1_columns": (1, 2, 3, 65536 * 128 + 3, G.batched_gemm_rowpack),
+                      "e1_rows": (1, 65536 * 32 + 5, 3, 1, G.batched_gemm_rowpack)}[case]
+    tile = (G.small_tile if fn is G.batched_small_gemm else G.rowpack_tile)(V, I, J, N)
+    IT, NT = G.CONFIGS[tile[0]][:2]
+    assert max(-(-I // IT), -(-N // NT)) > 65535, (case, tile)
+    b, x = _gemm_operands(V, I, J, N, torch.float32, cuda_device)
+    before = fn.launches
+    got = fn(b, x)
+    assert fn.launches == before + 1
+    want = G.batched_small_gemm_reference(b, x)
+    want64 = torch.einsum("vij,vjn->vin", b.double(), x.double())
+    scale = float(want64.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float((got.double() - want64).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 256, 264, 6, 7])
+def test_roll_add_forms(cuda_device, T):
+    """E2's forms: vec16 at T = 8 (rows of one word: whole rows in a warp),
+    256 (a row a warp) and 264 (rows across warps: the rolled element
+    loaded), pair at T = 6, elem at T = 7 (f32 only); a view one element
+    off 16 bytes takes pair (or elem).  The f32 variant bit for bit against
+    the plain version, bf16x2 within one bf16 ulp; ``roll_add.by_form``
+    counts each launch by form."""
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    base = torch.randn((97 * 33 * T + 2,), generator=gen, device="cuda").bfloat16()
+    x = base[:97 * 33 * T].view(97, 33, T)
+    views = [(x, R.roll_add_form(T, 0, 0))]
+    if T % 2 == 0:
+        views.append((base[2:2 + 97 * 33 * T].view(97, 33, T), "pair"))
+    assert views[0][1] == ("vec16" if T % 8 == 0 else "pair" if T % 2 == 0 else "elem")
+    for v, form in views:
+        want = R.roll_add_reference(v)
+        for variant in R.VARIANTS:
+            if variant == "bf16x2" and form == "elem":
+                with pytest.raises(ValueError, match="even"):
+                    R.roll_add(v, variant)
+                continue
+            before = R.roll_add.by_form[form]
+            got = R.roll_add(v, variant)
+            torch.cuda.synchronize()
+            assert R.roll_add.by_form[form] == before + 1, (T, form, variant)
+            if variant == "f32":
+                assert torch.equal(got, want), (T, form)
+            else:
+                scale = torch.clamp_min(want.float().abs(), 2.0 ** -126)
+                assert bool(((got.float() - want.float()).abs() <= 2.0 ** -7 * scale).all())
+
+
+def _gather_case(nnz_max, seed, device, complex_values=True):
+    """An irregular 1-D operator of 64 rows, 3x3 blocks: each row its own
+    site and up to nnz_max - 1 random others."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    ii = rng.integers(1, nnz_max + 1, size=n)
+    ii[0] = nnz_max
+    jj = rng.integers(0, n, size=(n, nnz_max, 1))
+    jj[:, 0, 0] = np.arange(n)
+    vals = rng.standard_normal((n, nnz_max, 3, 3))
+    if complex_values:
+        vals = vals + 1j * rng.standard_normal(vals.shape)
+    return ii, jj, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nnz,kernel", [(9, "e1"), (5, "k3"), ("kron", "k3")])
+def test_gather_applies_launch_their_kernel(cuda_device, nnz, kernel):
+    """create_bsr's gather plan on the card: one batched product a Gauss
+    part, on E1 where nnz*BD > 64 (9 slots of 12x12 blocks: J = 108) and on
+    K3 below (5 slots of 3x3: J = 15); the kron gather's colour stage
+    ([voli*nnz, 3, 3]) on K3; each against the same apply on the CPU."""
+    from superbblas_tpu_torch import bsr as B
+
+    rng = np.random.default_rng(3)
+    if nnz == "kron":
+        ii, jj, vals = _gather_case(5, 4, cuda_device)
+        spin = rng.standard_normal((5, 2, 2)) + 1j * rng.standard_normal((5, 2, 2))
+        args = ("XSc", (64, 2, 3), "XSc", (64, 2, 3), (1, 1, 3), (1, 1, 3), (1, 2, 1),
+                (1, 2, 1), ii, jj)
+        ops = [B.create_kron_bsr(*args, vals, spin, device=d) for d in ("cpu", cuda_device)]
+        x = rng.standard_normal((64, 2, 3, 4)) + 1j * rng.standard_normal((64, 2, 3, 4))
+        ox = "XScn"
+    else:
+        ii, jj, vals = _gather_case(nnz, 5, cuda_device)
+        if nnz == 9:
+            vals = np.tile(vals, (1, 1, 4, 4))          # 12x12 blocks: J = 108
+        bw = vals.shape[-1]
+        args = ("Xs", (64, bw), "Xc", (64, bw), (1, bw), (1, bw), ii, jj)
+        ops = [B.create_bsr(*args, vals, device=d) for d in ("cpu", cuda_device)]
+        x = rng.standard_normal((64, bw, 4)) + 1j * rng.standard_normal((64, bw, 4))
+        ox = "Xcn"
+    assert ops[0].mode == ops[1].mode == "gather"
+    fn = G.batched_small_gemm if kernel == "k3" else G.batched_gemm_rowpack
+    before = (G.batched_small_gemm.launches, G.batched_gemm_rowpack.launches)
+    got = B.bsr_krylov(1.0, ops[1], torch.from_numpy(x).to(cuda_device), ox)
+    torch.cuda.synchronize()
+    after = (G.batched_small_gemm.launches, G.batched_gemm_rowpack.launches)
+    want = B.bsr_krylov(1.0, ops[0], torch.from_numpy(x), ox)
+    assert fn.launches - before[fn is G.batched_gemm_rowpack] == 3
+    assert sum(after) - sum(before) == 3
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-10 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_aos_staggered_eo_solve_packed_launches_k3(cuda_device):
+    """The AoS packed solve of the staggered operator on the card (J = 8 x 3
+    = 24: K3, three launches a hopping apply) against the same solve on the
+    CPU."""
+    lat = (4, 4, 4, 8)
+    links = W.random_su3_links(np.random.default_rng(2), lat)
+    rng = np.random.default_rng(3)
+    b = CArray(*(torch.from_numpy(rng.standard_normal(lat + (3, 2))) for _ in range(2)))
+    out = []
+    for dev in ("cpu", cuda_device):
+        op = M.staggered_operator(lat, mass=0.5, links=links, dtype=torch.complex128,
+                                  device=dev)
+        before = G.batched_small_gemm.launches
+        psi, rs = E.eo_solve_packed(op, b.to(dev), a=0.5, n_iters=6)
+        out.append((psi, float(rs), G.batched_small_gemm.launches - before))
+    (p0, r0, n0), (p1, r1, n1) = out
+    assert n0 == 0 and n1 == 3 * (4 * 6 + 4), n1
+    for g, w in zip(p1, p0):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-10, atol=1e-10)
+    assert abs(r1 - r0) <= 1e-10 * max(1.0, r0)

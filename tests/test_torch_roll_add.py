@@ -79,3 +79,24 @@ def test_variants_and_refusals():
         R.roll_add(tx[:0])
     with pytest.raises(ValueError, match="no kernel for device"):
         R.roll_add(torch.empty((4, 6), dtype=torch.bfloat16, device="meta"))
+
+
+@pytest.mark.parametrize("T,x_off,y_off,variant,form", [
+    (256, 0, 0, "f32", "vec16"), (8, 0, 0, "bf16x2", "vec16"), (264, 0, 0, "f32", "vec16"),
+    (256, 4, 0, "f32", "pair"), (256, 0, 2, "f32", "elem"), (6, 0, 0, "bf16x2", "pair"),
+    (7, 0, 0, "f32", "elem"), (262, 16, 16, "bf16x2", "pair")])
+def test_roll_add_form_from_shape_and_alignment(T, x_off, y_off, variant, form):
+    """The kernel's form from the last axis and the two pointers' byte
+    offsets alone: vec16 where T % 8 == 0 and both are 16-byte aligned,
+    pair where T is even and both 4-byte aligned, elem else."""
+    assert R.roll_add_form(T, 256 + x_off, 512 + y_off, variant) == form
+
+
+def test_roll_add_form_refuses_bf16x2_without_pairs():
+    """The bf16x2 variant adds aligned pairs: an odd T or a pointer off 4
+    bytes has no form for it."""
+    with pytest.raises(ValueError, match="even"):
+        R.roll_add_form(7, 0, 0, "bf16x2")
+    with pytest.raises(ValueError, match="even"):
+        R.roll_add_form(256, 2, 0, "bf16x2")
+    assert R.FORMS == ("vec16", "pair", "elem")

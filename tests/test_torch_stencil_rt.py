@@ -124,7 +124,7 @@ def test_rt_tile_at_the_timed_shapes(shape, n, want):
 def test_rt_wrapper_takes_every_column_count_and_refuses_the_rest():
     """No 65535-column cap: the CPU path runs 65536 columns; above
     MAX_BLOCK the wrapper raises on every device; the kernel case check
-    takes up to 8 x 65535 columns."""
+    takes more than 8 x 65535 columns (no route caps them)."""
     rng = np.random.default_rng(0)
     lat = (2, 2, 2, 2)
     offsets = [(0, 0, 0, 0), (0, 0, 0, 1)]
@@ -139,6 +139,8 @@ def test_rt_wrapper_takes_every_column_count_and_refuses_the_rest():
     assert tuple(y.re.shape) == (65536, 2) + lat
     assert torch.equal(y.re, want.re) and torch.equal(y.im, want.im)
     assert S.check_kernel_case(blocks, None, x, offsets, 2, 2) == (1, 1)
+    wide = CArray(*(torch.empty((8 * 65535 + 1, 2) + lat) for _ in range(2)))
+    assert S.check_kernel_case(blocks, None, wide, offsets, 2, 2) == (1, 1)
     with pytest.raises(ValueError, match="256"):
         S.stencil_matvec_soa_rt(c((1, 289) + lat), None, c((1, 17) + lat),
                                 [(0, 0, 0, 0)], 17, 17)

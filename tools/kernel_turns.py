@@ -1,10 +1,10 @@
 """Time the clover term's K1, the permute kernel K2, the stencil's
-X-inside and X-streaming schedules beside K1, K1's runtime-shape route and
-the transpose tile sweep E3 of two or more checkouts of the port in turns,
-on one card.
+X-inside and X-streaming schedules beside K1, K1's runtime-shape route,
+the transpose tile sweep E3 and the bf16 roll-plus-add E2 of two or more
+checkouts of the port in turns, on one card.
 
     python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
-                                 [--only clover permute schedules runtime sweep]
+                                 [--only clover permute schedules runtime sweep e2]
 
 Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
 checkout) is run in a process of its own, which builds that tree's kernels
@@ -34,6 +34,11 @@ calls), ms:
   (3,2,1,0), at each design point of the tree's own ``TILES``, beside
   ``permute_4d`` (K2) and ``permute().contiguous()``, timed in turns with
   each other (A B ... B A) inside the tree's process;
+- ``e2_VARIANT_R`` and ``e2_VARIANT_R_device``: ``roll_add`` of a bf16
+  [R, 32, 256] tensor from a seeded card generator (R = 256, the probe's
+  shape, and 4096), each variant on CUDA events and device-only (20 calls
+  captured in one CUDA graph, the median of 7 replays over 20), with
+  ``roll_add_reference`` beside them (``e2_plain_R``);
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -149,6 +154,40 @@ def worker(reps: int, solve: bool, only) -> dict:
                 times[k].append(s.elapsed_time(e))
         out["sweep"] = {k: statistics.median(v) for k, v in times.items()}
         del x
+    if "e2" in only:
+        from superbblas_tpu_torch.ops.roll_add import VARIANTS, roll_add, roll_add_reference
+
+        def graph_ms(fn, calls=20):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(calls):
+                    fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(7):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                graph.replay()
+                e.record()
+                e.synchronize()
+                times.append(s.elapsed_time(e) / calls)
+            return statistics.median(times)
+
+        for rows in (256, 4096):
+            x = torch.randn((rows, 32, 256), generator=gen, device="cuda").bfloat16()
+            fns = {f"e2_{v}_{rows}": (lambda v=v: roll_add(x, v)) for v in VARIANTS}
+            fns[f"e2_plain_{rows}"] = lambda: roll_add_reference(x)
+            for key, fn in fns.items():
+                out[key] = median_ms(fn)
+                out[f"{key}_device"] = graph_ms(fn)
+            del x
     if solve:
         lat = (24, 24, 24, 48)
         op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
@@ -181,7 +220,7 @@ def main():
     parser.add_argument("--reps", type=int, default=15)
     parser.add_argument("--no-solve", action="store_true")
     parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
-                        choices=["clover", "permute", "schedules", "runtime", "sweep"])
+                        choices=["clover", "permute", "schedules", "runtime", "sweep", "e2"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
