@@ -224,6 +224,7 @@ from superbblas_tpu_torch.ops.stencil import (aos_to_soa, clear_plans, soa_to_ao
                                               stencil_matvec_soa_rt,
                                               stencil_matvec_soa_stream,
                                               stencil_matvec_soa_xin)
+from tools.device_timing import GRAPH_CALLS, graph_ms
 
 WILSON_OFFSETS = wilson_offsets(4)
 HOPPING = WILSON_OFFSETS[1:]
@@ -280,8 +281,6 @@ E1_COARSE_SHAPE = (8192, 32, 288, 32)
 #: coarse path's and the V-cycle's; where K3 can run, E1 is timed beside it
 GEMM_TIME_SHAPES = (("k3", K3_TIME_SHAPE), ("e1", E1_TIME_SHAPE), ("e1", E1_COARSE_SHAPE),
                     ("k3", VC_K3_SHAPE), ("e1", VC_E1_SHAPE))
-#: launches captured in one CUDA graph for a device-only time
-GRAPH_CALLS = 20
 #: calls issued back to back for a host time a call
 HOST_CALLS = 200
 #: coarse path: 8x8x8x16 sites (32^3x64 blocked by 4^4), 32x32 blocks, 9
@@ -397,6 +396,7 @@ def reset_counts():
     stencil_matvec_soa.by_route.clear()
     permute_4d.by_route.clear()
     roll_add.by_form.clear()
+    roll_add.by_variant_form.clear()
     stencil_matvec_soa.plan_builds = 0
     stencil_matvec_soa.kron_reads = 0
 
@@ -1188,33 +1188,6 @@ def captured_gemms():
         yield calls
     finally:
         bsr.batched_small_gemm = inner
-
-
-def graph_ms(fn, reps=7) -> float:
-    """Device ms of one call of ``fn``: GRAPH_CALLS calls captured in one
-    CUDA graph (after a warm-up on a side stream), the median of ``reps``
-    replays over GRAPH_CALLS: no host cost of the calls is inside."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / GRAPH_CALLS)
-    return statistics.median(times)
 
 
 def host_us(fn) -> float:
@@ -2432,11 +2405,16 @@ def gather_path(gen):
         kernel = batched_small_gemm if batched_gemm_route(
             pb.shape[1], pb.shape[2], pb.dtype) == "small" else batched_gemm_rowpack
         prod = {"kernel": graph_ms(lambda: kernel(pb, px)),
+                "plain": graph_ms(lambda: batched_small_gemm_reference(pb, px)),
                 "bmm": graph_ms(lambda: torch.bmm(pb, px))}
+        pbytes = (pb.numel() + px.numel() + pb.shape[0] * pb.shape[1] * px.shape[2]) \
+            * pb.element_size()
         print(f"time gather ({case}) product {tuple(pb.shape)} @ {tuple(px.shape)} "
               f"{pb.dtype} device-only ({GRAPH_CALLS} calls a CUDA graph): "
-              f"{kernel.__name__} {prod['kernel']:.4f} ms, torch.bmm {prod['bmm']:.4f} ms "
-              f"(three such products an apply)", flush=True)
+              f"{kernel.__name__} {prod['kernel']:.4f} ms, plain {prod['plain']:.4f} ms, "
+              f"torch.bmm {prod['bmm']:.4f} ms, bytes bound "
+              f"{pbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (three such products an apply)",
+              flush=True)
         out[case] = (launches, err, ms, bd_, op.mode, prod)
         del op, colour, x, calls, pb, px
     return out
@@ -2465,11 +2443,12 @@ def e2_path(gen, rate):
             roll_add(xs[shape], v)
     torch.cuda.synchronize()
     launches = read_counts()["roll_add"]
-    by_form = dict(roll_add.by_form)
-    expect = {f: sum(len(shapes[f]) for v, ff in rows if ff == f) for f in shapes}
-    print(f"E2 path launches {launches}, by form {by_form} (expected {expect})", flush=True)
-    if by_form != expect:
-        raise AssertionError(f"E2 forms launched {by_form}, expected {expect}")
+    by_row = dict(roll_add.by_variant_form)
+    expect = {(v, f): len(shapes[f]) for v, f in rows}
+    print(f"E2 path launches {launches}, by variant and form {by_row} (expected {expect})",
+          flush=True)
+    if by_row != expect or launches != sum(expect.values()):
+        raise AssertionError(f"E2 launched {by_row} by variant and form, expected {expect}")
 
     def check(x, v, label):
         y = roll_add(x, v)
@@ -2489,7 +2468,7 @@ def e2_path(gen, rate):
     out = {}
     for v, f in rows:
         err = max(check(xs[shape], v, f"{f} {shape}") for shape in shapes[f])
-        out[v, f] = [len(shapes[f]), err, {}, {}]
+        out[v, f] = [by_row[v, f], err, {}, {}]
     for T in E2_CHECK_T:
         x = torch.randn((33, 17, T), generator=gen, device="cuda").bfloat16()
         form = roll_add_form(T, x.data_ptr(), x.data_ptr())

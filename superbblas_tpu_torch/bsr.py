@@ -16,8 +16,10 @@ Three storage modes:
   BD]`` (padded slots zero), ``jj_flat [voli, nnz]`` flat domain sites,
   ``row_counts [voli]``.  ``_apply_gather`` gathers the operand rows and
   runs ONE batched product [voli, BI, nnz*BD] @ [voli, nnz*BD, N] through
-  ``ops/batched_gemm.py``; ``_apply_gather_kron`` contracts colour for
-  each (site, slot) as one batched product, then the spin factors.
+  ``ops/batched_gemm.py``, on blocks stored in that product's layout
+  (``blocks`` reads them back as the reference's view, without a copy);
+  ``_apply_gather_kron`` contracts colour for each (site, slot) as one
+  batched product, then the spin factors.
 
 ``create_bsr`` builds an operator from the reference's per-row neighbour
 lists (``ii``/``jj``) and picks the mode as the JAX package does: a
@@ -80,7 +82,9 @@ class BSROperator(nn.Module):
     BI, BD]``), ``"stencil_soa"`` (blocks ``[ndir, BI*BD, *lat]``) or
     ``"gather"`` (AoS blocks ``[*lat_i, nnz, BI, BD]`` with ``jj_flat``
     [voli, nnz] flat domain sites and ``row_counts`` [voli] valid slots a
-    row).
+    row; without spin factors the buffers hold them in the gather
+    product's layout [voli, BI, nnz*BD], which ``blocks`` views back as
+    ``[*lat_i, nnz, BI, BD]``).
 
     ``blocks``/``kron`` are held as buffers (``blocks_re``, ``blocks_im``,
     ``kron_re``, ``kron_im``; an ``_im`` of None marks real AoS data), and
@@ -106,7 +110,11 @@ class BSROperator(nn.Module):
         if (mode == "gather") != (jj_flat is not None):
             raise ValueError("jj_flat is given in gather mode and only there")
         self.mode = mode
+        self.dim_i = tuple(int(v) for v in dim)
         b = cplx.from_complex(blocks) if mode == "stencil_soa" else blocks
+        if mode == "gather":
+            lay = _gather_layout if kron is None else torch.Tensor.contiguous
+            b = cplx.cmap(lay, b) if cplx.is_carray(b) else lay(b)
         self.register_buffer("blocks_re", b.re if cplx.is_carray(b) else b)
         self.register_buffer("blocks_im", b.im if cplx.is_carray(b) else None)
         self.register_buffer("kron_re", None if kron is None else
@@ -115,7 +123,6 @@ class BSROperator(nn.Module):
         self.register_buffer("jj_flat", jj_flat)
         self.register_buffer("row_counts", row_counts)
         self.offsets = tuple(tuple(int(v) for v in o) for o in offsets)
-        self.dim_i = tuple(int(v) for v in dim)
         self.dim_d = self.dim_i if dim_d is None else tuple(int(v) for v in dim_d)
         self.bi, self.bd = _coor(bi), _coor(bd)
         self.ki, self.kd = _coor(ki), _coor(kd)
@@ -126,9 +133,17 @@ class BSROperator(nn.Module):
 
     @property
     def blocks(self):
+        if self.mode == "gather" and self.kron_re is None:
+            def view(a):
+                BI, BD = volume(self.bi), volume(self.bd)
+                return a.view(a.shape[0], BI, -1, BD).transpose(1, 2).reshape(
+                    self.dim_i + (self.ndir, BI, BD))
+        else:
+            def view(a):
+                return a
         if self.blocks_im is None:
-            return self.blocks_re
-        return CArray(self.blocks_re, self.blocks_im)
+            return view(self.blocks_re)
+        return CArray(view(self.blocks_re), view(self.blocks_im))
 
     @property
     def kron(self):
@@ -140,6 +155,8 @@ class BSROperator(nn.Module):
     def ndir(self) -> int:
         if self.mode == "stencil_soa":
             return self.blocks_re.shape[0]
+        if self.mode == "gather":
+            return self.jj_flat.shape[1]
         return self.blocks_re.shape[len(self.dim_i)]
 
     def replace(self, **changes) -> "BSROperator":
@@ -181,6 +198,14 @@ class BSROperator(nn.Module):
 
     def forward(self, x: CArray) -> CArray:
         return apply_stencil_soa(self, x)
+
+
+def _gather_layout(a: torch.Tensor) -> torch.Tensor:
+    """Gather blocks [*lat_i, nnz, BI, BD] in the gather product's layout
+    [voli, BI, nnz*BD] (contiguous; no copy where ``a`` is a view of that
+    layout, as ``BSROperator.blocks`` gives)."""
+    nnz, BI, BD = a.shape[-3:]
+    return a.reshape(-1, nnz, BI, BD).transpose(1, 2).reshape(-1, BI, nnz * BD).contiguous()
 
 
 def bsr_cast_storage(op: BSROperator, dtype) -> BSROperator:
@@ -570,18 +595,13 @@ def _apply_gather(op: BSROperator, xc):
     """General BSR matvec on irregular neighbour lists: xc [*lat_d, BD, N]
     -> [*lat_i, BI, N], as ONE split-complex batched product [voli, BI,
     nnz*BD] @ [voli, nnz*BD, N] through ``batched_small_gemm`` (K3 for
-    nnz*BD <= 64, E1 above); the blocks are laid out for it on each apply
-    (a contiguous copy), as the AoS stencil mode does."""
+    nnz*BD <= 64, E1 above), on the blocks as the operator stores them."""
     BD, N = xc.shape[-2], xc.shape[-1]
     voli, nnz, BI = volume(op.dim_i), op.ndir, volume(op.bi)
     xdt = xc.dtype
     acc = _acc_dtype(torch.promote_types(op.blocks_re.dtype, xdt))
     xg = _reshape(_gather_rows(xc, op, (BD, N)), (voli, nnz * BD, N))
-
-    def lay(a):
-        return a.reshape(voli, nnz, BI, BD).transpose(1, 2).reshape(voli, BI, nnz * BD)
-
-    b = cplx.cmap(lay, op.blocks) if cplx.is_carray(op.blocks) else lay(op.blocks)
+    b = op.blocks_re if op.blocks_im is None else CArray(op.blocks_re, op.blocks_im)
     y = cplx.cbilinear(lambda bb, xx: batched_small_gemm(bb.to(acc), xx.to(acc)), b, xg)
     return _astype(_reshape(y, tuple(op.dim_i) + (BI, N)), xdt)
 

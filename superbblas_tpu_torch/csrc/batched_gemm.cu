@@ -25,7 +25,7 @@
 //
 // The design, against what held the first versions back:
 //  1. Register tiles.  A thread owns RR x CC outputs (4x4, or 2x2 / 4x2 on
-//     the narrow tiles).  b is staged [IT rows][JW + pad] and x [JW][NT +
+//     the narrow tiles, 1x4 on the short one).  b is staged [IT rows][JW + pad] and x [JW][NT +
 //     pad] in shared memory, as they lie in device memory; a thread reads
 //     four k values of each of its RR rows of b with one 16-byte load
 //     (LDS.128; two k values in f64) and CC columns of x with one 8- or
@@ -46,7 +46,7 @@
 //     of a step in flight with no register traffic; what TMA would save is
 //     the address arithmetic of 8-32 copies a thread a step.
 //  3. Compile-time tiles.  (IT, NT, RR, CC, JC, KS, blocks an SM for the
-//     register allocation) are template constants (five instantiations
+//     register allocation) are template constants (six instantiations
 //     a dtype, SBT_GEMM_TILES below); every extent a copy or the inner
 //     loop divides by is a power of two (static_assert), so staging and
 //     compute carry shifts and masks, no runtime / or %.
@@ -379,12 +379,17 @@ gemm_kernel(const T* __restrict__ b, const T* __restrict__ x, T* __restrict__ y,
 //  2 square, split J 4 ways: J in 4 x 32, 256 threads (few blocks)
 //  3 narrow: 4 x 8, 2x2, J split 8 ways in 8s, 64 threads (I <= 4, N <= 8)
 //  4 tall:   16 x 8, 4x2, J split 4 ways in 16s, 64 threads (I <= 16, N <= 8)
+//  5 short:  4 x 32, 1x4, J in 4s, one warp, 32 blocks an SM (I <= 4, J <= 8,
+//            N > 8: the kron gather's colour stage [V, 3, 3] @ [V, 3, 32],
+//            which would leave most rows and values of J of a wider tile
+//            idle)
 #define SBT_GEMM_TILES(X)         \
     X(0, 32, 128, 4, 4, 32, 1, 3) \
     X(1, 32, 32, 4, 4, 64, 1, 1)  \
     X(2, 32, 32, 4, 4, 32, 4, 1)  \
     X(3, 4, 8, 2, 2, 8, 8, 1)     \
-    X(4, 16, 8, 4, 2, 16, 4, 1)
+    X(4, 16, 8, 4, 2, 16, 4, 1)   \
+    X(5, 4, 32, 1, 4, 4, 1, 32)
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 

@@ -72,8 +72,11 @@ def _read_tiles() -> Dict[int, Tuple[int, ...]]:
 
 #: 0 wide (K3's main shape), 1 square (E1's main shape), 2 square with J
 #: split 4 ways (few blocks), 3 narrow (I <= 4, N <= 8) and 4 tall (I <=
-#: 16, N <= 8), J split 8 and 4 ways
+#: 16, N <= 8), J split 8 and 4 ways, 5 short (I <= 4, J <= SHORT_J, N >
+#: 8: one warp a block)
 CONFIGS = _read_tiles()
+#: most values of J the short tile takes (two of its steps)
+SHORT_J = 8
 
 
 def batched_gemm_route(I: int, J: int, dtype) -> str:
@@ -99,14 +102,18 @@ def _blocks(cfg: int, V: int, I: int, N: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _tile(V: int, I: int, J: int, N: int, walk: bool) -> Tuple[int, int]:
     """(tile, sites a block): narrow and tall tiles for a few rows and
-    columns (their blocks always split J); otherwise wide (N > 32) or
-    square tiles, split where one site a block gives fewer than MIN_BLOCKS
-    blocks.  With ``walk`` (K3), a block whose J fits one step walks up to
-    MAX_WALK sites while WALK_BLOCKS blocks remain."""
+    columns (their blocks always split J); the short tile for a few rows
+    and values of J and more columns, where it keeps MIN_BLOCKS blocks;
+    otherwise wide (N > 32) or square tiles, split where one site a block
+    gives fewer than MIN_BLOCKS blocks.  With ``walk`` (K3), a block whose
+    J fits one step walks up to MAX_WALK sites while WALK_BLOCKS blocks
+    remain."""
     if I <= 4 and N <= 8:
         cfg = 3
     elif I <= 16 and N <= 8:
         cfg = 4
+    elif I <= 4 and J <= SHORT_J and _blocks(5, V, I, N) >= MIN_BLOCKS:
+        cfg = 5
     else:
         cfg = 0 if N > 32 else 1
         if _blocks(cfg, V, I, N) < MIN_BLOCKS:

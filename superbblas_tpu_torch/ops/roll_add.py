@@ -60,8 +60,8 @@ def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
     """``roll(x, 1, -1) + x`` of a bf16 tensor.  CPU tensors run the plain
     version; CUDA tensors the kernel's ``variant`` in the form
     :func:`roll_add_form` picks (``roll_add.launches`` counts its launches,
-    ``roll_add.by_form`` them by form) or raise where it does not take the
-    case."""
+    ``roll_add.by_form`` them by form and ``roll_add.by_variant_form`` by
+    (variant, form)) or raise where it does not take the case."""
     if variant not in VARIANTS:
         raise ValueError(f"roll_add: variant {variant!r} is not one of {VARIANTS}")
     if x.dtype != torch.bfloat16 or x.ndim < 1 or x.numel() == 0:
@@ -90,8 +90,10 @@ def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
         raise RuntimeError(f"roll_add kernel launch failed: cudaError {err}")
     roll_add.launches += 1
     roll_add.by_form[form] += 1
+    roll_add.by_variant_form[variant, form] += 1
     return y
 
 
 roll_add.launches = 0
 roll_add.by_form = collections.Counter()
+roll_add.by_variant_form = collections.Counter()

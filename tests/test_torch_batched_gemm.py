@@ -125,7 +125,8 @@ def _pow2(v):
 @pytest.mark.parametrize("V,I,J,N", [(4096, 32, 288, 32), (256, 4, 324, 8), (16, 4, 64, 8),
                                      (8192, 32, 32, 128), (7, 4, 324, 3), (3, 200, 500, 70),
                                      (40, 64, 64, 300), (5, 1, 1, 1), (16384, 4, 324, 8),
-                                     (16384, 4, 64, 8), (4096, 12, 324, 2), (1024, 3, 27, 2)])
+                                     (16384, 4, 64, 8), (4096, 12, 324, 2), (1024, 3, 27, 2),
+                                     (1179648, 3, 3, 32), (300, 3, 3, 32), (8, 3, 3, 32)])
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_tiles_fit_the_card(V, I, J, N, itemsize):
     """Each kernel's tile, as read from the kernel's source, has at most
@@ -135,7 +136,9 @@ def test_tiles_fit_the_card(V, I, J, N, itemsize):
     blocks or splits J among the warps of a block; a K3 block walks
     several sites only while WALK_BLOCKS blocks remain, an E1 block takes
     one; the main shapes take the wide (K3) and square (E1) tiles, the
-    V-cycle's small levels the narrow one, split 8 ways."""
+    V-cycle's small levels the narrow one, split 8 ways, and the kron
+    gather's colour stage (3x3 blocks, 32 columns) the short one, one warp
+    a block, where it keeps MIN_BLOCKS blocks."""
     for tile_fn, walk in ((TG.rowpack_tile, False), (TG.small_tile, True)):
         if walk and max(I, J) > TG.SMALL_MAX:
             continue
@@ -157,6 +160,11 @@ def test_tiles_fit_the_card(V, I, J, N, itemsize):
         assert TG.rowpack_tile(V, I, J, N) == {32: (1, 1), 4: (3, 1)}[I]
     if (V, I, J, N) == (8192, 32, 32, 128):
         assert TG.small_tile(V, I, J, N) == (0, 2)
+    if (V, I, J, N) in ((1179648, 3, 3, 32), (300, 3, 3, 32)):
+        assert TG.small_tile(V, I, J, N) == ((5, 2) if V > 300 else (5, 1))
+        assert (TG.CONFIGS[5][:2], (TG.CONFIGS[5][2] * TG.CONFIGS[5][3])) == ((4, 32), 4)
+    if (V, I, J, N) == (8, 3, 3, 32):
+        assert TG.small_tile(V, I, J, N)[0] == 2
 
 
 def test_tile_choice_is_cached():

@@ -242,12 +242,11 @@ def test_soa_operator_through_bsr_krylov():
     assert_parity(got_pow, want_pow, np.float64, rtol=RTOL)
 
 
-def test_gather_modes_are_still_to_port():
-    """Once a refusal of the gather modes, now their port's entry checks
-    (the modes themselves are held against the JAX package in
-    test_torch_bsr_gather.py): create_bsr and create_kron_bsr build
-    operators; a gather operator needs its neighbour lists, and a mode
-    outside MODES is refused."""
+def test_gather_operator_entry_checks():
+    """The gather modes' entry checks (the modes themselves are held
+    against the JAX package in test_torch_bsr_gather.py): create_bsr and
+    create_kron_bsr build gather operators; a gather operator needs its
+    neighbour lists, and a mode outside MODES is refused."""
     ii, jj = np.array([1, 2, 1, 2]), np.array([[0, 0], [1, 3], [2, 2], [3, 1]])[..., None]
     vals = np.random.default_rng(0).standard_normal((4, 2, 2, 2))
     op = TB.create_bsr("Xc", (4, 2), "Xc", (4, 2), (1, 2), (1, 2), ii, jj, vals,

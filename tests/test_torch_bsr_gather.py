@@ -340,3 +340,38 @@ def test_gather_layouts_and_operator_buffers():
     np.testing.assert_allclose(y2.numpy(), 2 * y1.numpy(), rtol=RTOL)
     with pytest.raises(ValueError, match="square"):
         TB.bsr_krylov(1.0, top, x, case["ox"], oy="XYsnp", okr="p", power=2)
+
+
+@pytest.mark.parametrize("complex_values", [False, True], ids=["real", "complex"])
+def test_gather_blocks_are_stored_in_the_product_layout(complex_values):
+    """A gather operator without spin factors stores its blocks once in the
+    gather product's layout [voli, BI, nnz*BD], which the apply takes as
+    they are; ``blocks`` views them back as the reference's [*lat_i, nnz,
+    BI, BD] (the JAX package's blocks) without a copy, and ``replace``,
+    ``bsr_cast_storage`` and ``create_kron_bsr`` start from that view.  A
+    kron gather operator keeps the reference's layout, its colour stage's."""
+    rng = np.random.default_rng(90)
+    case = irregular_case(rng, complex_values=complex_values)
+    *head, vals = case["args"]
+    jop = JB.create_bsr(*head, values_for(vals, True))
+    top = TB.create_bsr(*head, values_for(vals, False), device="cpu")
+    parts = [top.blocks_re] + ([top.blocks_im] if complex_values else [])
+    assert all(p.shape == (8, 2, 2 * 3) and p.is_contiguous() for p in parts)
+    blocks = top.blocks
+    view = blocks.re if complex_values else blocks
+    assert view.shape == (8, 2, 2, 3) and view.data_ptr() == top.blocks_re.data_ptr()
+    close(blocks, jop.blocks)
+    again = top.replace(blocks=top.blocks)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (again.blocks_re, again.blocks_im), (top.blocks_re, top.blocks_im)) if a is not None)
+    cast = TB.bsr_cast_storage(top, torch.float32)
+    assert cast.blocks_re.shape == top.blocks_re.shape and cast.blocks_re.is_contiguous()
+    x = case["x"]
+    tx = TC.from_complex(x) if np.iscomplexobj(x) else torch.from_numpy(x)
+    jx = JC.from_complex(x) if np.iscomplexobj(x) else jnp.asarray(x)
+    close(TB.bsr_krylov(1.0, again, tx, case["ox"]), JB.bsr_krylov(1.0, jop, jx, case["ox"]))
+    args, color, spin, _ = kron_case(False, complex_values, rng)
+    kop = TB.create_kron_bsr(*args, values_for(color, False), values_for(spin, False),
+                             device="cpu")
+    assert kop.mode == "gather" and kop.blocks_re.shape == (5, 3, 3, 3)
+    assert kop.blocks_re.is_contiguous()

@@ -627,8 +627,11 @@ def test_local_copy_on_card_matches_cpu(cuda_device):
 #: the solve, 4 and 1 in its set-up: the narrow tile, J split 8 ways); the
 #: families' AoS shapes (tall tile, split 4 ways); 4-byte copies (N = 1,
 #: 3, 5; J = 27, 33); K3 walking two sites a block (ragged V at the
-#: end); the square tile split 4 ways at few blocks (V = 3, 7, 40)
-GEMM_SHAPES = [(40, 12, 12, 32), (7, 24, 24, 16), (16, 12, 8, 5), (8, 32, 32, 128),
+#: end); the square tile split 4 ways at few blocks (V = 3, 7, 40); the
+#: short tile (I <= 4, J <= 8, N > 8: the kron gather's colour stage),
+#: walking two sites (ragged V), J in two steps, ragged N and J
+GEMM_SHAPES = [(4096, 3, 3, 32), (20001, 3, 4, 40), (1001, 4, 8, 48), (777, 2, 5, 33),
+               (40, 12, 12, 32), (7, 24, 24, 16), (16, 12, 8, 5), (8, 32, 32, 128),
                (7, 4, 324, 3), (5, 70, 33, 40), (4096, 32, 288, 32), (256, 4, 324, 8),
                (256, 4, 324, 4), (256, 4, 324, 1), (16, 4, 64, 8), (16, 4, 64, 4),
                (16, 4, 64, 1), (8192, 32, 32, 128), (4096, 12, 324, 2), (1024, 3, 27, 2),
@@ -677,7 +680,8 @@ def test_batched_gemm_kernels_give_the_same_bits_twice(cuda_device, dtype):
     misaligned operands (a contiguous view one element into its storage:
     the 4-byte copies)."""
     for V, I, J, N in ((256, 4, 324, 8), (16, 4, 64, 8), (4096, 12, 324, 2),
-                       (7, 24, 24, 16), (8192, 32, 32, 128), (4096, 32, 288, 32)):
+                       (7, 24, 24, 16), (8192, 32, 32, 128), (4096, 32, 288, 32),
+                       (4096, 3, 3, 32)):
         b, x = _gemm_operands(V, I, J, N, dtype, cuda_device)
         for wrapper in (G.batched_small_gemm, G.batched_gemm_rowpack):
             assert torch.equal(wrapper(b, x), wrapper(b, x)), (V, I, J, N)
@@ -935,7 +939,8 @@ def test_roll_add_forms(cuda_device, T):
     loaded), pair at T = 6, elem at T = 7 (f32 only); a view one element
     off 16 bytes takes pair (or elem).  The f32 variant bit for bit against
     the plain version, bf16x2 within one bf16 ulp; ``roll_add.by_form``
-    counts each launch by form."""
+    counts each launch by form and ``roll_add.by_variant_form`` by
+    (variant, form)."""
     gen = torch.Generator(device="cuda").manual_seed(T)
     base = torch.randn((97 * 33 * T + 2,), generator=gen, device="cuda").bfloat16()
     x = base[:97 * 33 * T].view(97, 33, T)
@@ -951,9 +956,11 @@ def test_roll_add_forms(cuda_device, T):
                     R.roll_add(v, variant)
                 continue
             before = R.roll_add.by_form[form]
+            before_row = R.roll_add.by_variant_form[variant, form]
             got = R.roll_add(v, variant)
             torch.cuda.synchronize()
             assert R.roll_add.by_form[form] == before + 1, (T, form, variant)
+            assert R.roll_add.by_variant_form[variant, form] == before_row + 1
             if variant == "f32":
                 assert torch.equal(got, want), (T, form)
             else:

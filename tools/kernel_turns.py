@@ -1,10 +1,11 @@
 """Time the clover term's K1, the permute kernel K2, the stencil's
 X-inside and X-streaming schedules beside K1, K1's runtime-shape route,
-the transpose tile sweep E3 and the bf16 roll-plus-add E2 of two or more
+the transpose tile sweep E3, the bf16 roll-plus-add E2 and the gather
+applies (with K3 at the kron gather's colour stage) of two or more
 checkouts of the port in turns, on one card.
 
     python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
-                                 [--only clover permute schedules runtime sweep e2]
+                                 [--only clover permute schedules runtime sweep e2 gather]
 
 Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
 checkout) is run in a process of its own, which builds that tree's kernels
@@ -38,7 +39,18 @@ calls), ms:
   [R, 32, 256] tensor from a seeded card generator (R = 256, the probe's
   shape, and 4096), each variant on CUDA events and device-only (20 calls
   captured in one CUDA graph, the median of 7 replays over 20), with
-  ``roll_add_reference`` beside them (``e2_plain_R``);
+  ``roll_add_reference`` beside them (``e2_plain_R``; the device-only
+  timer is ``tools/device_timing.py``'s);
+- ``gather_apply`` and ``gather_kron_apply``: ``bsr_krylov`` of a
+  ``create_bsr`` operator of 12x12 blocks and of a ``create_kron_bsr``
+  operator of 3x3 colour blocks and 4x4 spin factors, both truly
+  irregular (each row its own site and 4 to 8 random ones, numpy seed 7;
+  mode "gather") on 16x16x16x32 x 8 columns, complex values split in f32
+  from a seeded card generator; ``k3_colour`` (events) and
+  ``k3_colour_device``: ``batched_small_gemm`` at the kron gather's colour
+  stage [1179648, 3, 3] @ [1179648, 3, 32] f32, and ``bmm_colour_device``
+  ``torch.bmm`` on the same operands (device-only times by
+  ``tools/device_timing.py``);
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -62,6 +74,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 #: the runtime-shape route's timed shapes (chip_smoke.py's K1-shape path)
 RT_SHAPES = ((2, 2, 3, 3), (1, 1, 2, 2), (2, 1, 4, 2), (2, 2, 8, 8), (1, 1, 16, 16))
+#: the gather set's lattice (chip_smoke.py's gather path): 131,072 rows
+GATHER_LAT = (16, 16, 16, 32)
 
 
 def worker(reps: int, solve: bool, only) -> dict:
@@ -155,30 +169,8 @@ def worker(reps: int, solve: bool, only) -> dict:
         out["sweep"] = {k: statistics.median(v) for k, v in times.items()}
         del x
     if "e2" in only:
+        from device_timing import graph_ms
         from superbblas_tpu_torch.ops.roll_add import VARIANTS, roll_add, roll_add_reference
-
-        def graph_ms(fn, calls=20):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    fn()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(calls):
-                    fn()
-            graph.replay()
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(7):
-                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                s.record()
-                graph.replay()
-                e.record()
-                e.synchronize()
-                times.append(s.elapsed_time(e) / calls)
-            return statistics.median(times)
 
         for rows in (256, 4096):
             x = torch.randn((rows, 32, 256), generator=gen, device="cuda").bfloat16()
@@ -188,6 +180,41 @@ def worker(reps: int, solve: bool, only) -> dict:
                 out[key] = median_ms(fn)
                 out[f"{key}_device"] = graph_ms(fn)
             del x
+    if "gather" in only:
+        import numpy as np
+
+        from device_timing import graph_ms
+        from superbblas_tpu_torch.bsr import bsr_krylov, create_bsr, create_kron_bsr
+        from superbblas_tpu_torch.ops.batched_gemm import batched_small_gemm
+
+        lat, n, nl = GATHER_LAT, 8, len(GATHER_LAT)
+        rng = np.random.default_rng(7)
+        ii = rng.integers(5, 10, size=lat)
+        jj = np.stack([rng.integers(0, d, size=lat + (9,)) for d in lat], axis=-1)
+        jj[..., 0, :] = np.stack(np.meshgrid(*[np.arange(d) for d in lat], indexing="ij"),
+                                 axis=-1)
+        for key, blk in (("gather", 12), ("gather_kron", 3)):
+            colour = randn_c(lat + (9, blk, blk))
+            if blk == 3:
+                op = create_kron_bsr("xyztSc", lat + (4, 3), "xyztSc", lat + (4, 3),
+                                     (1,) * nl + (1, 3), (1,) * nl + (1, 3),
+                                     (1,) * nl + (4, 1), (1,) * nl + (4, 1), ii, jj, colour,
+                                     randn_c((9, 4, 4)), device="cuda")
+                x, ox = randn_c(lat + (4, 3, n)), "xyztScn"
+            else:
+                op = create_bsr("xyzts", lat + (blk,), "xyztc", lat + (blk,),
+                                (1,) * nl + (blk,), (1,) * nl + (blk,), ii, jj, colour,
+                                device="cuda")
+                x, ox = randn_c(lat + (blk, n)), "xyztcn"
+            out[f"{key}_apply"] = median_ms(lambda: bsr_krylov(1.0, op, x, ox))
+            del op, colour, x
+        V = int(np.prod(lat)) * 9
+        b = torch.randn((V, 3, 3), generator=gen, device="cuda")
+        xb = torch.randn((V, 3, 4 * n), generator=gen, device="cuda")
+        out["k3_colour"] = median_ms(lambda: batched_small_gemm(b, xb))
+        out["k3_colour_device"] = graph_ms(lambda: batched_small_gemm(b, xb))
+        out["bmm_colour_device"] = graph_ms(lambda: torch.bmm(b, xb))
+        del b, xb
     if solve:
         lat = (24, 24, 24, 48)
         op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
@@ -220,7 +247,8 @@ def main():
     parser.add_argument("--reps", type=int, default=15)
     parser.add_argument("--no-solve", action="store_true")
     parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
-                        choices=["clover", "permute", "schedules", "runtime", "sweep", "e2"])
+                        choices=["clover", "permute", "schedules", "runtime", "sweep", "e2",
+                                 "gather"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
