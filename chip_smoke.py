@@ -166,6 +166,33 @@ the measured copy rate; the transpose tile sweep at each design point (the
 against ``x.permute(3,2,1,0).contiguous()`` at 64^4 f32 and timed in turns
 beside it and K2.
 
+Checkpoint path: the even-odd solve's psi (32^3x64 x 8, complex64) saved
+through ``storage`` in the S3T format, file order "xyztscn", four blocks,
+block CRCs (checksum level 2), closed, reopened, its checksums verified and
+loaded back onto the card in the order "nscxyzt": bit for bit, its true
+residual the solve's; then ``save_async`` of the same tensor (the same
+CRCs) and a ``load_stream`` pass held against psi window by window; save
+and load walls and GB/s, and the intersections the native plan engine
+served (the engine must be built and serve them all).  The file lives in
+a temporary directory, deleted after the phase.
+
+Dense path: the clover path's site blocks at 24^3x48 (663,552 12x12
+complex64 matrices of (4 + mass) I + the clover term, Hermitian, positive
+definite by the smallest eigenvalue): ``dense.inversion`` (max |A A^-1 -
+I|), ``gesm`` on 8 right-hand sides against A^-1 x, ``cholesky`` (U^H U
+against A) and ``trsm`` of U against ``gesm`` of U; walls beside the bytes
+at the measured copy rate.
+
+Tracker and AOT path: five Wilson applies at 32^3x64 x 8 with
+SBT_TRACK_TIME=1, their GFLOP/s in ``tracker.report_timings`` against the
+same applies on CUDA events (within 15%); K1's wrapper host time with
+tracking off against the undecorated call, in turns, at the bench shape;
+``aot.aot_compile`` of one Wilson CG iteration at 8x8x16x128 x 8 (a CUDA
+graph), its replay against the eager call bit for bit, eager and replay
+times; ``aot.export_compiled``/``load_exported`` of the Wilson apply at 8^4
+x 8, the loaded program launching K1 (its route's count) and equal to the
+eager apply.
+
 ``--profile`` adds one warm solve, one warm even-odd solve, one warm
 dense path, one warm coarse CG, one warm MG-FGCR solve and one warm
 clover and Moebius CGNE under ``torch.profiler`` and prints the device's
@@ -184,22 +211,26 @@ import collections
 import contextlib
 import itertools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from superbblas_tpu_torch import (ContractionPlan, bsr, cplx, local_contraction, local_copy,
-                                  local_permute, solvers)
+from superbblas_tpu_torch import (ContractionPlan, aot, bsr, context, cplx, dense, flags,
+                                  local_contraction, local_copy, local_permute, native, solvers,
+                                  storage)
 from superbblas_tpu_torch.cplx import CArray
 from superbblas_tpu_torch.models import (adjoint_operator, apply_clover, apply_coarse,
                                          apply_domain_wall, apply_hopping_packed_soa,
                                          apply_staggered, apply_wilson, cb_pack_soa,
-                                         cg_solve, coarse_operator, domain_wall_operator,
+                                         cg_solve, cg_step, coarse_operator, domain_wall_operator,
                                          eo_solve, eo_solve_packed, eo_solve_packed_soa,
                                          gamma_matrices, hopping_packed_soa,
                                          mobius_operator, multigrid, random_su3_links,
@@ -218,6 +249,7 @@ from superbblas_tpu_torch.ops.permute import (TILES, maybe_permute, permute_4d,
 from superbblas_tpu_torch.ops.roll_add import (VARIANTS, roll_add, roll_add_form,
                                                roll_add_reference)
 from superbblas_tpu_torch.ops import stencil as stencil_ops
+from superbblas_tpu_torch.utils import tracker
 from superbblas_tpu_torch.ops.stencil import (aos_to_soa, clear_plans, soa_to_aos, spin_plan,
                                               stencil_matvec_soa,
                                               stencil_matvec_soa_reference,
@@ -1848,7 +1880,7 @@ def clover_path(gen, profile: bool):
     if profile:
         profile_run("clover cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
                                                         maxiter=CLOVER_MAXITER))
-    return applies, err, ms, bd_
+    return applies, err, ms, bd_, cl.blocks
 
 
 def moebius_path(gen, profile: bool):
@@ -2534,6 +2566,330 @@ def e3_path(gen):
             (ms["k2"], dev["k2"]), ms["call"], bd_)
 
 
+#: the checkpoint phase's file order (spin, colour and column labels after
+#: the lattice, as the JAX package's worked example) and the order it is
+#: reloaded in: the solve's SoA field [n, spin, colour, *lat]
+CKPT_ORDER, CKPT_LOAD_ORDER = "xyztscn", "nscxyzt"
+#: blocks of the checkpoint, cut along x
+CKPT_BLOCKS = 4
+
+
+def checkpoint_path(op, b, psi):
+    """The solve's psi (32^3x64 x 8, complex64) checkpointed in S3T with
+    block CRCs (checksum level 2) in the file order CKPT_ORDER, the file
+    reopened, its checksums verified and psi loaded back on the card in
+    the order CKPT_LOAD_ORDER: bit for bit, so its true residual is the
+    solve's; then save_async of the same tensor (resolved by
+    close_storage; the same CRCs) and one load_stream pass, window by
+    window against psi.  Times save and load apart; the file lives in a
+    temporary directory, deleted after the phase.  Returns its walls."""
+    n, lat = MAIN_COLS, MAIN_LAT
+    psi7 = cplx.cmap(lambda v: v.reshape((n, 4, 3) + lat), psi)
+    dim = lat + (4, 3, n)
+    nbytes = int(np.prod(dim)) * 8
+    step = lat[0] // CKPT_BLOCKS
+    boxes = [((i * step,) + (0,) * 6, (step,) + dim[1:]) for i in range(CKPT_BLOCKS)]
+    served = collections.Counter()
+    intersect_all = native.intersect_all
+
+    def counted(*args, **kw):
+        rows = intersect_all(*args, **kw)
+        served["native" if rows is not None else "python"] += 1
+        return rows
+
+    native.intersect_all = counted
+    tmp = tempfile.mkdtemp(prefix="sbt_ckpt_")
+    walls = {}
+    try:
+        res = true_residual(op, psi, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "psi.s3t")
+        sto = storage.create_storage(path, CKPT_ORDER, dim, dtype=np.complex64, checksum=2,
+                                     metadata="wilson eo solution")
+        storage.append_blocks(sto, boxes)
+        walls["declare"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        storage.save(1.0, psi7, CKPT_LOAD_ORDER, sto, CKPT_ORDER)
+        storage.close_storage(sto)
+        walls["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back_sto = storage.open_storage(path, mode="r")
+        storage.check_or_write_checksums(back_sto)
+        walls["verify"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = storage.load(1.0, back_sto, cplx.cmap(torch.empty_like, psi7), CKPT_LOAD_ORDER,
+                            CKPT_ORDER)
+        torch.cuda.synchronize()
+        walls["load"] = time.perf_counter() - t0
+        exact = (back.re.device == psi.re.device and torch.equal(back.re, psi7.re)
+                 and torch.equal(back.im, psi7.im))
+        res_back = true_residual(op, cplx.cmap(lambda v: v.reshape(psi.re.shape), back), b)
+        del back
+        print(f"checkpoint {dim} {CKPT_ORDER} complex64, {CKPT_BLOCKS} blocks, "
+              f"{nbytes / 1e9:.3f} GB, checksum 2: declare {walls['declare']:.3f} s, save "
+              f"(with the block CRCs and close) {walls['save']:.3f} s "
+              f"({nbytes / walls['save'] / 1e9:.3f} GB/s), open and verify "
+              f"{walls['verify']:.3f} s, load in {CKPT_LOAD_ORDER} onto the card "
+              f"{walls['load']:.3f} s ({nbytes / walls['load'] / 1e9:.3f} GB/s); bit for bit "
+              f"{exact}, true residual {res_back:.6e} (the solve's {res:.6e})", flush=True)
+        if not exact or res_back != res:
+            raise AssertionError("the checkpoint did not reload bit for bit")
+        path2 = os.path.join(tmp, "psi_async.s3t")
+        sto2 = storage.create_storage(path2, CKPT_ORDER, dim, dtype=np.complex64, checksum=2,
+                                      metadata="wilson eo solution")
+        storage.append_blocks(sto2, boxes)
+        t0 = time.perf_counter()
+        fut = storage.save_async(1.0, psi7, CKPT_LOAD_ORDER, sto2, CKPT_ORDER)
+        walls["async_return"] = time.perf_counter() - t0
+        storage.close_storage(sto2)
+        walls["async"] = time.perf_counter() - t0
+        tails = []
+        for p_ in (path, path2):
+            with open(p_, "rb") as f:
+                f.seek(-8 * (CKPT_BLOCKS + 1), os.SEEK_END)
+                tails.append(f.read())
+        if not (fut.done() and tails[0] == tails[1]
+                and os.path.getsize(path) == os.path.getsize(path2)):
+            raise AssertionError("save_async wrote another file than save")
+        os.remove(path2)
+        want = torch.complex(*psi7).permute(3, 4, 5, 6, 1, 2, 0)   # file order, a view
+        t0 = time.perf_counter()
+        rows, nwin = 0, 0
+        for wfrom, win in storage.load_stream(back_sto):
+            got = torch.from_numpy(win).to("cuda")
+            if not torch.equal(got, want[wfrom[0]:wfrom[0] + win.shape[0]]):
+                raise AssertionError(f"load_stream window at {wfrom} differs from psi")
+            rows += win.shape[0]
+            nwin += 1
+        walls["stream"] = time.perf_counter() - t0
+        storage.close_storage(back_sto)
+        del want
+        if rows != lat[0]:
+            raise AssertionError(f"load_stream gave {rows} rows of {lat[0]}")
+        print(f"checkpoint save_async (declared first): returned in "
+              f"{walls['async_return']:.3f} s, resolved by close_storage at "
+              f"{walls['async']:.3f} s, the same block and header CRCs; "
+              f"load_stream {nwin} windows {walls['stream']:.3f} s "
+              f"({nbytes / walls['stream'] / 1e9:.3f} GB/s) equal to psi; intersections "
+              f"served by the native plan engine {served['native']}, by the Python sweep "
+              f"{served['python']} (library {native.library_path()})", flush=True)
+        if native.get_lib() is None or served["python"] or not served["native"]:
+            raise AssertionError("the native plan engine did not serve the intersections")
+    finally:
+        native.intersect_all = intersect_all
+        shutil.rmtree(tmp, ignore_errors=True)
+    return walls
+
+
+def dense_solve_path(clover_blocks, rate):
+    """The dense factorisations on the clover path's site blocks (24^3x48,
+    663,552 12x12 matrices, complex64): A = (4 + mass) I + the clover
+    term, Hermitian; positive definite by its smallest eigenvalue (else
+    A^H A is factorised, and the phase says so).  ``inversion`` (max |A
+    A^-1 - I|), ``gesm`` on 8 right-hand sides against A^-1 x,
+    ``cholesky`` (U^H U against A) and ``trsm`` of U against ``gesm`` of
+    U.  Walls, and the bound of each op's bytes (each input read once,
+    each output written once) at the measured copy rate ``rate``."""
+    lat, n = CLOVER_LAT, MAIN_COLS
+    A = cplx.cmap(lambda v: v.reshape((12, 12) + lat).clone(), clover_blocks)
+    diag = torch.arange(12, device="cuda")
+    A.re[diag, diag] += 4.0 + CLOVER_MASS
+    Ac = torch.complex(*A).permute(2, 3, 4, 5, 0, 1).reshape(-1, 12, 12)
+    herm = float((Ac - Ac.mH).abs().max() / Ac.abs().max())
+    # cuSOLVER's batched eigensolver (torch 2.11, CUDA 12.8) refuses batches
+    # of 32768 matrices and more (CUSOLVER_STATUS_INVALID_VALUE); 4096 pass
+    lam = min(float(torch.linalg.eigvalsh(c).min()) for c in Ac.split(4096))
+    pd = lam > 0 and herm <= 1e-6
+    if not pd:
+        Ac = Ac.mH @ Ac
+        A = cplx.from_complex(Ac.reshape(lat + (12, 12)).permute(4, 5, 0, 1, 2, 3).contiguous())
+    print(f"dense path {lat}: {Ac.shape[0]} site blocks 12x12 complex64 of (4 + {CLOVER_MASS}) "
+          f"I + the clover term: max |A - A^H| / max |A| {herm:.3e}, smallest eigenvalue "
+          f"{lam:.6f}: "
+          + ("positive definite, factorised as they are" if pd else
+             "not positive definite, A^H A factorised instead"), flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    X = randn_c((12, n) + lat, gen)
+    o, ox, oy = "rcxyzt", "rnxyzt", "cnxyzt"
+    walls, out = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+
+    run("inversion", lambda: dense.inversion(A, o, "r", "c"))
+    run("gesm", lambda: dense.gesm(1.0, A, o, "r", "c", X, ox, oy))
+    run("cholesky", lambda: dense.cholesky(A, o, "r", "c"))
+    U = out["cholesky"]
+    run("trsm", lambda: dense.trsm(1.0, U, o, "r", "c", X, ox, oy))
+    run("gesm_u", lambda: dense.gesm(1.0, U, o, "r", "c", X, ox, oy))
+
+    def mats(c, rows, cols):       # [V, rows, cols] complex from "..xyzt"
+        return torch.complex(*c).reshape(rows, cols, -1).permute(2, 0, 1)
+
+    inv = mats(out["inversion"], 12, 12)
+    errs = {"inversion": float((Ac @ inv - torch.eye(12, device="cuda")).abs().max())}
+    xm = mats(X, 12, n)
+    ref = inv @ xm
+    errs["gesm"] = float((mats(out["gesm"], 12, n) - ref).abs().max() / ref.abs().max())
+    um = mats(U, 12, 12)
+    errs["cholesky"] = float((um.mH @ um - Ac).abs().max() / Ac.abs().max())
+    errs["upper"] = float(torch.tril(um, -1).abs().max())
+    yg = mats(out["gesm_u"], 12, n)
+    errs["trsm"] = float((mats(out["trsm"], 12, n) - yg).abs().max() / yg.abs().max())
+    mat_b, rhs_b = Ac.shape[0] * 144 * 8, Ac.shape[0] * 12 * n * 8
+    bytes_ = {"inversion": 2 * mat_b, "gesm": mat_b + 2 * rhs_b, "cholesky": 2 * mat_b,
+              "trsm": mat_b + 2 * rhs_b, "gesm_u": mat_b + 2 * rhs_b}
+    print("dense path walls (s) beside the bytes at the measured copy rate: " + ", ".join(
+        f"{k} {walls[k]:.4f} (bound {bytes_[k] / rate * 1e3:.4f} ms)" for k in walls),
+        flush=True)
+    print(f"dense path checks: max |A A^-1 - I| {errs['inversion']:.3e} (<= 1e-4); gesm "
+          f"against A^-1 x {errs['gesm']:.3e}; |U^H U - A| {errs['cholesky']:.3e}, below "
+          f"U's diagonal {errs['upper']:.1e}; trsm of U against gesm of U {errs['trsm']:.3e} "
+          f"(each <= 1e-4 relative)", flush=True)
+    if not (errs["inversion"] <= 1e-4 and errs["upper"] == 0
+            and max(errs["gesm"], errs["cholesky"], errs["trsm"]) <= 1e-4):
+        raise AssertionError(f"dense path: {errs}")
+    return walls
+
+
+#: calls issued without a wait for a launch's host time, and the turns
+LAUNCH_CALLS, LAUNCH_TURNS = 200, 8
+#: tracked GFLOP/s against CUDA events: each tracked apply adds its
+#: launch and a wait (tens of us) to about 3.7 ms of kernel
+TRACK_AGREE = 0.15
+
+
+def launch_us(fn) -> float:
+    """Host microseconds a call of ``fn`` takes to issue while the card is
+    busy: LAUNCH_CALLS calls timed without a wait, then waited on."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_CALLS):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / LAUNCH_CALLS * 1e6
+
+
+def tracker_aot_path(op, b, gen):
+    """The tracker, the context and the AOT capture around K1: five
+    Wilson applies at the main shape with SBT_TRACK_TIME=1 (their GFLOP/s
+    in ``report_timings`` against the same applies on CUDA events); K1's
+    wrapper host time with tracking off against the undecorated call, in
+    turns, at the bench shape; ``aot_compile`` of one Wilson CG iteration
+    at the bench shape, its replay against the eager call bit for bit;
+    ``export_compiled``/``load_exported`` of the Wilson apply at 8^4 x 8,
+    the loaded program launching K1.  Returns the numbers it printed."""
+    ctx = context.create_context()
+    out = {}
+    n = MAIN_COLS
+    apply_wilson(op, b)
+    os.environ["SBT_TRACK_TIME"] = "1"
+    flags.clear_cache()
+    try:
+        tracker.reset_timings()
+        torch.cuda.synchronize()
+        for _ in range(5):
+            apply_wilson(op, b)
+        t = tracker.get_timings()["apply_stencil_soa"]
+        print(tracker.report_timings(), flush=True)
+    finally:
+        os.environ["SBT_TRACK_TIME"] = "0"
+        flags.clear_cache()
+    tracker.reset_timings()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        apply_wilson(op, b)
+    e.record()
+    e.synchronize()
+    flops = 5 * op.flops_per_matvec(n)
+    out["tracked_gflops"] = t["flops"] / t["seconds"] / 1e9
+    out["events_gflops"] = flops / (s.elapsed_time(e) * 1e-3) / 1e9
+    ratio = out["tracked_gflops"] / out["events_gflops"]
+    print(f"tracker: {t['calls']} tracked applies {MAIN_LAT} x {n}, {t['seconds']:.6f} s, "
+          f"{out['tracked_gflops']:.1f} GFLOP/s (reference model); the same five on CUDA "
+          f"events {s.elapsed_time(e):.4f} ms, {out['events_gflops']:.1f} GFLOP/s; ratio "
+          f"{ratio:.4f} (within {TRACK_AGREE:.0%}); memory {tracker.report_memory_usage()}",
+          flush=True)
+    if t["calls"] != 5 or t["flops"] != flops or abs(ratio - 1) > TRACK_AGREE:
+        raise AssertionError(f"tracked applies {t} disagree with CUDA events")
+
+    lat8 = (8, 8, 16, 128)
+    op8 = wilson_operator(lat8, mass=0.1, key=0, layout="soa", device=ctx.device)
+    x8 = context.make_sure(cplx.cmap(lambda v: v.cpu(), randn_c((n, 12) + lat8, gen)), ctx)
+    tracked, untracked = bsr.apply_stencil_soa, bsr.apply_stencil_soa.__wrapped__
+    calls = {"tracked": lambda: tracked(op8, x8), "untracked": lambda: untracked(op8, x8)}
+    turns = {"tracked": [], "untracked": []}
+    for r in range(LAUNCH_TURNS):
+        for k in (("tracked", "untracked") if r % 2 == 0 else ("untracked", "tracked")):
+            turns[k].append(launch_us(calls[k]))
+    out["host_us"] = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"K1 wrapper host time at {lat8} x {n}, tracking off, {LAUNCH_TURNS} turns of "
+          f"{LAUNCH_CALLS} calls: apply_stencil_soa {out['host_us']['tracked']:.2f} us, "
+          f"undecorated {out['host_us']['untracked']:.2f} us (turns "
+          f"{[round(v, 2) for v in turns['tracked']]} / "
+          f"{[round(v, 2) for v in turns['untracked']]})", flush=True)
+
+    op8_h = adjoint_operator(op8)
+    state = (cplx.cmap(torch.zeros_like, x8), x8, x8, cplx.inner_real(x8, x8))
+    t0 = time.perf_counter()
+    step = aot.aot_compile(lambda *st: cg_step(op8, st, op8_h), state)
+    out["capture_s"] = time.perf_counter() - t0
+    nxt = cg_step(op8, state, op8_h)
+    for st in (state, nxt):
+        got, want = step(*st), cg_step(op8, st, op8_h)
+        same = all(torch.equal(g, w) for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                                                      torch.utils._pytree.tree_leaves(want)))
+        if not same:
+            raise AssertionError("the CUDA-graph replay of a CG iteration differs from the "
+                                 "eager call")
+    ms = time_turns({"eager": lambda: cg_step(op8, state, op8_h),
+                     "replay": lambda: step(*state),
+                     "graph": step.graph.replay}, reps=15)
+    out["cg_step_ms"] = ms
+    context.wait(nxt)
+    print(f"aot_compile of a CG iteration {lat8} x {n} (2 K1 applies, axpys, inner "
+          f"products): captured in {out['capture_s']:.3f} s; replay equals eager bit for "
+          f"bit (two states); eager {ms['eager']:.4f} ms, replay with argument copies "
+          f"{ms['replay']:.4f} ms, graph alone {ms['graph']:.4f} ms (medians of 15, turns)",
+          flush=True)
+
+    lat4 = (8, 8, 8, 8)
+    op4 = wilson_operator(lat4, mass=0.1, key=0, layout="soa", device="cuda")
+    x4 = randn_c((n, 12) + lat4, gen)
+    fn = lambda v: apply_wilson(op4, v)
+    want = fn(x4)
+    tmp = tempfile.mkdtemp(prefix="sbt_export_")
+    try:
+        t0 = time.perf_counter()
+        path = aot.export_compiled(fn, (x4,), os.path.join(tmp, "wilson.pt2"))
+        loaded = aot.load_exported(path)
+        out["export_s"] = time.perf_counter() - t0
+        before = dict(stencil_matvec_soa.by_route)
+        got = loaded(x4)
+        after = dict(stencil_matvec_soa.by_route)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    exact = torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    print(f"export_compiled/load_exported of the Wilson apply {lat4} x {n}: "
+          f"{out['export_s']:.2f} s; the loaded program's K1 launches by route {moved}; "
+          f"equal to the eager apply {exact}", flush=True)
+    if moved != {"tiled": 1} or not exact:
+        raise AssertionError("the exported Wilson apply did not launch K1 or differs")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2589,16 +2945,20 @@ def main():
     aos_launches, aos_err = families_aos_check(gen)
     dc_launches, dc_err = default_call_path(gen)
     clover = clover_path(gen, args.profile)
+    dense_walls = dense_solve_path(clover[4], rate)
+    clover = clover[:4]
     moebius = moebius_path(gen, args.profile)
     moebius = (moebius[0], max(moebius[1], moebius_cols_err)) + moebius[2:]
     op, b, links = main_operator(gen)
     launches, err = wilson_path(op, b, args.profile)
     if launches == 0:
         raise AssertionError("the Wilson path launched no stencil kernel")
+    utilities = tracker_aot_path(op, b, gen)
     s_launches, s_err, ms = schedule_path(op, b)
     eo_launches, eo_err, eo_ms, eo_bound, eo_psi = eo_path(op, b, args.profile)
     if eo_launches == 0:
         raise AssertionError("the even-odd path launched no packed stencil kernel")
+    ckpt_walls = checkpoint_path(op, b, eo_psi)
     aos_eo = aos_eo_path(op, b, eo_psi, links, gen)
     del eo_psi
     k1_bound = stencil_bound(op.blocks, op.kron, b, op.offsets, 3, 3)

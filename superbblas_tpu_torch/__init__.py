@@ -9,16 +9,23 @@ plans of ``create_bsr``/``create_kron_bsr``), the Wilson model and its
 solve (``models``),
 the stencil kernel with its plain PyTorch version (``ops``), the
 even-odd packed solve (``models.eo_packed``) and the Krylov solvers
-(``solvers``).  It imports torch and numpy, never jax.
+(``solvers``), the batched dense factorisations (``dense``, on
+``torch.linalg``), the S3T checkpoint format (``storage``, with the host
+plan engine of ``native``) and the utilities (``flags``, ``context``,
+``aot``: CUDA-graph capture and ``torch.export``; ``utils``: tracker,
+caches, test oracles).  It imports torch and numpy, never jax.
 """
 
-from . import labels, cplx, ops, bsr, models, solvers  # noqa: I001  (dependency order)
+from . import flags, labels, cplx, utils, ops, bsr, models, solvers  # noqa: I001  (dependency order)
+from . import aot, context, dense, native, storage
 from .bsr import (BSROperator, bsr_cast_storage, bsr_from_stencil, bsr_get_preferred_layout,
                   bsr_krylov, create_bsr, create_kron_bsr)
+from .dense import cholesky, gesm, inversion, trsm
 from .labels import ContractionPlan
 from .ops import local_contraction, local_copy, local_permute
 
-__all__ = ["labels", "cplx", "bsr", "models", "ops", "solvers", "BSROperator",
+__all__ = ["aot", "bsr", "context", "cplx", "dense", "native", "storage", "flags", "labels",
+           "models", "ops", "solvers", "utils", "BSROperator",
            "bsr_cast_storage", "bsr_from_stencil", "bsr_get_preferred_layout", "bsr_krylov",
-           "create_bsr", "create_kron_bsr",
-           "ContractionPlan", "local_contraction", "local_copy", "local_permute"]
+           "create_bsr", "create_kron_bsr", "ContractionPlan", "cholesky", "trsm", "gesm",
+           "inversion", "local_contraction", "local_copy", "local_permute"]

@@ -43,6 +43,7 @@ from .labels import Coor, check_order, volume
 from .ops.batched_gemm import batched_small_gemm
 from .ops.copy import _is_static, local_permute
 from .ops.stencil import aos_to_soa, soa_eligible, soa_to_aos, stencil_matvec_soa
+from .utils.tracker import tracked as _tracked
 
 __all__ = ["BSROperator", "bsr_from_stencil", "bsr_cast_storage",
            "apply_stencil_soa", "operator_from_numpy", "bsr_krylov",
@@ -478,6 +479,11 @@ def operator_from_numpy(blocks_re: np.ndarray, blocks_im: np.ndarray,
     return op if storage_dtype is None else bsr_cast_storage(op, storage_dtype)
 
 
+@_tracked("apply_stencil_soa",
+          flops_fn=lambda out, op, x_soa, *a, **k:
+          op.flops_per_matvec(x_soa.shape[0], True),
+          memops_fn=lambda out, op, x_soa, *a, **k:
+          op.memops_per_matvec(x_soa.shape[0], 8))
 def apply_stencil_soa(op: BSROperator, x_soa: CArray, interpret: Optional[bool] = None,
                       packed_parity: Optional[int] = None) -> CArray:
     """SoA stencil matvec: ``x_soa`` [ncols, KD*BD, *lat] ->
@@ -637,6 +643,17 @@ def _zeros_im(x) -> CArray:
     return x if cplx.is_carray(x) else CArray(x, torch.zeros_like(x))
 
 
+def _bsr_flops(out, alpha, op, x, ox, *a, **k):
+    """The tracker's flop attribution of one :func:`bsr_krylov` call."""
+    cols = "".join(c for c in ox if c not in op.lat_d + op.kron_d + op.blk_d)
+    ncols = 1
+    for c in cols:
+        ncols *= x.shape[ox.index(c)]
+    power = k.get("power", 1)
+    return op.flops_per_matvec(ncols, cplx.is_carray(op.blocks)) * power
+
+
+@_tracked("bsr_krylov", flops_fn=_bsr_flops)
 def bsr_krylov(alpha, op: BSROperator, x, ox: str, beta=0.0, y=None,
                oy: Optional[str] = None, okr: Optional[str] = None,
                power: int = 1):

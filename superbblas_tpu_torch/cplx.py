@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 __all__ = [
     "CArray", "asarray", "from_complex", "to_complex", "is_carray",
@@ -49,6 +50,12 @@ class CArray(NamedTuple):
 
     def to(self, *args, **kwargs) -> "CArray":
         return CArray(self.re.to(*args, **kwargs), self.im.to(*args, **kwargs))
+
+
+# a pytree node with a serialized name, so that torch.export can save a
+# program whose inputs or outputs are CArrays (aot.export_compiled)
+_pytree._register_namedtuple(CArray, serialized_type_name="superbblas_tpu_torch.cplx.CArray")
+torch.serialization.add_safe_globals([CArray])
 
 
 def is_carray(x) -> bool:
@@ -150,14 +157,27 @@ def cbilinear(f, a, b):
     return CArray(k1 - k2, k1 + k3)
 
 
-@contextlib.contextmanager
+def default_precision() -> str:
+    """The precision ``SBT_MATMUL_PRECISION`` names (see ``flags.py``):
+    "highest" unless the variable says otherwise."""
+    from . import flags
+
+    return flags.get_matmul_precision()
+
+
 def _full_f32():
-    """f32 products in full f32 on the card, the counterpart of
-    ``lax.Precision.HIGHEST``: TF32 is switched off
-    (``torch.backends.cuda.matmul.allow_tf32 = False``) for the duration
-    and restored after."""
+    """f32 products in full f32 on the card (``lax.Precision.HIGHEST``)."""
+    return _matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision: str):
+    """f32 products at ``precision`` on the card, scoped to the call:
+    TF32 off for "highest" and "default" (whose operands are already
+    rounded to bf16, so that their products are exact), on for "high";
+    the switch is restored after."""
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = precision == "high"
     try:
         yield
     finally:
@@ -176,17 +196,21 @@ def cdot_general(a, b, dimension_numbers, preferred_element_type=None,
     are formed in the operand type, as in JAX; the operands of each real
     contraction are then converted, so bf16 operands give exact f32
     products, f32 sums and f32 ``k1 - k2``/``k1 + k3``, rounded only where
-    the caller casts the result.  ``precision``: None or "highest", both
-    full f32 (TF32 off); other precisions come with ``flags.py``."""
-    if precision not in (None, "highest"):
-        raise ValueError(f"precision={precision!r}: only None and 'highest' are "
-                         "ported (the other precisions come with flags.py, "
-                         "ROADMAP.md Queue 1 item 12)")
+    the caller casts the result.  ``precision``: "highest" (full f32,
+    TF32 off), "high" (TF32 on the card) or "default" (f32 operands
+    rounded to bf16, their products summed in f32); None takes
+    ``SBT_MATMUL_PRECISION`` (``flags.py``, "highest" by default)."""
+    if precision is None:
+        precision = default_precision()
+    if precision not in ("default", "high", "highest"):
+        raise ValueError(f"precision must be default|high|highest, got {precision!r}")
     (lc, rc), (lb, rb) = dimension_numbers
 
     def dg(x, y):
         if preferred_element_type is not None:
             x, y = x.to(preferred_element_type), y.to(preferred_element_type)
+        if precision == "default" and x.dtype == torch.float32:
+            x, y = x.to(torch.bfloat16).to(x.dtype), y.to(torch.bfloat16).to(y.dtype)
         letters = iter("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
         xs = [next(letters) for _ in range(x.ndim)]
         ys = [next(letters) for _ in range(y.ndim)]
@@ -197,7 +221,7 @@ def cdot_general(a, b, dimension_numbers, preferred_element_type=None,
         out = ([xs[i] for i in lb]
                + [xs[i] for i in range(x.ndim) if i not in lc and i not in lb]
                + [ys[j] for j in range(y.ndim) if j not in rc and j not in rb])
-        with _full_f32():
+        with _matmul_precision(precision):
             return torch.einsum(f"{''.join(xs)},{''.join(ys)}->{''.join(out)}", x, y)
 
     return cbilinear(dg, a, b)

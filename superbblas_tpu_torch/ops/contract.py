@@ -23,6 +23,7 @@ import torch
 
 from .. import cplx
 from ..labels import ContractionPlan
+from ..utils.tracker import tracked as _tracked
 from .copy import _is_static, local_permute
 
 __all__ = ["local_contraction"]
@@ -35,6 +36,7 @@ def _accum_type(dt):
     return dt
 
 
+@_tracked("local_contraction")
 def local_contraction(
     alpha,
     x0,

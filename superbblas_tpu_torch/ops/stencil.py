@@ -34,6 +34,13 @@ one device-to-host read per kron tensor (``host_kron``,
 ``stencil_matvec_soa.kron_reads``), none for a kron derived on the device
 from one whose value is known (``derive_kron``: the adjoint, the twist,
 the packed hops).
+
+Under tracing (``torch.export``, ``torch.compile``) ``stencil_matvec_soa``
+is the custom op ``torch.ops.sbt.stencil_matvec_soa``, whose shape-only
+fake implementation lets a traced program hold the op and whose real
+implementation is the eager call: a loaded exported program launches K1
+on CUDA tensors and runs the plain version on CPU ones.  Eager calls
+never go through the op.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import collections
 import ctypes
 import functools
 import weakref
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -838,6 +845,12 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
         if x.shape[0] % nc or blocks.shape[3] % Yc:
             raise ValueError(f"chunks {chunks} must divide (n={x.shape[0]}, "
                              f"Y={blocks.shape[3]})")
+    if torch.compiler.is_compiling():
+        kre, kim = (None, None) if kron is None else (kron.re, kron.im)
+        return CArray(*torch.ops.sbt.stencil_matvec_soa(
+            blocks.re, blocks.im, kre, kim, x.re, x.im,
+            [int(v) for off in offsets for v in off], bi, bd,
+            -1 if packed_parity is None else int(packed_parity)))
     if _on_cpu(blocks, x, "stencil_matvec_soa"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                             packed_parity=packed_parity)
@@ -869,6 +882,28 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     stencil_matvec_soa.by_shape[KI, KD, bi, bd] += 1
     stencil_matvec_soa.by_route[route] += 1
     return y
+
+
+@torch.library.custom_op("sbt::stencil_matvec_soa", mutates_args=())
+def _stencil_op(blocks_re: torch.Tensor, blocks_im: torch.Tensor,
+                kron_re: Optional[torch.Tensor], kron_im: Optional[torch.Tensor],
+                x_re: torch.Tensor, x_im: torch.Tensor, offsets: List[int], bi: int,
+                bd: int, packed_parity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stencil_matvec_soa` as an op of a traced program: the
+    offsets flattened, packed_parity -1 for None."""
+    nd = x_re.ndim - 2
+    offs = tuple(tuple(offsets[i:i + nd]) for i in range(0, len(offsets), nd))
+    kron = None if kron_re is None else CArray(kron_re, kron_im)
+    y = stencil_matvec_soa(CArray(blocks_re, blocks_im), kron, CArray(x_re, x_im), offs,
+                           bi, bd, packed_parity=None if packed_parity < 0 else packed_parity)
+    return y.re, y.im
+
+
+@_stencil_op.register_fake
+def _(blocks_re, blocks_im, kron_re, kron_im, x_re, x_im, offsets, bi, bd, packed_parity):
+    KI = 1 if kron_re is None else kron_re.shape[1]
+    shape = (x_re.shape[0], KI * bi) + tuple(x_re.shape[2:])
+    return x_re.new_empty(shape), x_im.new_empty(shape)
 
 
 def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,

@@ -1,0 +1,90 @@
+"""Cache management: the L2 cache-control surface of the reference
+(counterpart of ``superbblas_tpu/utils/caches.py``).
+
+The reference exposes ``clearCaches`` (alloc.h:440: drop the buffer cache
+and the LRU metadata caches, e.g. to recover from allocation pressure)
+and ``reportCacheUsage`` (performance.h:436-454).  The port's caches are:
+
+  * K1's spin plans (``ops.stencil``: one per kron value, sum type and
+    device, the most recent ``PLAN_CACHE``), with the small lru caches of
+    the stencil wrappers (offsets checks, runtime-route tiles, offsets
+    arguments);
+  * the batched-GEMM tile choice by shape (``ops.batched_gemm._tile``)
+    and the SM counts of ``ops.roll_add``;
+  * the CUDA caching allocator's reserved blocks (the reference's buffer
+    cache), returned to the driver by ``torch.cuda.empty_cache``.
+
+The distributed layer's redistribution-plan cache joins them when that
+layer is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["clear_caches", "report_cache_usage"]
+
+
+def _lru_caches() -> dict:
+    from ..ops import batched_gemm, roll_add, stencil
+
+    return {"gemm_tiles": batched_gemm._tile, "roll_add_sms": roll_add._sms,
+            "stencil_offsets_ok": stencil._offsets_ok,
+            "stencil_offsets_args": stencil._offsets_array,
+            "stencil_rt_tiles": stencil.rt_tile}
+
+
+def clear_caches() -> None:
+    """Drop every library-level cache (clearCaches, alloc.h:440): the
+    spin plans, the lru caches and the allocator's unused reserved
+    blocks."""
+    from ..ops import stencil
+
+    stencil.clear_plans()
+    for fn in _lru_caches().values():
+        fn.cache_clear()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def report_cache_usage(out=None) -> dict:
+    """Print + return cache statistics: the spin plans kept (entries and
+    the bytes of their device tables), each lru cache's entries, hits and
+    misses, and the CUDA allocator's reserved bytes against the
+    SBT_CACHEGB budget (reportCacheUsage, performance.h:436-454 +
+    cache.h:238-265)."""
+    from .. import flags
+    from ..ops import stencil
+
+    plans = list(stencil._PLANS.values())
+    stats = {
+        "spin_plans": {
+            "entries": len(plans),
+            "max_entries": stencil.PLAN_CACHE,
+            "bytes": sum(p.table.numel() * p.table.element_size()
+                         for p in plans if p.table is not None),
+        },
+    }
+    for name, fn in _lru_caches().items():
+        info = fn.cache_info()
+        stats[name] = {"entries": info.currsize, "hits": info.hits,
+                       "misses": info.misses, "max_entries": info.maxsize}
+    reserved = 0
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        reserved = sum(torch.cuda.memory_reserved(i)
+                       for i in range(torch.cuda.device_count()))
+    stats["allocator"] = {"reserved_bytes": reserved,
+                          "budget_bytes": int(flags.get_cache_gb() * (1 << 30))}
+    lines = ["cache usage:"]
+    sp = stats["spin_plans"]
+    lines.append(f"  spin plans: {sp['entries']}/{sp['max_entries']} entries, "
+                 f"{sp['bytes']} bytes of device tables")
+    for name in _lru_caches():
+        c = stats[name]
+        lines.append(f"  {name}: {c['entries']} entries, {c['hits']} hits / "
+                     f"{c['misses']} misses")
+    al = stats["allocator"]
+    lines.append(f"  CUDA allocator: {al['reserved_bytes']}/{al['budget_bytes']} "
+                 "bytes reserved")
+    print("\n".join(lines), file=out)
+    return stats

@@ -44,26 +44,36 @@ COUNTERPARTS = {
     "ops/stencil_pallas.py": "superbblas_tpu_torch.ops.stencil",
     "ops/batched_gemm_pallas.py": "superbblas_tpu_torch.ops.batched_gemm",
     "ops/permute_pallas.py": "superbblas_tpu_torch.ops.permute",
+    "dense.py": "superbblas_tpu_torch.dense",
+    "storage.py": "superbblas_tpu_torch.storage",
+    "native/__init__.py": "superbblas_tpu_torch.native",
+    "flags.py": "superbblas_tpu_torch.flags",
+    "context.py": "superbblas_tpu_torch.context",
+    "aot.py": "superbblas_tpu_torch.aot",
+    "utils/__init__.py": "superbblas_tpu_torch.utils",
+    "utils/tracker.py": "superbblas_tpu_torch.utils.tracker",
+    "utils/caches.py": "superbblas_tpu_torch.utils.caches",
+    "utils/testing.py": "superbblas_tpu_torch.utils.testing",
 }
 
-_DENSE = "dense.py: ROADMAP.md Queue 1 item 4"
-_STORAGE = "storage.py and the native plan engine: ROADMAP.md Queue 1 item 5"
-_UTILS = "the utilities: ROADMAP.md Queue 1 item 6"
 _DIST = "the distributed layer: ROADMAP.md Queue 1 item 7"
 #: names of a reference module's __all__ the port does not have yet, by
 #: module, with the queue item that brings them
 STILL_TO_PORT = {
     "__init__.py": {
-        "aot": _UTILS, "context": _UTILS, "flags": _UTILS, "utils": _UTILS,
-        "dense": _DENSE, "cholesky": _DENSE, "trsm": _DENSE, "gesm": _DENSE,
-        "inversion": _DENSE, "native": _STORAGE, "storage": _STORAGE,
         "parallel": _DIST, "Partition": _DIST, "basic_partitioning": _DIST,
         "contraction": _DIST, "copy": _DIST, "make_hole": _DIST, "make_mesh": _DIST,
         "partition_sharding": _DIST, "partitioning_distributed_procs": _DIST,
         "reshard": _DIST},
+    "storage.py": {
+        "save_sharded": _DIST, "load_sharded": _DIST, "save_sharded_async": _DIST,
+        "create_storage_sharded": _DIST, "close_storage_sharded": _DIST},
 }
 #: names the port does not carry over, with the reason
 NOT_CARRIED = {
+    "context.py": {
+        "create_tpu_context": "the TPU's context; the card's is create_gpu_context, the "
+                              "reference library's createGpuContext"},
     "ops/batched_gemm_pallas.py": {
         "batched_gemm_eligible": "the TPU's padding rule; the card's route is "
                                  "batched_gemm_route"},

@@ -183,9 +183,13 @@ def test_errors():
         t_contract(1.0, x, "ab", False, x, "ab", False, 1.0, None, "")
     with pytest.raises(ValueError, match="unmatched"):
         t_contract(1.0, x, "ab", False, torch.zeros((3, 4)), "bc", False, 0.0, None, "a")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        t_contract(1.0, x, "ab", False, x, "ab", False, 0.0, None, "", precision="high")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # the three SBT_MATMUL_PRECISION values are taken ("high" is full f32
+    # on the CPU); anything else, a JAX precision object included, raises
+    y = torch.arange(6.0).reshape(2, 3)
+    assert torch.equal(
+        t_contract(1.0, y, "ab", False, y, "ab", False, 0.0, None, "", precision="high"),
+        t_contract(1.0, y, "ab", False, y, "ab", False, 0.0, None, "", precision="highest"))
+    with pytest.raises(ValueError, match=r"default\|high\|highest"):
         TC.cdot_general(x, x, (((0, 1), (0, 1)), ((), ())),
                         precision=jax.lax.Precision.DEFAULT)
 

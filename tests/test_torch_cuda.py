@@ -20,8 +20,11 @@ against their plain version and a float64 product, and ``apply_coarse``
 on the card against the CPU port; K1 past 524,280 columns and K3/E1 past
 65535 tiles on grid.y and grid.z (fault P6); E2's forms (vec16, pair,
 elem); the gather applies of ``create_bsr``/``create_kron_bsr`` on E1 and
-K3, and the AoS staggered packed solve on K3.  The kernels at the main path's shapes
-are checked by ``chip_smoke.py``.
+K3, and the AoS staggered packed solve on K3; a CUDA-graph replay of a
+Wilson CG iteration (``aot.aot_compile``) against the eager call, the
+exported Wilson apply launching K1, the dense ops and a storage round
+trip of a CUDA CArray, and K1's route under SBT_PALLAS=0.  The kernels at
+the main path's shapes are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is not
@@ -1044,3 +1047,127 @@ def test_aos_staggered_eo_solve_packed_launches_k3(cuda_device):
     for g, w in zip(p1, p0):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-10, atol=1e-10)
     assert abs(r1 - r0) <= 1e-10 * max(1.0, r0)
+
+
+def _wilson_soa(device, lat=(4, 4, 8, 16), n=4):
+    op = W.wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cpu").to(device)
+    return op, crand((n, 12) + lat, 5, device, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_of_k1_equals_eager(cuda_device):
+    """aot_compile of a Wilson CG iteration (apply, adjoint apply, axpys)
+    on the card: the replay equals the eager call bit for bit, on the
+    example arguments and on new ones; the counters do not move on
+    replay."""
+    from superbblas_tpu_torch import aot, cplx
+
+    op, b = _wilson_soa(cuda_device)
+    op_h = W.adjoint_operator(op)
+    state = (cplx.cmap(torch.zeros_like, b), b, b, cplx.inner_real(b, b))
+    step = aot.aot_compile(lambda *s: W.cg_step(op, s, op_h), state)
+    for st in (state, (b, b, crand(tuple(b.shape), 6, cuda_device, torch.float32),
+                       cplx.inner_real(b, b) * 2)):
+        before = dict(S.stencil_matvec_soa.by_route)
+        got = step(*st)
+        assert dict(S.stencil_matvec_soa.by_route) == before
+        want = W.cg_step(op, st, op_h)
+        for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(want)):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+    with pytest.raises(TypeError, match="signature"):
+        step(*(state[:3] + (state[3].double(),)))
+
+
+@pytest.mark.cuda
+def test_export_of_k1_path_launches_k1(cuda_device, tmp_path):
+    """The SoA Wilson apply exported on the card holds K1's custom op;
+    the loaded program launches K1 (its route's count moves by one a
+    call) and matches the eager apply bit for bit."""
+    from superbblas_tpu_torch import aot
+
+    op, x = _wilson_soa(cuda_device)
+    fn = lambda v: W.apply_wilson(op, v)
+    want = fn(x)
+    path = str(tmp_path / "k1.pt2")
+    aot.export_compiled(fn, (x,), path)
+    loaded = aot.load_exported(path)
+    route = S.k1_route((4, 4, 3, 3), torch.float32, torch.float32, x.shape[2:].numel(),
+                       (op.blocks.re.data_ptr(), op.blocks.im.data_ptr()))
+    before = S.stencil_matvec_soa.by_route[route]
+    got = loaded(x)
+    assert S.stencil_matvec_soa.by_route[route] == before + 1
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [True, False])
+def test_dense_ops_on_card_match_cpu(cuda_device, split):
+    """cholesky, trsm of its factor, gesm and inversion on CUDA tensors
+    (cuSOLVER) against the same calls on the CPU (LAPACK) at f64, 1e-10
+    relative; the results stay on the card."""
+    from superbblas_tpu_torch import cplx, dense
+
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((6, 12, 12)) + 1j * rng.standard_normal((6, 12, 12))
+    a = a @ np.conj(np.swapaxes(a, -1, -2)) + 12 * np.eye(12)
+    x = rng.standard_normal((6, 12, 3)) + 1j * rng.standard_normal((6, 12, 3))
+    conv = cplx.from_complex if split else torch.from_numpy
+    results = []
+    for dev in ("cpu", cuda_device):
+        A = conv(a).to(dev) if not split else cplx.cmap(lambda v: v.to(dev), conv(a))
+        X = conv(x).to(dev) if not split else cplx.cmap(lambda v: v.to(dev), conv(x))
+        u = dense.cholesky(A, "krc", "r", "c")
+        outs = (u, dense.trsm(1.0, u, "krc", "r", "c", X, "krn", "kcn"),
+                dense.gesm(2.0, A, "krc", "r", "c", X, "krn", "kcn"),
+                dense.inversion(A, "krc", "r", "c"))
+        results.append([torch.complex(o.re, o.im) if split else o for o in outs])
+    for c, g in zip(*results):
+        assert g.device.type == "cuda"
+        assert float((g.cpu() - c).abs().max()) <= 1e-10 * float(c.abs().max())
+
+
+@pytest.mark.cuda
+def test_storage_roundtrip_of_cuda_carray(cuda_device, tmp_path):
+    """A CUDA CArray saved in file order "xyztscn" and loaded back in
+    another order comes back on the card, bit for bit, and the file
+    equals the one saved from the same values on the CPU."""
+    from superbblas_tpu_torch import cplx, storage
+
+    lat, n = (4, 2, 2, 4), 3
+    psi = crand((n, 4, 3) + lat, 8, cuda_device, torch.float32)
+    files = []
+    for name, x in (("gpu", psi), ("cpu", cplx.cmap(lambda v: v.cpu(), psi))):
+        p = str(tmp_path / f"{name}.s3t")
+        sto = storage.create_storage(p, "xyztscn", lat + (4, 3, n), dtype=np.complex64,
+                                     checksum=2)
+        storage.append_blocks(sto, [((0,) * 7, lat + (4, 3, n))])
+        storage.save(1.0, x, "nscxyzt", sto, "xyztscn")
+        storage.close_storage(sto)
+        files.append(open(p, "rb").read())
+    assert files[0] == files[1]
+    sto = storage.open_storage(str(tmp_path / "gpu.s3t"), mode="r")
+    storage.check_or_write_checksums(sto)
+    back = storage.load(1.0, sto, cplx.cmap(torch.zeros_like, psi), "nscxyzt", "xyztscn")
+    storage.close_storage(sto)
+    assert back.re.device.type == "cuda"
+    assert torch.equal(back.re, psi.re) and torch.equal(back.im, psi.im)
+
+
+@pytest.mark.cuda
+def test_sbt_pallas_0_leaves_k1_route(cuda_device, monkeypatch):
+    """SBT_PALLAS=0 is read by no dispatch: K1 takes the same route."""
+    from superbblas_tpu_torch import bsr, flags
+
+    op, x = _wilson_soa(cuda_device)
+    counts = []
+    for value in ("1", "0"):
+        monkeypatch.setenv("SBT_PALLAS", value)
+        flags.clear_cache()
+        before = dict(S.stencil_matvec_soa.by_route)
+        bsr.apply_stencil_soa(op, x)
+        after = dict(S.stencil_matvec_soa.by_route)
+        counts.append({k: after[k] - before.get(k, 0) for k in after
+                       if after[k] != before.get(k, 0)})
+    flags.clear_cache()
+    assert counts[0] == counts[1] and sum(counts[0].values()) == 1

@@ -20,7 +20,9 @@ def test_import_does_not_load_jax():
             "superbblas_tpu_torch.models.wilson, superbblas_tpu_torch.models.eo_packed, "
             "superbblas_tpu_torch.models.even_odd, superbblas_tpu_torch.solvers, "
             "superbblas_tpu_torch.bsr, superbblas_tpu_torch.ops.batched_gemm, "
-            "superbblas_tpu_torch.models.coarse, superbblas_tpu_torch.models.multigrid; "
+            "superbblas_tpu_torch.models.coarse, superbblas_tpu_torch.models.multigrid, "
+            "superbblas_tpu_torch.storage, superbblas_tpu_torch.dense, superbblas_tpu_torch.aot, "
+            "superbblas_tpu_torch.context, superbblas_tpu_torch.native, superbblas_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'superbblas_tpu')); "
             "assert not bad, bad")
@@ -42,3 +44,25 @@ def test_chip_smoke_fails_without_cuda():
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "is_available() is false" in proc.stderr
+
+
+def test_native_loader_never_opens_the_jax_package(tmp_path):
+    """The port's plan engine is built from its own source into its own
+    ``_build/`` and loaded from there: no file under superbblas_tpu/ is
+    opened, compiled or loaded (an audit hook records every open, dlopen
+    and process the loader starts)."""
+    code = (
+        "import sys\n"
+        "seen = []\n"
+        "sys.addaudithook(lambda ev, args: seen.append((ev, repr(args)))\n"
+        "    if ev in ('open', 'ctypes.dlopen', 'subprocess.Popen', 'os.exec') else None)\n"
+        "from superbblas_tpu_torch import native\n"
+        "lib = native.get_lib()\n"
+        "rows = native.intersect_all([[[0, 0], [2, 2]]], [[[1, 1], [2, 2]]], (4, 4))\n"
+        "assert lib is None or rows is not None\n"
+        "bad = [s for s in seen if '/superbblas_tpu/' in s[1]]\n"
+        "assert not bad, bad\n"
+        "assert lib is None or '/superbblas_tpu_torch/_build/' in lib._name, lib._name\n"
+        "assert not any(m.split('.')[0] in ('jax', 'superbblas_tpu') for m in sys.modules)\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr

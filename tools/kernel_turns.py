@@ -51,6 +51,11 @@ calls), ms:
   stage [1179648, 3, 3] @ [1179648, 3, 32] f32, and ``bmm_colour_device``
   ``torch.bmm`` on the same operands (device-only times by
   ``tools/device_timing.py``);
+- ``k1_host_us`` (``--only host``): host microseconds a call of
+  ``bsr.apply_stencil_soa`` (the public wrapper of K1, tracking off) takes
+  to issue at the Wilson bench shape, 8x8x16x128 x 8 f32, while the card
+  is busy: 200 calls timed without a wait, the median of ``--reps``
+  such blocks;
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -108,6 +113,26 @@ def worker(reps: int, solve: bool, only) -> dict:
         return CArray(*(torch.randn(shape, generator=gen, device="cuda") for _ in range(2)))
 
     out = {}
+    if "host" in only:
+        from superbblas_tpu_torch import bsr
+        from superbblas_tpu_torch.models import wilson_operator
+
+        lat = (8, 8, 16, 128)
+        op = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
+        x = randn_c((8, 12) + lat)
+
+        def launch_us(calls=200):
+            for _ in range(3):
+                bsr.apply_stencil_soa(op, x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                bsr.apply_stencil_soa(op, x)
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return dt / calls * 1e6
+
+        out["k1_host_us"] = statistics.median(launch_us() for _ in range(reps))
     if "clover" in only:
         for key, lat in (("clover_24", (24, 24, 24, 48)), ("clover_16", (16, 16, 16, 32))):
             blocks, x = randn_c((1, 144) + lat), randn_c((8, 12) + lat)
@@ -248,7 +273,7 @@ def main():
     parser.add_argument("--no-solve", action="store_true")
     parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
                         choices=["clover", "permute", "schedules", "runtime", "sweep", "e2",
-                                 "gather"])
+                                 "gather", "host"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
