@@ -191,7 +191,8 @@ tracking off against the undecorated call, in turns, at the bench shape;
 graph), its replay against the eager call bit for bit, eager and replay
 times; ``aot.export_compiled``/``load_exported`` of the Wilson apply at 8^4
 x 8, the loaded program launching K1 (its route's count) and equal to the
-eager apply.
+eager apply, and of a 4-D relabel at 64^4 f32, the loaded program
+launching K2 once and equal to the eager call.
 
 ``--profile`` adds one warm solve, one warm even-odd solve, one warm
 dense path, one warm coarse CG, one warm MG-FGCR solve and one warm
@@ -256,7 +257,7 @@ from superbblas_tpu_torch.ops.stencil import (aos_to_soa, clear_plans, soa_to_ao
                                               stencil_matvec_soa_rt,
                                               stencil_matvec_soa_stream,
                                               stencil_matvec_soa_xin)
-from tools.device_timing import GRAPH_CALLS, graph_ms
+from tools.device_timing import GRAPH_CALLS, LAUNCH_CALLS, graph_ms, launch_us
 
 WILSON_OFFSETS = wilson_offsets(4)
 HOPPING = WILSON_OFFSETS[1:]
@@ -2758,25 +2759,11 @@ def dense_solve_path(clover_blocks, rate):
     return walls
 
 
-#: calls issued without a wait for a launch's host time, and the turns
-LAUNCH_CALLS, LAUNCH_TURNS = 200, 8
+#: turns of the tracked and the undecorated call for a launch's host time
+LAUNCH_TURNS = 8
 #: tracked GFLOP/s against CUDA events: each tracked apply adds its
 #: launch and a wait (tens of us) to about 3.7 ms of kernel
 TRACK_AGREE = 0.15
-
-
-def launch_us(fn) -> float:
-    """Host microseconds a call of ``fn`` takes to issue while the card is
-    busy: LAUNCH_CALLS calls timed without a wait, then waited on."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(LAUNCH_CALLS):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / LAUNCH_CALLS * 1e6
 
 
 def tracker_aot_path(op, b, gen):
@@ -2787,7 +2774,8 @@ def tracker_aot_path(op, b, gen):
     turns, at the bench shape; ``aot_compile`` of one Wilson CG iteration
     at the bench shape, its replay against the eager call bit for bit;
     ``export_compiled``/``load_exported`` of the Wilson apply at 8^4 x 8,
-    the loaded program launching K1.  Returns the numbers it printed."""
+    the loaded program launching K1, and of a 4-D relabel at 64^4 f32, the
+    loaded program launching K2.  Returns the numbers it printed."""
     ctx = context.create_context()
     out = {}
     n = MAIN_COLS
@@ -2887,6 +2875,27 @@ def tracker_aot_path(op, b, gen):
           f"equal to the eager apply {exact}", flush=True)
     if moved != {"tiled": 1} or not exact:
         raise AssertionError("the exported Wilson apply did not launch K1 or differs")
+
+    # a 4-D relabel of f32 data exported: the loaded program launches K2
+    xp = torch.randn((64, 64, 64, 64), generator=gen, device="cuda")
+    fn = lambda v: local_permute(v, "xyzt", "tyzx")
+    want = fn(xp)
+    tmp = tempfile.mkdtemp(prefix="sbt_export_")
+    try:
+        path = aot.export_compiled(fn, (xp,), os.path.join(tmp, "permute.pt2"))
+        loaded = aot.load_exported(path)
+        before = dict(permute_4d.by_route)
+        got = loaded(xp)
+        after = dict(permute_4d.by_route)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    exact = torch.equal(got, want)
+    print(f"export_compiled/load_exported of local_permute xyzt->tyzx at 64^4 f32: the "
+          f"loaded program's K2 launches by route {moved}; equal to the eager call {exact}",
+          flush=True)
+    if sum(moved.values()) != 1 or not exact:
+        raise AssertionError("the exported relabel did not launch K2 once or differs")
     return out
 
 

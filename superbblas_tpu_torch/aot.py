@@ -14,9 +14,15 @@ shapes.  Here:
 ``aot_compile`` captures ``fn`` on CUDA tensors in a ``torch.cuda.CUDAGraph``
 (its kernel launches, ctypes ones included, replay with no host work of
 ``fn``); ``export_compiled`` saves a ``torch.export`` program, in which
-K1 stands as the custom op ``sbt::stencil_matvec_soa``, so that the loaded
-program launches the kernel.  Both refuse arguments whose shapes or
-dtypes differ from the example's, as a compiled XLA executable does.
+K1, K2, K3 and E1 stand as the custom ops ``sbt::stencil_matvec_soa``,
+``sbt::permute_4d``, ``sbt::batched_small_gemm`` and
+``sbt::batched_gemm_rowpack``, so that the loaded program launches the
+kernels.  The probe entries that nothing in the package calls
+(``stencil_matvec_soa_rt``, ``_xin`` and ``_stream`` called directly,
+``permute_4d_tiled``, ``roll_add``) have no op and cannot be exported on
+CUDA tensors.  A captured graph and a loaded program both refuse arguments
+whose shapes or dtypes differ from the example's, as a compiled XLA
+executable does.
 """
 
 from __future__ import annotations

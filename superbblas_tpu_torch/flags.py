@@ -1,19 +1,12 @@
 """Runtime configuration via environment variables (counterpart of
 ``superbblas_tpu/flags.py``).
 
-The same ``SBT_*`` variables, read lazily once (``clear_cache`` re-reads
-them), with the same defaults and errors:
+The ``SBT_*`` variables this package reads, read lazily once
+(``clear_cache`` re-reads them), with the JAX package's defaults and
+errors:
 
   * ``SBT_LOG``   (int, default 0): >0 prints operation-level logging.
-  * ``SBT_DEBUG`` (int, default 0): 0 none; >=1 cross-process consistency
-    checks; >=2 mock-index verification of copies (utils/testing.py).
   * ``SBT_TRACK_TIME`` (0/1): enable the tracker (utils/tracker.py).
-  * ``SBT_TRACK_MEM``  (0/1): enable memory accounting.
-  * ``SBT_PALLAS``     (0/1, default 1): read by no dispatch of this
-    package (see :func:`get_use_pallas`).
-  * ``SBT_REDIST_METHOD`` ("auto"|"ragged"|"dense") and
-    ``SBT_REDIST_PACK`` ("auto"|"boxes"|"runs"): the redistribution
-    exchange and packing of the distributed layer.
   * ``SBT_CACHEGB`` (float, default 1.0): byte budget in GiB of the
     library's caches, reported against the allocator's reserved bytes by
     ``utils.caches.report_cache_usage``.
@@ -48,24 +41,8 @@ def get_log_level() -> int:
     return _env_int("SBT_LOG", 0)
 
 
-def get_debug_level() -> int:
-    return _env_int("SBT_DEBUG", 0)
-
-
 def get_track_time() -> bool:
     return bool(_env_int("SBT_TRACK_TIME", 0))
-
-
-def get_track_mem() -> bool:
-    return bool(_env_int("SBT_TRACK_MEM", 0))
-
-
-def get_use_pallas() -> bool:
-    """``SBT_PALLAS``, carried for name parity with the JAX package only:
-    no dispatch of this package reads it.  A CUDA tensor always takes its
-    kernel and a CPU tensor its plain version, whatever the variable
-    says."""
-    return bool(_env_int("SBT_PALLAS", 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,27 +61,6 @@ def _env_float(name: str, default: float) -> float:
     except ValueError:
         raise ValueError(
             f"environment variable {name} must be a float, got {v!r}")
-
-
-def get_redist_method() -> str:
-    """Explicit-redistribution exchange flavor (SB_USE_ALLTOALL analog,
-    runtime_features.h:101-125)."""
-    v = _env_str("SBT_REDIST_METHOD", "auto").lower()
-    if v not in ("auto", "ragged", "dense"):
-        raise ValueError(
-            f"SBT_REDIST_METHOD must be auto|ragged|dense, got {v!r}")
-    return v
-
-
-def get_redist_pack() -> str:
-    """Explicit-redistribution packing strategy: "boxes", "runs" or
-    "auto" (the reference's pack/copy_n_blocking layer choice,
-    dist.h:798-1010)."""
-    v = _env_str("SBT_REDIST_PACK", "auto").lower()
-    if v not in ("auto", "boxes", "runs"):
-        raise ValueError(
-            f"SBT_REDIST_PACK must be auto|boxes|runs, got {v!r}")
-    return v
 
 
 def get_cache_gb() -> float:

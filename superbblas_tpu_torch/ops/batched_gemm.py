@@ -21,6 +21,13 @@ whole sites (``small_tile``), E1's stream chunks of J (``rowpack_tile``).  Both 
 one dtype, and sum each output in that dtype with fused multiply-adds in
 a fixed order (J split among a block's warps where V is small, the
 partial sums added in a fixed order): the same bits from run to run.
+
+Under tracing (``torch.export``, ``torch.compile``) both wrappers, on
+CUDA tensors, are the custom ops ``torch.ops.sbt.batched_small_gemm`` and
+``torch.ops.sbt.batched_gemm_rowpack``, whose shape-only fake
+implementations let a traced program hold them and whose real
+implementations are the eager calls, so that a loaded exported program
+launches K3 or E1.  Eager calls never go through the ops.
 """
 
 from __future__ import annotations
@@ -212,6 +219,8 @@ def batched_gemm_rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check(b, x, "batched_gemm_rowpack")
     if _on_cpu(b, "batched_gemm_rowpack"):
         return batched_small_gemm_reference(b, x)
+    if torch.compiler.is_compiling():
+        return torch.ops.sbt.batched_gemm_rowpack(b, x)
     return _rowpack(b, x)
 
 
@@ -229,6 +238,8 @@ def batched_small_gemm(b: torch.Tensor, x: torch.Tensor, interpret: bool = False
     route = _check(b, x, "batched_small_gemm")
     if _on_cpu(b, "batched_small_gemm"):
         return batched_small_gemm_reference(b, x)
+    if torch.compiler.is_compiling():
+        return torch.ops.sbt.batched_small_gemm(b, x)
     if route == "rowpack":
         return _rowpack(b, x)
     if _empty(b, x):
@@ -241,3 +252,21 @@ def batched_small_gemm(b: torch.Tensor, x: torch.Tensor, interpret: bool = False
 
 batched_small_gemm.launches = 0
 batched_gemm_rowpack.launches = 0
+
+
+@torch.library.custom_op("sbt::batched_small_gemm", mutates_args=())
+def _small_op(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`batched_small_gemm` as an op of a traced program."""
+    return batched_small_gemm(b, x)
+
+
+@torch.library.custom_op("sbt::batched_gemm_rowpack", mutates_args=())
+def _rowpack_op(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`batched_gemm_rowpack` as an op of a traced program."""
+    return batched_gemm_rowpack(b, x)
+
+
+@_small_op.register_fake
+@_rowpack_op.register_fake
+def _(b, x):
+    return b.new_empty((b.shape[0], b.shape[1], x.shape[2]))

@@ -15,12 +15,18 @@ words.
 ``experiments/permute_pallas.py``): the same transpose through one of the
 card's design points ``TILES`` of ``csrc/permute.cu``, on the views the
 16-byte route takes (``sweep_takes``).  Nothing dispatches it.
+
+Under tracing (``torch.export``, ``torch.compile``) ``permute_4d`` on a
+CUDA tensor is the custom op ``torch.ops.sbt.permute_4d``, whose
+shape-only fake implementation lets a traced program hold the op and whose
+real implementation is the eager call, so that a loaded exported program
+launches K2.  Eager calls never go through the op.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -105,6 +111,8 @@ def permute_4d(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
             f"permute_4d: shape {tuple(x.shape)} {x.dtype} perm {perm}: the kernel "
             f"takes 4-D perms {tuple(SUPPORTED)} of 4-byte data with X, T > 1 "
             "(maybe_permute sends other cases to x.permute(perm).contiguous())")
+    if torch.compiler.is_compiling():
+        return torch.ops.sbt.permute_4d(x, list(perm))
     out, route = _launch(x, perm)
     permute_4d.launches += 1
     permute_4d.by_route[route] += 1
@@ -113,6 +121,17 @@ def permute_4d(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
 
 permute_4d.launches = 0
 permute_4d.by_route = collections.Counter()
+
+
+@torch.library.custom_op("sbt::permute_4d", mutates_args=())
+def _permute_op(x: torch.Tensor, perm: List[int]) -> torch.Tensor:
+    """:func:`permute_4d` as an op of a traced program."""
+    return permute_4d(x, perm)
+
+
+@_permute_op.register_fake
+def _(x, perm):
+    return x.new_empty(tuple(x.shape[p] for p in perm))
 
 
 def maybe_permute(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:

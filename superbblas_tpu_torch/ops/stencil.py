@@ -890,13 +890,15 @@ def _stencil_op(blocks_re: torch.Tensor, blocks_im: torch.Tensor,
                 x_re: torch.Tensor, x_im: torch.Tensor, offsets: List[int], bi: int,
                 bd: int, packed_parity: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`stencil_matvec_soa` as an op of a traced program: the
-    offsets flattened, packed_parity -1 for None."""
+    offsets flattened, packed_parity -1 for None; the outputs contiguous,
+    as the fake implementation says (the kernel's are; the plain
+    version's may not be)."""
     nd = x_re.ndim - 2
     offs = tuple(tuple(offsets[i:i + nd]) for i in range(0, len(offsets), nd))
     kron = None if kron_re is None else CArray(kron_re, kron_im)
     y = stencil_matvec_soa(CArray(blocks_re, blocks_im), kron, CArray(x_re, x_im), offs,
                            bi, bd, packed_parity=None if packed_parity < 0 else packed_parity)
-    return y.re, y.im
+    return y.re.contiguous(), y.im.contiguous()
 
 
 @_stencil_op.register_fake

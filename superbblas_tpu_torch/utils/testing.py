@@ -1,4 +1,4 @@
-"""Built-in verification utilities — the SBT_DEBUG ladder (counterpart of
+"""Built-in verification utilities (counterpart of
 ``superbblas_tpu/utils/testing.py``).
 
 Re-creation of the reference's debug nets:
@@ -9,7 +9,10 @@ Re-creation of the reference's debug nets:
   * cross-process consistency (dist.h:708-737): ``check_consistency``
     validates metadata self-consistency locally, and
     ``check_collective_consistency`` hashes call metadata across the
-    processes of a ``torch.distributed`` group at SBT_DEBUG>=1.
+    processes of a ``torch.distributed`` group.
+
+The JAX package runs these from its distributed layer under ``SBT_DEBUG``;
+this package has no distributed layer yet, so they are called directly.
 """
 
 from __future__ import annotations
@@ -52,8 +55,7 @@ def numpy_contraction_reference(alpha, x0, o0, conj0, x1, o1, conj1, beta, r, o_
 def verify_copy(shape0, o0, shape1, o1, from0, size0, from1, copy_add):
     """Mock-index verification (dist.h:1919-2116 semantics): run the real
     copy on index-valued tensors and compare element-wise with the numpy
-    oracle.  Raises on mismatch.  Triggered by SBT_DEBUG>=2 on every
-    distributed copy."""
+    oracle.  Raises on mismatch."""
     import torch
 
     from ..ops.copy import local_copy

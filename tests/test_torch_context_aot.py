@@ -138,3 +138,61 @@ def test_stencil_op_fake_shapes():
         xs = mode.from_tensor(torch.zeros((5, 2) + lat))
         y = torch.ops.sbt.stencil_matvec_soa(b, b, None, None, xs, xs, offs, 2, 2, 0)
         assert tuple(y[1].shape) == (5, 2) + lat
+
+
+def _fake_cuda(*shapes):
+    """Fake f32 tensors on a CUDA device: traceable without a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return [torch.empty(s, device="cuda") for s in shapes]
+
+
+@pytest.mark.parametrize("case,target", [
+    ("local_permute", "sbt.permute_4d.default"),
+    ("k3", "sbt.batched_small_gemm.default"),
+    ("e1_by_shape", "sbt.batched_small_gemm.default"),
+    ("e1", "sbt.batched_gemm_rowpack.default"),
+])
+def test_export_on_cuda_tensors_holds_kernel_ops(tmp_path, case, target):
+    """Traced at fake CUDA tensors, a function reaching K2, K3 or E1 holds
+    that kernel's custom op (the eager wrapper reads data pointers, which
+    a traced tensor has not), and export_compiled saves it."""
+    from superbblas_tpu_torch.ops import batched_gemm as G
+    from superbblas_tpu_torch.ops.copy import local_permute
+
+    fn, shapes = {
+        "local_permute": (lambda v: local_permute(v, "xyzt", "tyzx"), [(6, 4, 5, 8)]),
+        "k3": (G.batched_small_gemm, [(5, 3, 4), (5, 4, 2)]),
+        "e1_by_shape": (G.batched_small_gemm, [(5, 70, 80), (5, 80, 2)]),
+        "e1": (G.batched_gemm_rowpack, [(5, 3, 4), (5, 4, 2)]),
+    }[case]
+    args = tuple(_fake_cuda(*shapes))
+    path = aot.export_compiled(fn, args, str(tmp_path / f"{case}.pt2"))
+    program = torch.export.export(aot._Module(fn), args)
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets == [target]
+    assert (tmp_path / f"{case}.pt2").stat().st_size > 0 and path.endswith(".pt2")
+
+
+@pytest.mark.parametrize("op", ["stencil_matvec_soa", "permute_4d", "batched_small_gemm",
+                                "batched_gemm_rowpack"])
+def test_kernel_custom_ops_pass_opcheck(op):
+    """Each kernel's custom op, on CPU tensors (its real implementation is
+    the eager call, so the plain version): schema, fake implementation
+    and real one agree (``torch.library.opcheck``)."""
+    from superbblas_tpu_torch.models import wilson as TW
+
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s))
+    if op == "stencil_matvec_soa":
+        lat = (4, 4, 2, 2)
+        w = TW.wilson_operator(lat, mass=0.1, key=0, dtype=torch.complex128, layout="soa",
+                               device="cpu")
+        args = (w.blocks.re, w.blocks.im, w.kron.re, w.kron.im, t(2, 12, *lat),
+                t(2, 12, *lat), [v for off in w.offsets for v in off], 3, 3, -1)
+    elif op == "permute_4d":
+        args = (t(6, 4, 5, 8).float(), [3, 2, 1, 0])
+    else:
+        args = (t(5, 3, 4), t(5, 4, 2))
+    torch.library.opcheck(getattr(torch.ops.sbt, op).default, args)

@@ -22,8 +22,9 @@ on the card against the CPU port; K1 past 524,280 columns and K3/E1 past
 elem); the gather applies of ``create_bsr``/``create_kron_bsr`` on E1 and
 K3, and the AoS staggered packed solve on K3; a CUDA-graph replay of a
 Wilson CG iteration (``aot.aot_compile``) against the eager call, the
-exported Wilson apply launching K1, the dense ops and a storage round
-trip of a CUDA CArray, and K1's route under SBT_PALLAS=0.  The kernels at
+exported Wilson apply launching K1, exported programs reaching K2, K3 and
+E1 launching them, the dense ops and a storage round
+trip of a CUDA CArray.  The kernels at
 the main path's shapes are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -1100,6 +1101,63 @@ def test_export_of_k1_path_launches_k1(cuda_device, tmp_path):
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
 
 
+def _kernel_counts():
+    return (dict(P.permute_4d.by_route), G.batched_small_gemm.launches,
+            G.batched_gemm_rowpack.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["local_permute", "local_contraction", "aos_staggered",
+                                  "coarse"])
+def test_export_reaching_k2_k3_e1_launches_them(cuda_device, tmp_path, case):
+    """Exported on the card: a 4-D relabel of f32 data (K2), a contraction
+    whose output relabel K2 takes, the AoS staggered apply (K3) and the
+    coarse apply (E1).  The loaded program launches the same kernels as
+    the eager call, as many times, and matches it bit for bit."""
+    from superbblas_tpu_torch import aot, cplx
+    from superbblas_tpu_torch.ops.contract import local_contraction
+    from superbblas_tpu_torch.ops.copy import local_permute
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)
+    if case == "local_permute":
+        fn, args = (lambda v: local_permute(v, "xyzt", "tyzx")), (r(64, 8, 8, 64),)
+    elif case == "local_contraction":
+        fn = lambda a, b: local_contraction(1.0, a, "xyzt", False, b, "tk", False, 0.0, None,
+                                            "kzyx")
+        args = (r(16, 3, 5, 6), r(6, 8))
+    elif case == "aos_staggered":
+        lat = (2, 4, 4, 8)
+        links = W.random_su3_links(np.random.default_rng(0), lat)
+        op = M.staggered_operator(lat, mass=0.1, links=links, layout="aos", device=cuda_device)
+        fn, args = (lambda v: M.apply_staggered(op, v)), (crand(lat + (3, 2), 7, cuda_device,
+                                                                 torch.float32),)
+    else:
+        lat, nc = (4, 4, 2, 4), 16
+        op = C.coarse_operator(lat, block_size=nc, mass=0.5, key=1, device="cpu").to(cuda_device)
+        fn, args = (lambda v: C.apply_coarse(op, v)), (crand(lat + (nc, 5), 2, cuda_device,
+                                                             torch.float32),)
+    c0 = _kernel_counts()
+    want = fn(*args)
+    c1 = _kernel_counts()
+    path = aot.export_compiled(fn, args, str(tmp_path / f"{case}.pt2"))
+    loaded = aot.load_exported(path)
+    c2 = _kernel_counts()
+    got = loaded(*args)
+    c3 = _kernel_counts()
+
+    def moved(a, b):
+        return ({k: b[0][k] - a[0].get(k, 0) for k in b[0] if b[0][k] != a[0].get(k, 0)},
+                b[1] - a[1], b[2] - a[2])
+    eager, replay = moved(c0, c1), moved(c2, c3)
+    assert eager == replay and (eager[0] or eager[1] or eager[2]), (eager, replay)
+    gp = tuple(got) if cplx.is_carray(got) else (got,)
+    wp = tuple(want) if cplx.is_carray(want) else (want,)
+    for g, w in zip(gp, wp):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [True, False])
 def test_dense_ops_on_card_match_cpu(cuda_device, split):
@@ -1152,22 +1210,3 @@ def test_storage_roundtrip_of_cuda_carray(cuda_device, tmp_path):
     storage.close_storage(sto)
     assert back.re.device.type == "cuda"
     assert torch.equal(back.re, psi.re) and torch.equal(back.im, psi.im)
-
-
-@pytest.mark.cuda
-def test_sbt_pallas_0_leaves_k1_route(cuda_device, monkeypatch):
-    """SBT_PALLAS=0 is read by no dispatch: K1 takes the same route."""
-    from superbblas_tpu_torch import bsr, flags
-
-    op, x = _wilson_soa(cuda_device)
-    counts = []
-    for value in ("1", "0"):
-        monkeypatch.setenv("SBT_PALLAS", value)
-        flags.clear_cache()
-        before = dict(S.stencil_matvec_soa.by_route)
-        bsr.apply_stencil_soa(op, x)
-        after = dict(S.stencil_matvec_soa.by_route)
-        counts.append({k: after[k] - before.get(k, 0) for k in after
-                       if after[k] != before.get(k, 0)})
-    flags.clear_cache()
-    assert counts[0] == counts[1] and sum(counts[0].values()) == 1

@@ -195,13 +195,14 @@ def test_consistency_checks():
 
 @pytest.mark.parametrize("name,value,getter,want", [
     ("SBT_LOG", "2", "get_log_level", 2),
-    ("SBT_DEBUG", "", "get_debug_level", 0),
-    ("SBT_TRACK_MEM", "1", "get_track_mem", True),
-    ("SBT_PALLAS", "0", "get_use_pallas", False),
-    ("SBT_REDIST_METHOD", "Ragged", "get_redist_method", "ragged"),
-    ("SBT_REDIST_PACK", "runs", "get_redist_pack", "runs"),
+    ("SBT_LOG", "", "get_log_level", 0),
+    ("SBT_TRACK_TIME", "1", "get_track_time", True),
+    ("SBT_TRACK_TIME", "", "get_track_time", False),
     ("SBT_CACHEGB", "0.5", "get_cache_gb", 0.5),
+    ("SBT_CACHEGB", "", "get_cache_gb", 1.0),
     ("SBT_MATMUL_PRECISION", "HIGH", "get_matmul_precision", "high"),
+    ("SBT_MATMUL_PRECISION", "Default", "get_matmul_precision", "default"),
+    ("SBT_MATMUL_PRECISION", "", "get_matmul_precision", "highest"),
 ])
 def test_flags_parse_as_jax(env, name, value, getter, want):
     env(name, value)
@@ -211,8 +212,8 @@ def test_flags_parse_as_jax(env, name, value, getter, want):
 @pytest.mark.parametrize("name,value,getter", [
     ("SBT_LOG", "x", "get_log_level"),
     ("SBT_CACHEGB", "big", "get_cache_gb"),
-    ("SBT_REDIST_METHOD", "mpi", "get_redist_method"),
-    ("SBT_REDIST_PACK", "x", "get_redist_pack"),
+    ("SBT_LOG", "1.5", "get_log_level"),
+    ("SBT_TRACK_TIME", "yes", "get_track_time"),
     ("SBT_MATMUL_PRECISION", "bf16", "get_matmul_precision"),
 ])
 def test_flags_errors_as_jax(env, name, value, getter):

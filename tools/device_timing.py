@@ -1,21 +1,44 @@
-"""Device-only time of a call on an NVIDIA GPU, the one definition of it
-that ``chip_smoke.py`` and ``tools/kernel_turns.py`` use.
+"""Device-only time of a call on an NVIDIA GPU, and the host time a call
+takes to issue: the one definition of each that ``chip_smoke.py`` and
+``tools/kernel_turns.py`` use.
 
 ``graph_ms(fn)`` runs ``fn`` three times on a side stream (a warm-up that
 also keeps allocations out of the capture), captures GRAPH_CALLS calls of
 it in one CUDA graph, replays the graph once, then times ``reps`` replays
 with CUDA events and returns the median over GRAPH_CALLS, in ms: no host
 cost of the calls is inside.
+
+``launch_us(fn)`` runs ``fn`` three times, waits for the card, times
+LAUNCH_CALLS calls of it without a wait, then waits: host microseconds a
+call takes to issue while the card is busy.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
 #: launches captured in one CUDA graph for a device-only time
 GRAPH_CALLS = 20
+#: calls timed without a wait for a host time a call
+LAUNCH_CALLS = 200
+
+
+def launch_us(fn, calls: int = LAUNCH_CALLS) -> float:
+    """Host microseconds a call of ``fn`` takes to issue while the card is
+    busy: ``calls`` calls timed without a wait (after three warm-up calls
+    and a wait), then waited on."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def graph_ms(fn, reps: int = 7, calls: int = GRAPH_CALLS) -> float:

@@ -54,8 +54,14 @@ calls), ms:
 - ``k1_host_us`` (``--only host``): host microseconds a call of
   ``bsr.apply_stencil_soa`` (the public wrapper of K1, tracking off) takes
   to issue at the Wilson bench shape, 8x8x16x128 x 8 f32, while the card
-  is busy: 200 calls timed without a wait, the median of ``--reps``
-  such blocks;
+  is busy: 200 calls timed without a wait (``tools/device_timing.py``'s
+  ``launch_us``), the median of ``--reps`` such blocks;
+  ``k1_entry_host_us`` the same of ``ops.stencil.stencil_matvec_soa``
+  with the operator's plan warm (no decorator);
+  ``is_compiling_ns``, ``wrapper_state_ns`` (null in a tree without
+  ``flags.wrapper_state``) and ``empty_call_ns``: host nanoseconds a call
+  of ``torch.compiler.is_compiling``, of ``flags.wrapper_state`` and of a
+  lambda that does nothing, over a million calls;
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -114,25 +120,33 @@ def worker(reps: int, solve: bool, only) -> dict:
 
     out = {}
     if "host" in only:
+        from device_timing import launch_us
         from superbblas_tpu_torch import bsr
         from superbblas_tpu_torch.models import wilson_operator
+        from superbblas_tpu_torch.ops import stencil
 
         lat = (8, 8, 16, 128)
         op = wilson_operator(lat, mass=0.1, key=0, layout="soa", device="cuda")
         x = randn_c((8, 12) + lat)
 
-        def launch_us(calls=200):
-            for _ in range(3):
-                bsr.apply_stencil_soa(op, x)
-            torch.cuda.synchronize()
+        public = lambda: bsr.apply_stencil_soa(op, x)
+        entry = lambda: stencil.stencil_matvec_soa(op.blocks, op.kron, x, op.offsets, 3, 3)
+        out["k1_host_us"] = statistics.median(launch_us(public) for _ in range(reps))
+        out["k1_entry_host_us"] = statistics.median(launch_us(entry) for _ in range(reps))
+
+        def per_call_ns(fn, calls=1_000_000):
             t0 = time.perf_counter()
             for _ in range(calls):
-                bsr.apply_stencil_soa(op, x)
-            dt = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            return dt / calls * 1e6
+                fn()
+            return (time.perf_counter() - t0) / calls * 1e9
 
-        out["k1_host_us"] = statistics.median(launch_us() for _ in range(reps))
+        out["is_compiling_ns"] = per_call_ns(torch.compiler.is_compiling)
+        try:
+            from superbblas_tpu_torch.flags import wrapper_state
+        except ImportError:             # a tree without the tracker
+            wrapper_state = None
+        out["wrapper_state_ns"] = wrapper_state and per_call_ns(wrapper_state)
+        out["empty_call_ns"] = per_call_ns(lambda: None)
     if "clover" in only:
         for key, lat in (("clover_24", (24, 24, 24, 48)), ("clover_16", (16, 16, 16, 32))):
             blocks, x = randn_c((1, 144) + lat), randn_c((8, 12) + lat)
@@ -299,9 +313,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
+    def median(vals):
+        vals = [v for v in vals if v is not None]
+        return statistics.median(vals) if vals else None
+
     def medians(rs):
-        return {k: ({p: statistics.median(r[k][p] for r in rs) for p in rs[0][k]}
-                    if isinstance(rs[0][k], dict) else statistics.median(r[k] for r in rs))
+        return {k: ({p: median(r[k][p] for r in rs) for p in rs[0][k]}
+                    if isinstance(rs[0][k], dict) else median(r[k] for r in rs))
                 for k in rs[0]}
 
     print(json.dumps({"card": smi, "medians": {t: medians(rs) for t, rs in runs.items()}}))
