@@ -2899,13 +2899,632 @@ def tracker_aot_path(op, b, gen):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# the dist phase: the distributed layer (superbblas_tpu_torch.parallel)
+
+#: part (a): one rank on NCCL at the main path's size, CG iterations
+DIST_ITERS_A = CG_ITERS
+#: part (b): four ranks on gloo, CUDA tensors on cuda:0, each rank
+#: 16x32x32x64 (reduced from the main path's 32 per rank so that four
+#: ranks' CG state, halos and CUDA contexts fit one card), 8 columns
+DIST_RANKS, DIST_X_LOCAL, DIST_REST, DIST_COLS, DIST_ITERS_B = 4, 16, (32, 32, 64), 8, 10
+#: the small lattices of part (b)'s overlap (K3) and sharded gather (E1)
+#: checks, and of its redistribution variants
+DIST_AOS_LAT, DIST_GATHER_LAT, DIST_REDIST_DIM = (16, 8, 8, 16), (16, 8, 8, 16), (
+    2, 12, 22, 8, 8, 16)
+DIST_ORDER = "nfxyzt"
+
+
+def _randn_c(shape, gen, dtype=torch.float32) -> CArray:
+    def part():
+        return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+    return CArray(part(), part())
+
+
+def dist_spec(name="X"):
+    from superbblas_tpu_torch import parallel as par
+
+    return par.PartitionSpec(None, None, name, None, None, None)
+
+
+def dist_part_a(op, b, device="cuda", iters=DIST_ITERS_A):
+    """Part (a): world size 1 on NCCL (gloo where ``device`` is the CPU,
+    for a rehearsal), a 1-rank mesh on X over the main operator: the
+    normal-equation CG through ``solvers.cg`` on DTensors whose operator
+    is ``apply_stencil_soa_sharded`` (K1), against the same CG on plain
+    tensors (to 1e-5 relative: the DTensor inner products sum in their
+    own order); the solution saved with ``save_sharded`` and
+    reloaded with ``load_sharded`` bit for bit; ``redistribute_auto`` to a
+    toroidally shifted (non-grid) partition and back, bit for bit.
+    Returns (K1 launches in the sharded solve, walls)."""
+    import torch.distributed as dist
+
+    from superbblas_tpu_torch import parallel as par, solvers
+
+    t_all = time.perf_counter()
+    par.initialize_distributed(device=device)
+    backend = dist.get_backend()
+    mesh = par.make_mesh({"X": 1}, device)
+    sh = par.NamedSharding(mesh, dist_spec())
+    op_h = adjoint_operator(op)
+    op_s = op.replace(blocks=par.reshard(op.blocks, sh))
+    oph_s = op_h.replace(blocks=par.reshard(op_h.blocks, sh))
+    b_s = par.reshard(b, sh)
+    axes = {"x": "X"}
+
+    def A(v):
+        return par.apply_stencil_soa_sharded(
+            oph_s, par.apply_stencil_soa_sharded(op_s, v, mesh, axes), mesh, axes)
+
+    walls, hist = {}, []
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    rhs = par.apply_stencil_soa_sharded(oph_s, b_s, mesh, axes)
+    x, rs, it = solvers.cg(A, rhs, tol=0.0, maxiter=iters, callback=hist.append)
+    sync(device)
+    walls["solve"] = time.perf_counter() - t0
+    launches = read_counts()["stencil_matvec_soa"]
+    hist = [float(v) for v in hist]
+    # the same CG on plain tensors
+    hist_p = []
+    rhs_p = bsr.apply_stencil_soa(op_h, b)
+    xp, rsp, _ = solvers.cg(lambda v: bsr.apply_stencil_soa(op_h, bsr.apply_stencil_soa(op, v)),
+                            rhs_p, tol=0.0, maxiter=iters, callback=hist_p.append)
+    hist_p = [float(v) for v in hist_p]
+    xl = cplx.cmap(lambda a: a.to_local(), x)
+    same = torch.equal(xl.re, xp.re) and torch.equal(xl.im, xp.im)
+    rel = max(float((a - c).abs().max()) for a, c in zip(xl, xp)) / float(xp.re.abs().max())
+    hist_rel = max(abs(a - c) / abs(c) for a, c in zip(hist, hist_p))
+    print(f"dist (a) {backend} world {dist.get_world_size()}, mesh X=1, {MAIN_LAT} x "
+          f"{b.re.shape[0]}: sharded CG {iters} iterations {walls['solve']:.3f} s, K1 launches "
+          f"{launches} (expected {2 * iters + 1}); against the CG on plain tensors: bit for "
+          f"bit {same}, max rel diff {rel:.3e}, residual history max rel diff {hist_rel:.3e}; "
+          f"|r|^2 {hist[0]:.4e} -> {hist[-1]:.4e}", flush=True)
+    # a DTensor's reductions sum in their own order: equal to 1e-5, not bit for bit
+    if launches != 2 * iters + 1 or rel > 1e-5 or hist_rel > 1e-5:
+        raise AssertionError("dist (a): the sharded solve differs from the plain one")
+    del xp, rhs_p, rhs, op_s, oph_s
+    # checkpoint: one block, reloaded bit for bit
+    tmp = tempfile.mkdtemp(prefix="sbt_dist_")
+    try:
+        path = os.path.join(tmp, "psi.s3t")
+        nbytes = x.re.numel() * 8
+        sync(device)
+        t0 = time.perf_counter()
+        sto = storage.create_storage_sharded(path, DIST_ORDER, tuple(x.re.shape),
+                                             dtype=np.complex64, checksum=2)
+        storage.save_sharded(sto, x, DIST_ORDER)
+        storage.close_storage_sharded(sto)
+        walls["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sto = storage.open_storage(path, mode="r")
+        back = storage.load_sharded(sto, sh)
+        sync(device)
+        walls["load"] = time.perf_counter() - t0
+        storage.close_storage(sto)
+        exact = all(torch.equal(a.to_local(), c.to_local()) for a, c in zip(back, x))
+        print(f"dist (a) checkpoint {tuple(x.re.shape)} complex64 {nbytes / 1e9:.3f} GB, one "
+              f"block: save_sharded {walls['save']:.3f} s ({nbytes / walls['save'] / 1e9:.3f} "
+              f"GB/s), load_sharded {walls['load']:.3f} s ({nbytes / walls['load'] / 1e9:.3f} "
+              f"GB/s), bit for bit {exact}", flush=True)
+        if not exact:
+            raise AssertionError("dist (a): the checkpoint did not reload bit for bit")
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # redistribute_auto: to a shifted (non-grid) partition on the plan path, and back
+    dim = tuple(x.re.shape)
+    src = par.sharding_partition(x.re, dim)
+    shifted = par.Partition(dim=dim, boxes=(((0, 0, 5, 0, 0, 0), dim),))
+    sync(device)
+    t0 = time.perf_counter()
+    y = par.redistribute_auto(x, src, shifted, order=DIST_ORDER)
+    sync(device)
+    walls["redist_to"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    z = par.redistribute_auto(y, shifted, src, order=DIST_ORDER)
+    sync(device)
+    walls["redist_back"] = time.perf_counter() - t0
+    loc = lambda a: a.to_local() if hasattr(a, "to_local") else a  # noqa: E731
+    exact = all(torch.equal(loc(a), loc(c)) for a, c in zip(z, x)) and all(
+        torch.equal(loc(a), loc(c)) for a, c in zip(y, x))
+    nbytes = 2 * x.re.numel() * x.re.element_size()
+    print(f"dist (a) redistribute_auto to the X-shifted partition (the plan: pack, exchange, "
+          f"unpack) {walls['redist_to']:.3f} s ({nbytes / walls['redist_to'] / 1e9:.3f} GB/s "
+          f"of field), back (the plan; one rank's whole box is 'on master') "
+          f"{walls['redist_back']:.3f} s; bit for bit {exact}", flush=True)
+    if not exact:
+        raise AssertionError("dist (a): the redistribution is not exact")
+    walls["all"] = time.perf_counter() - t_all
+    del x, y, z
+    par.mesh._DEVICE_MESHES.clear()
+    dist.destroy_process_group()
+    return launches, walls
+
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def free(device):
+    """Return this rank's cached blocks: part (b)'s four processes share
+    one card."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def progress(rank, msg):
+    if rank == 0:
+        print(f"dist (b) rank 0: {msg}", flush=True)
+
+
+def dist_planes(seed, planes, rest, device, make):
+    """Per-X-plane values from per-plane seeds (so every rank builds the
+    planes it holds and rank 0 the whole lattice, identically):
+    ``make(gen, rest)`` gives one plane."""
+    out = []
+    for g in planes:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed * 1_000_003 + int(g))
+        out.append(make(gen, rest))
+    return torch.stack(out, dim=0)
+
+
+def dist_links(planes, device):
+    """Unitary links U[mu, X, *rest, 3, 3] (Gram-Schmidt of Gaussian
+    columns, on the card), complex128, from per-plane seeds."""
+    def make(gen, rest):
+        shape = (4,) + tuple(rest) + (3, 3)
+        a = torch.complex(torch.randn(shape, generator=gen, device=device, dtype=torch.float64),
+                          torch.randn(shape, generator=gen, device=device, dtype=torch.float64))
+        c0 = a[..., 0]
+        c0 = c0 / torch.linalg.vector_norm(c0, dim=-1, keepdim=True)
+        c1 = a[..., 1] - (c0.conj() * a[..., 1]).sum(-1, keepdim=True) * c0
+        c1 = c1 / torch.linalg.vector_norm(c1, dim=-1, keepdim=True)
+        c2 = torch.linalg.cross(c0.conj(), c1.conj())
+        return torch.stack([c0, c1, c2], dim=-1)
+    return dist_planes(11, planes, DIST_REST, device, make).movedim(0, 1)
+
+
+def dist_field(planes, cols, device, seed=13):
+    """A field [cols, 12, X, *rest] (f32 split complex) from per-plane seeds."""
+    def make(gen, rest):
+        shape = (2, cols, 12) + tuple(rest)
+        return torch.randn(shape, generator=gen, device=device)
+    v = dist_planes(seed, planes, DIST_REST, device, make)      # [X, 2, cols, 12, *rest]
+    v = v.movedim(0, 3)
+    return CArray(v[0].contiguous(), v[1].contiguous())
+
+
+def dist_scatter(full, rank, world, xl, like, device):
+    """Rank 0's ``full`` [*lead, X, *rest] cut into X slabs and sent, one to
+    each rank, with one ``all_to_all_single``; returns this rank's slab."""
+    import torch.distributed as dist
+
+    shape = list(like.shape)
+    n = like.numel()
+    send = (torch.cat([full.narrow(2, r * xl, xl).contiguous().reshape(-1)
+                       for r in range(world)]) if rank == 0
+            else torch.zeros(0, dtype=like.dtype, device=device))
+    recv = torch.empty(n, dtype=like.dtype, device=device)
+    dist.all_to_all_single(recv, send, [n if i == 0 else 0 for i in range(world)],
+                           [n if rank == 0 else 0 for _ in range(world)])
+    return recv.reshape(shape)
+
+
+def dist_child(rank, world, port, out_path, device="cuda", xl=DIST_X_LOCAL,
+               cols=DIST_COLS, iters=DIST_ITERS_B, backend="gloo"):
+    """One rank of part (b): this rank's X slab of the Wilson lattice
+    (links and fields from per-plane seeds), CUDA tensors; gloo with every
+    rank on cuda:0, or (``backend="nccl"``, tools/dist_nccl.py) NCCL with
+    rank r on cuda:r.  Writes its results as JSON to ``out_path``."""
+    import torch.distributed as dist
+
+    from superbblas_tpu_torch import parallel as par, solvers
+    from superbblas_tpu_torch.parallel import halo as par_halo
+
+    nccl = backend == "nccl"
+    if device == "cuda":
+        torch.cuda.set_device(rank if nccl else 0)
+    par.initialize_distributed(f"localhost:{port}", world, rank,
+                               device="cuda" if nccl else "cpu")     # NCCL or gloo
+    mesh = par.make_mesh({"X": world}, device)
+    res, t_all = {"rank": rank}, time.perf_counter()
+    X = xl * world
+    lat = (X,) + DIST_REST
+    shape = (cols, 12) + lat
+    x0 = rank * xl
+    axes = {"x": "X"}
+
+    from torch.distributed.tensor import DTensor, Shard
+
+    from superbblas_tpu_torch.parallel._local import c_strides
+
+    def wrap(c, shp):
+        """this rank's X slab of an array sharded on X (axis 2)"""
+        return cplx.cmap(lambda a: DTensor.from_local(
+            a.contiguous(), mesh, [Shard(2)], run_check=False, shape=shp,
+            stride=c_strides(shp)), c)
+
+    # this rank's operator: built on its slab and one plane a side, cropped
+    t0 = time.perf_counter()
+    planes = [(x0 + i) % X for i in range(-1, xl + 1)]
+    op_e = wilson_operator((xl + 2,) + DIST_REST, mass=MASS, links=dist_links(planes, device),
+                           layout="soa", device=device)
+    oph_e = adjoint_operator(op_e)
+    crop = lambda c: cplx.cmap(lambda a: a[:, :, 1:xl + 1].contiguous(), c)  # noqa: E731
+    bshape = (9, 9) + lat
+    op_s = op_e.replace(blocks=wrap(crop(op_e.blocks), bshape), dim=lat)
+    oph_s = oph_e.replace(blocks=wrap(crop(oph_e.blocks), bshape), dim=lat)
+    del op_e, oph_e
+    b_l = dist_field(range(x0, x0 + xl), cols, device)
+    b_s = wrap(b_l, shape)
+    sync(device)
+    res["setup_s"] = time.perf_counter() - t0
+
+    # 1. the sharded apply against the unsharded apply on the whole lattice
+    reset_counts()
+    y = par.apply_stencil_soa_sharded(op_s, b_s, mesh, axes)
+    sync(device)
+    res["k1_apply"] = read_counts()["stencil_matvec_soa"]
+    if rank == 0:
+        op_g = wilson_operator(lat, mass=MASS, links=dist_links(range(X), device),
+                               layout="soa", device=device)
+        yg = bsr.apply_stencil_soa(op_g, dist_field(range(X), cols, device))
+        del op_g
+        free(device)
+    else:
+        yg = CArray(None, None)
+    want = CArray(*(dist_scatter(g, rank, world, xl, y.re.to_local(), device) for g in yg))
+    del yg
+    yl = cplx.cmap(lambda a: a.to_local(), y)
+    res["apply_bits"] = all(torch.equal(a, c) for a, c in zip(yl, want))
+    res["apply_rel"] = max(float((a - c).abs().max()) for a, c in zip(yl, want)) / max(
+        float(want.re.abs().max()), 1e-30)
+    del want, yl
+    free(device)
+    # the halo exchange alone against the whole apply (one apply = one
+    # exchange of the blocks' and the field's edge planes on X)
+    ax = {2: "X"}
+    w = {2: 1}
+    exch, app = [], []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        par_halo.extend_local([op_s.blocks.re.to_local(), b_l], ax, w, mesh)
+        sync(device)
+        exch.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        par.apply_stencil_soa_sharded(op_s, b_s, mesh, axes)
+        sync(device)
+        app.append(time.perf_counter() - t0)
+    plane = (op_s.blocks.re.to_local()[:, :, :1].numel() * 2 + b_l.re[:, :, :1].numel() * 2) * 4
+    res["halo_bytes_per_apply"] = 2 * plane
+    res["exchange_ms"] = 1e3 * statistics.median(exch)
+    res["apply_ms"] = 1e3 * statistics.median(app)
+
+    # 2. CA powers: power=2 after one exchange against two applies
+    y2 = par.apply_stencil_soa_sharded(op_s, b_s, mesh, axes, power=2)
+    yy = par.apply_stencil_soa_sharded(op_s, y, mesh, axes)
+    res["power2_rel"] = max(float((a.to_local() - c.to_local()).abs().max())
+                            for a, c in zip(y2, yy)) / float(yy.re.to_local().abs().max())
+    del y, y2, yy
+    free(device)
+
+    # 3. the sharded CG on the normal equations
+    def A(v):
+        return par.apply_stencil_soa_sharded(
+            oph_s, par.apply_stencil_soa_sharded(op_s, v, mesh, axes), mesh, axes)
+
+    hist = []
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    rhs = par.apply_stencil_soa_sharded(oph_s, b_s, mesh, axes)
+    psi, rs, it = solvers.cg(A, rhs, tol=0.0, maxiter=iters, callback=hist.append)
+    sync(device)
+    res["cg_s"] = time.perf_counter() - t0
+    res["k1_cg"] = read_counts()["stencil_matvec_soa"]
+    res["cg_hist"] = [float(v) for v in hist]
+    del rhs, op_s, oph_s, b_s, b_l
+    free(device)
+    progress(rank, f"sharded CG {res['cg_s']:.2f} s, K1 {res['k1_cg']}")
+
+    # 4. the checkpoint: 4 blocks, reloaded onto a mesh on Y and whole on rank 0
+    path = os.path.join(os.path.dirname(out_path), "dist_psi.s3t")   # the ranks' shared dir
+    sync(device)
+    t0 = time.perf_counter()
+    sto = storage.create_storage_sharded(path, DIST_ORDER, shape, dtype=np.complex64,
+                                         checksum=2)
+    storage.save_sharded(sto, psi, DIST_ORDER)
+    storage.close_storage_sharded(sto)
+    res["save_s"] = time.perf_counter() - t0
+    res["file_blocks"] = len(storage.open_storage(path, mode="r").blocks)
+    mesh_y = par.make_mesh({"Y": world}, device)
+    sh_y = par.NamedSharding(mesh_y, dist_spec("Y"))
+    t0 = time.perf_counter()
+    sto = storage.open_storage(path, mode="r")
+    back_y = storage.load_sharded(sto, sh_y)
+    back_x = storage.load_sharded(sto, par.NamedSharding(mesh, dist_spec()))
+    sync(device)
+    res["load_s"] = time.perf_counter() - t0
+    res["reload_x_bits"] = all(torch.equal(a.to_local(), c.to_local())
+                               for a, c in zip(back_x, psi))
+    # psi moved to Y by the plan, against the file's Y shard
+    src = par.sharding_partition(psi.re, shape)
+    dst_y = par.sharding_partition(back_y.re, shape)
+    moved = par.redistribute_auto(psi, src, dst_y, order=DIST_ORDER)
+    res["reload_y_bits"] = all(torch.equal(a.to_local(), c.to_local())
+                               for a, c in zip(moved, back_y))
+    del moved, back_y, back_x
+    if rank == 0:
+        whole = storage.load(1.0, sto, CArray(torch.empty(shape, device=device),
+                                              torch.empty(shape, device=device)),
+                             DIST_ORDER)
+    else:
+        whole = CArray(None, None)
+    storage.close_storage(sto)
+    mine = CArray(*(dist_scatter(g, rank, world, xl, psi.re.to_local(), device)
+                    for g in whole))
+    del whole
+    res["load_whole_bits"] = all(torch.equal(a, c.to_local()) for a, c in zip(mine, psi))
+    del mine
+    free(device)
+    dist.barrier()
+    if rank == 0:
+        os.remove(path)
+    progress(rank, f"checkpoint save {res['save_s']:.2f} s load {res['load_s']:.2f} s")
+
+    # 5. redistribution of psi to an uneven partition and back, each
+    # method and packing, timed; then masked and dtype-converting
+    # redistributions of a small field against the host oracle
+    from superbblas_tpu_torch.parallel import redistribute as R
+
+    uneven = par.basic_partitioning(DIST_ORDER, shape, (1, 1, 3, 1, 1, 1), nprocs=world)
+    st = R.pack_global_device(psi, src)
+    nbytes = 2 * psi.re.numel() * 4
+    res["redist"] = {}
+    for method in ("ragged", "dense"):
+        for pack in ("boxes", "runs"):
+            os.environ["SBT_REDIST_PACK"] = pack
+            flags.clear_cache()
+            sync(device)
+            t0 = time.perf_counter()
+            un = R.redistribute_explicit(st, src, uneven, None, method=method)
+            sync(device)
+            t_to = time.perf_counter() - t0
+            again = R.redistribute_explicit(un, uneven, src, None, method=method)
+            ok = all(torch.equal(a.to_local(), c.to_local()) for a, c in zip(again, st))
+            res["redist"][f"{method}/{pack}"] = {"s": t_to, "GBps": nbytes / t_to / 1e9,
+                                                  "exact": ok}
+            del un, again
+            free(device)
+    os.environ.pop("SBT_REDIST_PACK", None)
+    flags.clear_cache()
+    del st
+    rng = np.random.default_rng(5)
+    dim = DIST_REDIST_DIM
+    g = rng.standard_normal(dim).astype(np.float32)
+    p_src = par.basic_partitioning(DIST_ORDER, dim, (1, 1, world, 1, 1, 1))
+    p_dst = par.basic_partitioning(DIST_ORDER, dim, (1, 1, 1, 3, 1, 1), nprocs=world)
+    stk = torch.from_numpy(R.pack_global(g, p_src)).to(device)
+    mask = rng.random(dim) < 0.6
+    variants = {"masked": dict(mask_src=mask, mask_dst=mask),
+                "f64": dict(out_dtype=torch.float64, alpha=2.0)}
+    res["redist_small"] = {}
+    for name, kw in variants.items():
+        out = R.redistribute_explicit(stk, p_src, p_dst, None, **kw)
+        want = R.pack_global(np.where(mask, g, 0) if name == "masked" else
+                             2.0 * g.astype(np.float64), p_dst)[rank]
+        got = out.to_local()[0].cpu().numpy()
+        res["redist_small"][name] = bool(np.array_equal(got, want)) and got.dtype == want.dtype
+    del stk, psi
+    free(device)
+    progress(rank, "redistributions " + ", ".join(
+        f"{k} {v['GBps']:.2f} GB/s" for k, v in res["redist"].items()))
+
+    # 6. the overlap on an AoS stencil without spin factors (K3) against CA powers
+    # at power 1 and the unsharded apply; the sharded gather (E1)
+    res.update(dist_child_aos(rank, world, mesh, device))
+    res["wall_s"] = time.perf_counter() - t_all
+    free(device)
+    # 7. rank 0 runs the unsharded CG on the whole lattice for the history
+    dist.barrier()
+    if rank == 0:
+        op_g = wilson_operator(lat, mass=MASS, links=dist_links(range(X), device),
+                               layout="soa", device=device)
+        oph_g = adjoint_operator(op_g)
+        bg = dist_field(range(X), cols, device)
+        hist_g = []
+        rhs = bsr.apply_stencil_soa(oph_g, bg)
+        solvers.cg(lambda v: bsr.apply_stencil_soa(oph_g, bsr.apply_stencil_soa(op_g, v)), rhs,
+                   tol=0.0, maxiter=iters, callback=hist_g.append)
+        res["cg_hist_unsharded"] = [float(v) for v in hist_g]
+        del op_g, oph_g, bg, rhs
+        free(device)
+    dist.barrier()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def dist_child_aos(rank, world, mesh, device):
+    """Part (b)'s K3 and E1 checks on small lattices: the core/halo
+    overlap of an AoS stencil without spin factors (3x3 blocks: its
+    batched product J = 27 runs on K3) against ``bsr_krylov_ca`` at power
+    1 and the unsharded ``bsr_krylov``; ``apply_gather_sharded`` on an
+    open-T Wilson-shaped operator with one more random coupling a row
+    within one X plane (mode "gather", 12x12 blocks, J = 120: E1) against
+    the unsharded apply.  Every rank builds the (small, replicated)
+    operators from the same seeds."""
+    from superbblas_tpu_torch import parallel as par
+
+    out = {}
+    lat = DIST_AOS_LAT
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    offs = WILSON_OFFSETS
+    vals = _randn_c(lat + (len(offs), 3, 3), gen, dtype=torch.float64)
+    op = bsr.bsr_from_stencil("xyzts", "xyzts", lat, {"s": 3}, {"s": 3}, offs, vals,
+                              device=device)
+    xg = _randn_c(lat + (3, 4), gen, dtype=torch.float64)
+    xs = cplx.cmap(lambda a: par.reshard(a, par.NamedSharding(
+        mesh, par.PartitionSpec("X", None, None, None, None, None))), xg)
+    want = bsr_krylov(1.0, op, xg, "xyztsn")
+    reset_counts()
+    ov = par.bsr_krylov_overlap(1.0, op, xs, "xyztsn", mesh, {"x": "X"})
+    ca = par.bsr_krylov_ca(1.0, op, xs, "xyztsn", mesh, {"x": "X"}, 1)
+    sync(device)
+    out["k3_overlap"] = read_counts()["batched_small_gemm"]
+    sl = slice(rank * lat[0] // world, (rank + 1) * lat[0] // world)
+    w = cplx.cmap(lambda a: a[sl], want)
+    out["overlap_rel"] = max(float((a.to_local() - c).abs().max()) for a, c in zip(ov, w)) / \
+        float(w.re.abs().max())
+    out["overlap_vs_ca_rel"] = max(
+        float((a.to_local() - c.to_local()[..., 0]).abs().max()) for a, c in zip(ov, ca)) / \
+        float(w.re.abs().max())
+    # the sharded gather
+    glat = DIST_GATHER_LAT
+    ii, jj = open_t_lists(glat)
+    rng = np.random.default_rng(3)
+    coords = _lattice_coords(glat)
+    extra = coords.copy()
+    extra[..., 0] = (coords[..., 0] + rng.integers(-1, 2, size=glat)) % glat[0]
+    for k in range(1, 4):
+        extra[..., k] = rng.integers(0, glat[k], size=glat)
+    nnz = jj.shape[-2] + 1
+    jj2 = np.concatenate([jj, coords[..., None, :]], axis=-2)    # a padded slot more
+    np.put_along_axis(jj2, ii[..., None, None], extra[..., None, :], axis=-2)
+    ii2 = ii + 1                          # the extra coupling follows the valid slots
+    colour = _randn_c(glat + (nnz, 12, 12), gen)
+    gop = create_bsr("xyzts", glat + (12,), "xyztc", glat + (12,), (1, 1, 1, 1, 12),
+                     (1, 1, 1, 1, 12), ii2, jj2, colour, device=device)
+    xg = _randn_c(glat + (12, 4), gen)
+    xs = cplx.cmap(lambda a: par.reshard(a, par.NamedSharding(
+        mesh, par.PartitionSpec("X", None, None, None, None, None))), xg)
+    want = bsr._apply_gather(gop, xg)
+    reset_counts()
+    gy = par.apply_gather_sharded(gop, xs, mesh, {"x": "X"})
+    sync(device)
+    out["e1_gather"] = read_counts()["batched_gemm_rowpack"]
+    out["gather_mode"] = gop.mode
+    sl = slice(rank * glat[0] // world, (rank + 1) * glat[0] // world)
+    w = cplx.cmap(lambda a: a[sl], want)
+    out["gather_rel"] = max(float((a.to_local() - c).abs().max()) for a, c in zip(gy, w)) / \
+        float(w.re.abs().max())
+    return out
+
+
+def dist_part_b(device="cuda"):
+    """Part (b): DIST_RANKS processes of this script on one card, gloo
+    with CUDA tensors on cuda:0 (NCCL refuses two ranks on one GPU:
+    "Duplicate GPU detected").  Returns the ranks' results and the wall."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    tmp = tempfile.mkdtemp(prefix="sbt_dist_b_")
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = []
+    try:
+        for r in range(DIST_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+                 "--dist-port", str(port), "--dist-out", os.path.join(tmp, f"rank{r}.json"),
+                 "--dist-device", device],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=DIST_TIMEOUT)
+            logs.append(out)
+        failed = [(r, p.returncode, out) for r, (p, out) in enumerate(zip(procs, logs))
+                  if p.returncode != 0]
+        if failed:
+            raise AssertionError("dist (b): ranks failed: " + "\n".join(
+                f"rank {r} exit {rc}:\n{out[-2500:]}" for r, rc, out in failed))
+        res = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+               for r in range(DIST_RANKS)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, time.perf_counter() - t0
+
+
+#: part (b)'s time limit (its ranks are killed past it)
+DIST_TIMEOUT = 600
+
+
+def dist_report_b(res, wall, backend="gloo"):
+    """Print part (b)'s checks and fail on any."""
+    r0 = res[0]
+    hist, hist_g = r0["cg_hist"], r0["cg_hist_unsharded"]
+    hist_rel = max(abs(a - c) / abs(c) for a, c in zip(hist, hist_g))
+    lat = (DIST_X_LOCAL * DIST_RANKS,) + DIST_REST
+    where = (f"NCCL, {DIST_RANKS} ranks on {DIST_RANKS} cards" if backend == "nccl" else
+             f"gloo, {DIST_RANKS} ranks on one card (CUDA tensors on cuda:0; times are gloo "
+             "on one card, not NCCL and not multi-GPU)")
+    print(f"dist (b) {where}, mesh X={DIST_RANKS}, "
+          f"lattice {lat} x {DIST_COLS} f32 (each rank 16x32x32x64 + one halo plane a side; "
+          f"reduced from 32 a rank), wall {wall:.1f} s", flush=True)
+    for r in res:
+        print(f"dist (b) rank {r['rank']}: sharded apply vs the unsharded port apply on the "
+              f"whole lattice: bit for bit {r['apply_bits']} (max rel {r['apply_rel']:.3e}); "
+              f"K1 launches: apply {r['k1_apply']}, CG {r['k1_cg']} (expected "
+              f"{2 * DIST_ITERS_B + 1}); halo {r['halo_bytes_per_apply'] / 1e6:.1f} MB an apply,"
+              f" exchange {r['exchange_ms']:.2f} ms against the apply {r['apply_ms']:.2f} ms; "
+              f"power 2 vs two applies max rel {r['power2_rel']:.3e}; CG {DIST_ITERS_B} its "
+              f"{r['cg_s']:.3f} s; checkpoint {r['file_blocks']} blocks save "
+              f"{r['save_s']:.3f} s load {r['load_s']:.3f} s, reload on X {r['reload_x_bits']}"
+              f", on Y {r['reload_y_bits']}, whole on rank 0 {r['load_whole_bits']}; "
+              f"overlap (K3 {r['k3_overlap']}) rel {r['overlap_rel']:.3e} vs CA power 1 "
+              f"{r['overlap_vs_ca_rel']:.3e}; gather (mode {r['gather_mode']}, E1 "
+              f"{r['e1_gather']}) rel {r['gather_rel']:.3e}; redistribution "
+              + ", ".join(f"{k} {v['GBps']:.3f} GB/s exact {v['exact']}"
+                          for k, v in r["redist"].items())
+              + f"; masked {r['redist_small']['masked']}, f32->f64 {r['redist_small']['f64']};"
+              f" rank wall {r['wall_s']:.1f} s", flush=True)
+    print(f"dist (b) CG residual history: sharded {hist[0]:.6e} .. {hist[-1]:.6e}, "
+          f"unsharded {hist_g[0]:.6e} .. {hist_g[-1]:.6e}, max rel diff {hist_rel:.3e} "
+          f"(<= 1e-5)", flush=True)
+    bad = [r["rank"] for r in res if not (
+        (r["apply_bits"] or r["apply_rel"] <= 1e-6) and r["k1_apply"] == 1
+        and r["k1_cg"] == 2 * DIST_ITERS_B + 1 and r["power2_rel"] <= 1e-6
+        and r["file_blocks"] == DIST_RANKS and r["reload_x_bits"] and r["reload_y_bits"]
+        and r["load_whole_bits"] and r["k3_overlap"] > 0 and r["overlap_rel"] <= 1e-12
+        and r["overlap_vs_ca_rel"] <= 1e-12 and r["gather_mode"] == "gather"
+        and r["e1_gather"] > 0 and r["gather_rel"] <= 1e-5
+        and all(v["exact"] for v in r["redist"].values())
+        and all(r["redist_small"].values()))]
+    if bad or hist_rel > 1e-5:
+        raise AssertionError(f"dist (b): checks failed on ranks {bad} (history {hist_rel:.3e})")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one warm solve, one warm even-odd solve, one "
                              "warm dense path, one warm coarse CG, one warm MG-FGCR solve "
                              "and one warm clover and Moebius CGNE with torch.profiler")
+    parser.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-out", help=argparse.SUPPRESS)
+    parser.add_argument("--dist-device", default="cuda", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.dist_rank is not None:      # one rank of the dist phase's part (b)
+        dist_child(args.dist_rank, DIST_RANKS, args.dist_port, args.dist_out,
+                   device=args.dist_device)
+        return
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; this smoke run "
@@ -2963,6 +3582,7 @@ def main():
     if launches == 0:
         raise AssertionError("the Wilson path launched no stencil kernel")
     utilities = tracker_aot_path(op, b, gen)
+    dist_a_launches, dist_a_walls = dist_part_a(op, b)
     s_launches, s_err, ms = schedule_path(op, b)
     eo_launches, eo_err, eo_ms, eo_bound, eo_psi = eo_path(op, b, args.profile)
     if eo_launches == 0:
@@ -2988,6 +3608,10 @@ def main():
     gather = gather_path(gen)
     e2 = e2_path(gen, rate)
     e3, e3_k2_ms, e3_call_ms, e3_bound = e3_path(gen)
+    torch.cuda.empty_cache()
+    dist_b, dist_b_wall = dist_part_b()
+    dist_report_b(dist_b, dist_b_wall)
+    print(f"dist walls: (a) {dist_a_walls['all']:.1f} s, (b) {dist_b_wall:.1f} s", flush=True)
 
     print(f"walls: AoS packed eo solve {aos_eo['packed'][0]:.3f} s ({aos_eo['packed'][1]:.2f} "
           f"GiB), masked eo solve {MASKED_EO_LAT} {aos_eo['masked'][0]:.3f} s "
@@ -3019,7 +3643,9 @@ def main():
         "name": "stencil_matvec_soa", **stencil, **tiled_src,
         "launches": launches, "max_abs_err": err, "ms": ms["k1"], "plain_ms": ms["plain"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "bound_ref_ms": k1_bound[2],
-        "plan_builds": PLANS_BUILT["main"]}] + [{
+        "plan_builds": PLANS_BUILT["main"],
+        "launches_dist": {"a_nccl_1_rank": dist_a_launches,
+                          "b_gloo_per_rank": [r["k1_cg"] for r in dist_b]}}] + [{
         "name": f"stencil_matvec_soa[{pair}]", **stencil, **tiled_src,
         "launches": n_launch, "max_abs_err": e, "ms": t["kernel"], "plain_ms": t["plain"],
         "bound_ms": bd_[0], "bound_by": bd_[1], "bound_ref_ms": bd_[2]}
@@ -3066,13 +3692,16 @@ def main():
         "launches": launches, "max_abs_err": err, "ms": times["kernel"],
         "plain_ms": times["plain"], "bound_ms": bd[0], "bound_by": bd[1],
         "library_ms": times["bmm"], "device_ms": times["kernel_device"],
-        "plain_device_ms": times["plain_device"], "library_device_ms": times["bmm_device"]}
-        for fn, replaces, launches, err, (times, bd) in (
+        "plain_device_ms": times["plain_device"], "library_device_ms": times["bmm_device"],
+        "launches_dist_b_gloo_per_rank": dist_l}
+        for fn, replaces, dist_l, launches, err, (times, bd) in (
             (batched_small_gemm, "superbblas_tpu/ops/batched_gemm_pallas.py:99",
+             [r["k3_overlap"] for r in dist_b],
              vc_launches["batched_small_gemm"] + aos_launches["k3"] + stag_eo[0]
              + gather["c"][0]["k3"],
              max(gemm_err["k3"], vc_err["k3"], aos_err), gemm_ms["k3", K3_TIME_SHAPE]),
             (batched_gemm_rowpack, "experiments/bgemm_rowpack_probe.py:32",
+             [r["e1_gather"] for r in dist_b],
              c_launches + vc_launches["batched_gemm_rowpack"] + aos_launches["e1"]
              + dc_launches + gather["a"][0]["e1"] + gather["b"][0]["e1"],
              max(gemm_err["e1"], c_err, vc_err["e1"], aos_err, dc_err),

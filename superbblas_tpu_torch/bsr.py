@@ -40,6 +40,7 @@ from torch import nn
 from . import cplx
 from .cplx import CArray
 from .labels import Coor, check_order, volume
+from .ops._guard import refuse_dtensor
 from .ops.batched_gemm import batched_small_gemm
 from .ops.copy import _is_static, local_permute
 from .ops.stencil import aos_to_soa, soa_eligible, soa_to_aos, stencil_matvec_soa
@@ -668,6 +669,9 @@ def bsr_krylov(alpha, op: BSROperator, x, ox: str, beta=0.0, y=None,
     result).  An SoA operator takes fields in its preferred order
     (:func:`bsr_get_preferred_layout`) by reshape alone; any other order
     pays one permutation a side."""
+    refuse_dtensor("bsr_krylov", "parallel.bsr_krylov_overlap, parallel.bsr_krylov_ca or "
+                   "parallel.apply_stencil_soa_sharded", op.blocks_re,
+                   tuple(x) if cplx.is_carray(x) else x)
     check_order(ox)
     user_complex = not cplx.is_carray(x) and x.is_complex()
     if user_complex:

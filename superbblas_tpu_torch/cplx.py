@@ -13,6 +13,7 @@ Contractions use the 3-multiplication Gauss/Karatsuba decomposition
 from __future__ import annotations
 
 import contextlib
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -235,10 +236,25 @@ def cmatmul(a, b, preferred_element_type=None):
     return cdot_general(a, b, dims, preferred_element_type)
 
 
+def reduced(t):
+    """A reduction made whole: a DTensor holding per-rank partial sums
+    (``Partial`` placements, as ``torch.sum`` of a sharded DTensor gives)
+    is all-reduced to ``Replicate``, so that a scalar read (``float``,
+    ``.item()``) sees the global value and not this rank's part.  Any
+    other tensor is returned as it is."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None or not isinstance(t, mod.DTensor):
+        return t
+    if any(isinstance(p, mod.Partial) for p in t.placements):
+        return t.redistribute(t.device_mesh, [mod.Replicate()] * len(t.placements))
+    return t
+
+
 def inner_real(a, b):
     """Re <a, b> = sum(a.re*b.re + a.im*b.im) (works for plain tensors too),
-    as a 0-dim tensor on the operands' device."""
+    as a 0-dim tensor on the operands' device (all-reduced for sharded
+    DTensor operands)."""
     if isinstance(a, CArray) or isinstance(b, CArray):
         a, b = _as_carray(a), _as_carray(b)
-        return torch.sum(a.re * b.re) + torch.sum(a.im * b.im)
-    return torch.sum(a * b)
+        return reduced(torch.sum(a.re * b.re) + torch.sum(a.im * b.im))
+    return reduced(torch.sum(a * b))

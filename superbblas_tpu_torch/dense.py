@@ -10,7 +10,12 @@ reorders data so each matrix is rank-local and calls LAPACK/cusolver
 batched kernels (dense.h:504-569); here ``torch.linalg`` (LAPACK on the
 CPU, cuSOLVER/cuBLAS batched on the card) runs on the operands' device,
 as the JAX package runs its own linalg, outside any kernel of its own.
-Sharded operands come with the distributed layer.
+
+Sharded operands (DTensors, or CArrays of them): batch labels may be
+sharded and matrix labels not (superbblas_tpu/dense.py states this
+contract).  The ops run on each rank's local shards and return a DTensor
+with the batch labels sharded as the operands had them; a sharded matrix
+label, or two operands sharding one label differently, raises.
 
 Split-complex support: the interleaved real embedding
 
@@ -34,6 +39,43 @@ from .ops.copy import _is_static, local_permute
 from .utils.tracker import tracked as _tracked
 
 __all__ = ["cholesky", "trsm", "gesm", "inversion"]
+
+
+def _dtensor(t):
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    a = t.re if cplx.is_carray(t) else t
+    return mod is not None and isinstance(a, mod.DTensor)
+
+
+def _on_shards(call, operands, matrix: str, out_order: str):
+    """Run ``call`` on the local shards of ``operands`` ((value, labels)
+    pairs) and wrap its result (labels ``out_order``) as a DTensor whose
+    batch labels are sharded as the operands shard them."""
+    from .parallel._local import label_axes, local, wrap_labels
+
+    axes, mesh, dims = {}, None, {}
+    for v, o in operands:
+        a = v.re if cplx.is_carray(v) else v
+        dims.update({c: int(d) for c, d in zip(o, a.shape)})
+        if not _dtensor(v):
+            continue
+        mesh = a.device_mesh if mesh is None else mesh
+        for c, nm in label_axes(v, o).items():
+            if c in matrix:
+                raise ValueError(f"matrix label {c!r} is sharded over mesh axis {nm!r}: "
+                                 "dense ops take sharded batch labels only")
+            if axes.setdefault(c, nm) != nm:
+                raise ValueError(f"label {c!r} is sharded over {axes[c]!r} and {nm!r}")
+    for v, o in operands:
+        if _dtensor(v):
+            have = label_axes(v, o)
+            miss = [c for c, nm in axes.items() if c in o and have.get(c) != nm]
+            if miss:
+                raise ValueError(f"labels {miss} are sharded on one operand only")
+    out = call(*[local(v) for v, _ in operands])
+    return wrap_labels(out, mesh, out_order, axes, tuple(dims[c] for c in out_order))
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +156,9 @@ def cholesky(v, o: str, orows: str, ocols: str):
     factor U with A = U^H U (the reference documents returning the upper
     triangular matrix).
     """
+    if _dtensor(v):
+        return _on_shards(lambda lv: cholesky(lv, o, orows, ocols), [(v, o)],
+                          orows + ocols, o)
     mat, restore = _matrix_view(v, o, orows, ocols)
     if cplx.is_carray(mat):
         l2 = torch.linalg.cholesky(embed_real(mat))
@@ -135,6 +180,9 @@ def trsm(alpha, c, oc: str, orows: str, ocols: str, x, ox: str, oy: str):
 
     i.e. y = alpha * C^{-1} x contracted by label.
     """
+    if _dtensor(c) or _dtensor(x):
+        return _on_shards(lambda lc, lx: trsm(alpha, lc, oc, orows, ocols, lx, ox, oy),
+                          [(c, oc), (x, ox)], orows + ocols, oy)
     cm, _ = _matrix_view(c, oc, orows, ocols)
     # x: batch labels of c that appear in ox stay batch; the row labels are
     # contracted; remaining x labels are the rhs columns.
@@ -179,6 +227,9 @@ def trsm(alpha, c, oc: str, orows: str, ocols: str, x, ox: str, oy: str):
 def gesm(alpha, a, oa: str, orows: str, ocols: str, x, ox: str, oy: str):
     """Batched general solve (public gesm, dense.h:1099): y with
     A[rows, cols] y[cols, ...] = alpha x[rows, ...] via LU."""
+    if _dtensor(a) or _dtensor(x):
+        return _on_shards(lambda la, lx: gesm(alpha, la, oa, orows, ocols, lx, ox, oy),
+                          [(a, oa), (x, ox)], orows + ocols, oy)
     am, _ = _matrix_view(a, oa, orows, ocols)
     batch = "".join(ch for ch in oa if ch not in orows and ch not in ocols)
     xcols = "".join(ch for ch in ox if ch not in orows and ch not in batch)
@@ -218,6 +269,9 @@ def gesm(alpha, a, oa: str, orows: str, ocols: str, x, ox: str, oy: str):
 @_tracked("inversion")
 def inversion(v, o: str, orows: str, ocols: str):
     """Batched matrix inversion (public inversion, dense.h:1134)."""
+    if _dtensor(v):
+        return _on_shards(lambda lv: inversion(lv, o, orows, ocols), [(v, o)],
+                          orows + ocols, o)
     mat, restore = _matrix_view(v, o, orows, ocols)
     if cplx.is_carray(mat):
         inv2 = torch.linalg.inv(embed_real(mat))

@@ -6,9 +6,22 @@ The ``SBT_*`` variables this package reads, read lazily once
 errors:
 
   * ``SBT_LOG``   (int, default 0): >0 prints operation-level logging.
+  * ``SBT_DEBUG`` (int, default 0): 0 none; >=1 cross-process consistency
+    checks of the collective storage protocol; >=2 mock-index
+    verification of every distributed copy and redistribution
+    (utils/testing.py, ``parallel.redistribute._debug_replay``).
   * ``SBT_TRACK_TIME`` (0/1): enable the tracker (utils/tracker.py).
+  * ``SBT_REDIST_METHOD`` ("auto"|"ragged"|"dense", default "auto"): the
+    explicit redistribution's exchange: "ragged" = ``all_to_all_single``
+    with the plan's true per-peer counts, "dense" = every pair padded to
+    the plan's largest pair count, equal splits; "auto" = ragged.
+  * ``SBT_REDIST_PACK`` ("auto"|"boxes"|"runs", default "auto"): the
+    explicit redistribution's packing: "boxes" = seam-split box slices,
+    "runs" = blocked-run gather/scatter index plans; "auto" picks by
+    piece count.
   * ``SBT_CACHEGB`` (float, default 1.0): byte budget in GiB of the
-    library's caches, reported against the allocator's reserved bytes by
+    library's caches (the redistribution plans are evicted past it),
+    reported against the allocator's reserved bytes by
     ``utils.caches.report_cache_usage``.
   * ``SBT_MATMUL_PRECISION`` ("highest"|"high"|"default", default
     "highest"): how ``cplx.cdot_general`` (and so every contraction)
@@ -41,6 +54,10 @@ def get_log_level() -> int:
     return _env_int("SBT_LOG", 0)
 
 
+def get_debug_level() -> int:
+    return _env_int("SBT_DEBUG", 0)
+
+
 def get_track_time() -> bool:
     return bool(_env_int("SBT_TRACK_TIME", 0))
 
@@ -66,6 +83,26 @@ def _env_float(name: str, default: float) -> float:
 def get_cache_gb() -> float:
     """Cache byte budget in GiB (SB_CACHEGB analog, cache.h:238-265)."""
     return _env_float("SBT_CACHEGB", 1.0)
+
+
+def get_redist_method() -> str:
+    """Explicit-redistribution exchange (SB_USE_ALLTOALL analog,
+    runtime_features.h:101-125)."""
+    v = _env_str("SBT_REDIST_METHOD", "auto").lower()
+    if v not in ("auto", "ragged", "dense"):
+        raise ValueError(
+            f"SBT_REDIST_METHOD must be auto|ragged|dense, got {v!r}")
+    return v
+
+
+def get_redist_pack() -> str:
+    """Explicit-redistribution packing (the pack/copy_n_blocking layer
+    choice of the reference, dist.h:798-1010)."""
+    v = _env_str("SBT_REDIST_PACK", "auto").lower()
+    if v not in ("auto", "boxes", "runs"):
+        raise ValueError(
+            f"SBT_REDIST_PACK must be auto|boxes|runs, got {v!r}")
+    return v
 
 
 def get_matmul_precision() -> str:

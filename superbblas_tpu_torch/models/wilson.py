@@ -70,10 +70,13 @@ def random_su3_links(rng: np.random.Generator, lat_dims) -> np.ndarray:
 
 
 def links_tensor(links, device) -> torch.Tensor:
-    """numpy links [nd, *lat, 3, 3] as a complex128 tensor on ``device``:
+    """numpy links [nd, *lat, 3, 3] (or a tensor of them) as a complex128
+    tensor on ``device``:
     the operators' blocks are formed there, with the JAX package's exact
     operations (copies, rolls, conjugates, multiples by +-1/2), so they
     equal its host numpy blocks bit for bit."""
+    if isinstance(links, torch.Tensor):
+        return links.to(device=device, dtype=torch.complex128)
     return torch.as_tensor(np.asarray(links), dtype=torch.complex128, device=device)
 
 

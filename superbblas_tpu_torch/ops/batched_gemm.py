@@ -41,6 +41,7 @@ import torch
 
 from .. import cplx
 from . import _cuda
+from ._guard import refuse_dtensor
 
 __all__ = ["batched_small_gemm", "batched_gemm_rowpack", "batched_small_gemm_reference",
            "batched_gemm_route", "small_tile", "rowpack_tile", "CONFIGS"]
@@ -212,10 +213,16 @@ def _rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+#: the distributed functions that run these kernels on local shards
+_SHARDED = ("parallel.apply_gather_sharded, parallel.bsr_krylov_overlap or "
+            "parallel.bsr_krylov_ca")
+
+
 def batched_gemm_rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y[v] = b[v] @ x[v] through E1 for any shape.  CPU tensors run the
     plain version; CUDA tensors run the kernel
     (``batched_gemm_rowpack.launches`` counts its launches) or raise."""
+    refuse_dtensor("batched_gemm_rowpack", _SHARDED, b, x)
     _check(b, x, "batched_gemm_rowpack")
     if _on_cpu(b, "batched_gemm_rowpack"):
         return batched_small_gemm_reference(b, x)
@@ -235,6 +242,7 @@ def batched_small_gemm(b: torch.Tensor, x: torch.Tensor, interpret: bool = False
     :func:`batched_gemm_rowpack`'s), or raise.  ``interpret`` and
     ``force_pallas`` (the JAX package's switches to its Pallas kernel) are
     accepted and unused: the card always runs its kernels."""
+    refuse_dtensor("batched_small_gemm", _SHARDED, b, x)
     route = _check(b, x, "batched_small_gemm")
     if _on_cpu(b, "batched_small_gemm"):
         return batched_small_gemm_reference(b, x)

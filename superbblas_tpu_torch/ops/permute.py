@@ -30,6 +30,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ._guard import refuse_dtensor
+
 __all__ = ["permute_eligible", "permute_route", "permute_4d", "permute_4d_reference",
            "maybe_permute", "permute_4d_tiled", "sweep_takes", "sweep_items", "TILES"]
 
@@ -101,6 +103,7 @@ def permute_4d(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     (``permute_4d.launches`` counts its launches, ``.by_route`` them by
     ``permute_route``'s name), reading ``x`` through its strides, or raises
     when the kernel does not take the case."""
+    refuse_dtensor("permute_4d", "parallel.copy (or local_permute on the local shard)", x)
     perm = tuple(int(p) for p in perm)
     if x.device.type == "cpu":
         return permute_4d_reference(x, perm)
@@ -137,6 +140,7 @@ def _(x, perm):
 def maybe_permute(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     """The transposed copy: the kernel for an eligible CUDA tensor, else
     ``x.permute(perm).contiguous()``."""
+    refuse_dtensor("maybe_permute", "parallel.copy (or local_permute on the local shard)", x)
     perm = tuple(int(p) for p in perm)
     if x.device.type == "cuda" and permute_eligible(tuple(x.shape), perm, x.dtype):
         return permute_4d(x, perm)
@@ -179,6 +183,8 @@ def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int], tile: Tuple) -> torch
     tensor runs the plain version.  A CUDA tensor runs the kernel
     (``permute_4d_tiled.launches`` counts its launches) or raises
     ValueError where it does not take the case (``sweep_takes``)."""
+    refuse_dtensor("permute_4d_tiled", "parallel.copy (or local_permute on the local shard)",
+                   x)
     perm, tile = tuple(int(p) for p in perm), tuple(tile)
     if tile not in TILES:
         raise ValueError(f"permute_4d_tiled: design point {tile} is not one of {TILES}")

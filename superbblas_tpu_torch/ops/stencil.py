@@ -56,6 +56,7 @@ import torch
 
 from .. import cplx
 from ..cplx import CArray
+from ._guard import refuse_dtensor
 
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
            "stencil_matvec_soa_xin", "stencil_matvec_soa_stream", "schedule_attrs",
@@ -838,6 +839,8 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     ``.by_shape`` them by shape, ``.by_route`` by ``k1_route``'s name),
     :func:`stencil_matvec_soa_rt` at the other shapes; a case none takes
     raises.  Above MAX_BLOCK it raises ValueError on every device."""
+    refuse_dtensor("stencil_matvec_soa", "parallel.apply_stencil_soa_sharded",
+                   tuple(blocks), tuple(x))
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     check_block(KI, KD, bi, bd)
     if chunks is not None:
@@ -921,6 +924,8 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
     routes' at (1, 1, 12, 12) and the tiled route's where no direction of
     its spin plan factors.  CPU operands run the plain version; CUDA
     operands the kernel (``stencil_matvec_soa_rt.launches``) or raise."""
+    refuse_dtensor("stencil_matvec_soa_rt", "parallel.apply_stencil_soa_sharded",
+                   tuple(blocks), tuple(x))
     if _on_cpu(blocks, x, "stencil_matvec_soa_rt"):
         KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
         check_block(KI, KD, bi, bd)
@@ -971,6 +976,8 @@ def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
     CPU operands run the plain version; CUDA operands the kernel
     (``stencil_matvec_soa_xin.launches``) or raise.  ``interpret`` is
     accepted and unused."""
+    refuse_dtensor("stencil_matvec_soa_xin", "parallel.apply_stencil_soa_sharded",
+                   tuple(blocks), tuple(x))
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     n, X = x.shape[0], x.shape[2]
     elem = x.re.element_size()
@@ -996,6 +1003,8 @@ def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
     plain version; CUDA operands the kernel
     (``stencil_matvec_soa_stream.launches``) or raise.  ``interpret`` is
     accepted and unused."""
+    refuse_dtensor("stencil_matvec_soa_stream", "parallel.apply_stencil_soa_sharded",
+                   tuple(blocks), tuple(x))
     n = x.shape[0]
     if nc is not None and (nc < 1 or n % nc):
         raise ValueError(f"nc={nc} must divide the column count n={n}")

@@ -13,6 +13,11 @@ returned as Python ints.
 With ``cols=True`` the LAST axis of the operands holds independent
 right-hand sides: the inner products keep it, and the step sizes become
 per-column vectors that broadcast against it.
+
+The solvers are sharding-oblivious: on sharded ``DTensor`` operands the
+axpys propagate shard-locally, and each inner product is a partial sum
+plus one all-reduce (``cplx.reduced``), so the host reads of the
+convergence test see the global values.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ def _inner_c(a, b, cols: bool = False):
     else:
         re, im = a * b, torch.zeros_like(a)
     ax = tuple(range(re.ndim - 1)) if cols else tuple(range(re.ndim))
-    return torch.sum(re, dim=ax), torch.sum(im, dim=ax)
+    return cplx.reduced(torch.sum(re, dim=ax)), cplx.reduced(torch.sum(im, dim=ax))
 
 
 def _inner_r(a, b, cols: bool = False):
@@ -45,7 +50,8 @@ def _inner_r(a, b, cols: bool = False):
     axis (independent per-column inner products, (N,) vectors that
     broadcast against the trailing column axis of the fields)."""
     v = a.re * b.re + a.im * b.im if cplx.is_carray(a) else a * b
-    return torch.sum(v, dim=tuple(range(v.ndim - 1))) if cols else torch.sum(v)
+    return cplx.reduced(torch.sum(v, dim=tuple(range(v.ndim - 1))) if cols
+                        else torch.sum(v))
 
 
 def _axpy_c(alpha: Tuple, x, y):
@@ -81,13 +87,15 @@ def _above(ratio, tol: float) -> bool:
 
 
 def cg(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100,
-       cols: bool = False):
+       cols: bool = False, callback: Optional[Callable] = None):
     """Conjugate gradients for Hermitian positive-definite ``A``.
 
     Returns (x, |r|^2, iterations).  With ``cols=True`` the trailing axis
     of ``b`` holds independent right-hand sides solved simultaneously with
     per-column step sizes (one batched apply serves N solves); |r|^2 is
-    then (N,) and the loop runs until every column converges."""
+    then (N,) and the loop runs until every column converges.
+    ``callback(rs)``, where given, sees |r|^2 after every iteration (the
+    residual history; it reads nothing to the host itself)."""
     x = _zeros(b) if x0 is None else x0
     r = _axpy_c((-1.0, 0.0), A(x), b) if x0 is not None else b
     p = r
@@ -104,6 +112,8 @@ def cg(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100,
         p = _axpy_c((beta, 0.0 * beta), p, r)
         rs = rs_new
         k += 1
+        if callback is not None:
+            callback(rs)
     return x, rs, k
 
 

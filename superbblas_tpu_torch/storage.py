@@ -34,8 +34,17 @@ Tensors are staged through host numpy: ``save`` cuts the box and permutes
 it into the file's label order on the tensor's own device, then copies it
 to the host once; ``load`` assembles the file region on the host, copies
 it to the device of the ``x`` it was given and permutes it there, and
-returns a tensor (or a ``cplx.CArray``) on that device.  The sharded
-functions come with the distributed layer.
+returns a tensor (or a ``cplx.CArray``) on that device.
+
+The sharded functions (``create_storage_sharded``, ``save_sharded``,
+``save_sharded_async``, ``load_sharded``, ``close_storage_sharded``) run
+the MPI-IO collective protocol of the reference (storage.h:202-342) on
+``torch.distributed``: rank 0 writes the header and declares the blocks
+(one per rank's shard, in rank order, after an ``all_gather_object`` of
+the boxes), barriers publish them, every rank writes and reads only its
+own shard's bytes, and rank 0 writes the checksums at close.  At
+SBT_DEBUG>=1 every collective entry runs
+``utils.testing.check_collective_consistency``.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import cplx
+from . import cplx, flags
 from .labels import (
     check_order,
     find_permutation,
@@ -1046,3 +1055,256 @@ def save_async(alpha, x, o0: str, sto: Storage, o1: str, **kw):
     return fut
 
 
+
+
+# ---------------------------------------------------------------------------
+# sharded (distributed) checkpointing: the MPI-IO parallel-write analog
+# ---------------------------------------------------------------------------
+
+
+def _world() -> Tuple[int, int]:
+    """(rank, world size) of the default process group ((0, 1) without
+    one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _local_box(x):
+    """(from, size) of this rank's shard of a DTensor (or CArray of them;
+    the whole array for a plain tensor) and its local data."""
+    from torch.distributed.tensor import DTensor
+
+    from .parallel.mesh import sharding_partition
+
+    a = x.re if cplx.is_carray(x) else x
+    if not isinstance(a, DTensor):
+        return ((0,) * a.ndim, tuple(int(d) for d in a.shape)), x
+    r = a.device_mesh.get_rank()
+    ranks = a.device_mesh.mesh.reshape(-1).tolist()
+    box = sharding_partition(a, tuple(a.shape)).boxes[sorted(ranks).index(r)]
+    loc = (cplx.CArray(x.re.to_local(), x.im.to_local()) if cplx.is_carray(x)
+           else a.to_local())
+    return box, loc
+
+
+def _shard_boxes(x) -> Tuple[list, int]:
+    """The unique nonempty shard boxes of ALL ranks, in rank order (an
+    ``all_gather_object`` of each rank's box), and the index of this
+    rank's box there, or -1 where an earlier rank holds the same box (a
+    replica writes once)."""
+    import torch.distributed as dist
+
+    box, _ = _local_box(x)
+    r, n = _world()
+    allb = [box]
+    if n > 1:
+        allb = [None] * n
+        dist.all_gather_object(allb, box)
+    boxes, first = [], {}
+    for i, b in enumerate(allb):
+        b = (tuple(int(v) for v in b[0]), tuple(int(v) for v in b[1]))
+        if volume(b[1]) and b not in first:
+            first[b] = i
+            boxes.append(b)
+    mine = (tuple(box[0]), tuple(box[1]))
+    return boxes, (boxes.index(mine) if first.get(mine) == r else -1)
+
+
+def _sync_processes(tag: str) -> None:
+    """Cross-process barrier (no-op with one process): the MPI_Barrier
+    the reference's MPI-IO collective writes rely on
+    (storage.h:202-342)."""
+    import torch.distributed as dist
+
+    if _world()[1] > 1:
+        dist.barrier()
+
+
+def _check(tag: str, payload) -> None:
+    if flags.get_debug_level() >= 1:
+        from .utils.testing import check_collective_consistency
+
+        check_collective_consistency(tag, payload)
+
+
+def _refresh_blocks(sto: Storage) -> None:
+    """Re-read the chunk/block metadata from the file into this handle:
+    how ranks other than 0 observe blocks DECLARED BY RANK 0 after the
+    declare barrier (storage.h:1690-1750)."""
+    with sto._lock:
+        if sto._file is not None and not sto._file.closed:
+            sto._file.close()
+            sto._file = None
+        fresh = open_storage(sto.path, mode=sto.mode)
+        sto.blocks = fresh.blocks
+        sto.num_chunks = fresh.num_chunks
+        sto.header_crc = fresh.header_crc
+        sto.checksum_level = fresh.checksum_level
+        sto._grid = None
+        sto._data_end = fresh._data_end
+        sto._has_trailer = fresh._has_trailer
+        sto._num_chunks_off = fresh._num_chunks_off
+
+
+def create_storage_sharded(path: str, o: str, dim, dtype=np.float64,
+                           metadata: str = "", checksum: int = 0) -> Storage:
+    """Collective :func:`create_storage`: rank 0 writes the header, a
+    barrier publishes it, every other rank opens the file read-write.
+    With one process it is create_storage (storage.h:202-342)."""
+    r, n = _world()
+    if n <= 1:
+        return create_storage(path, o, dim, dtype, metadata, checksum)
+    tag = f"sbt:s3t:create:{os.path.basename(path)}"
+    _check(tag, ("create", o, tuple(int(d) for d in dim), np.dtype(dtype).str,
+                 int(checksum)))
+    if r == 0:
+        sto = create_storage(path, o, dim, dtype, metadata, checksum)
+        _sync_processes(tag)
+        return sto
+    _sync_processes(tag)
+    sto = open_storage(path, mode="r+")
+    sto.order = o
+    return sto
+
+
+def close_storage_sharded(sto: Storage) -> None:
+    """Collective :func:`close_storage`: every rank's writes land, a
+    barrier, then ONLY rank 0 writes the checksums (the reference gathers
+    per-block CRCs to rank 0, storage.h:1964-2125)."""
+    r, n = _world()
+    if n <= 1:
+        close_storage(sto)
+        return
+    if sto._pending:
+        flush_storage(sto)
+    elif sto._file is not None and not sto._file.closed:
+        sto._file.flush()
+    tag = f"sbt:s3t:close:{os.path.basename(sto.path)}"
+    _check(tag, ("close",))
+    _sync_processes(tag)
+    if r == 0:
+        close_storage(sto)
+    elif sto._file is not None and not sto._file.closed:
+        sto._file.close()
+    _sync_processes(f"sbt:s3t:closed:{os.path.basename(sto.path)}")
+
+
+def _declare_coordinated(sto: Storage, boxes) -> None:
+    """Declare ``boxes`` exactly once across ranks: rank 0 appends the
+    chunk (when the file has none yet), a barrier publishes it, the
+    others re-read the block table.  Every rank calls this on every
+    save; only rank 0 decides, under the barrier."""
+    r, n = _world()
+    if n <= 1:
+        if not sto.blocks:
+            append_blocks(sto, boxes)
+        return
+    seq = getattr(sto, "_declare_seq", 0)
+    sto._declare_seq = seq + 1
+    tag = f"sbt:s3t:declare:{os.path.basename(sto.path)}:{seq}"
+    _check(tag, ("declare", tuple((tuple(int(v) for v in f), tuple(int(v) for v in s))
+                                  for f, s in boxes)))
+    if r == 0 and not sto.blocks:
+        append_blocks(sto, boxes)
+    _sync_processes(tag)
+    if r != 0:
+        _refresh_blocks(sto)
+
+
+def _snapshot(sto: Storage, x, o: str):
+    """Declare the blocks, then (block, host data) of this rank's shard,
+    or None where it writes nothing."""
+    check_order(o)
+    a = x.re if cplx.is_carray(x) else x
+    if len(o) != a.ndim:
+        raise ValueError("order length must match array rank")
+    boxes, mine = _shard_boxes(x)
+    _declare_coordinated(sto, boxes)
+    if mine < 0:
+        return None
+    box, loc = _local_box(x)
+    blk = {(b.frm, b.size): b for b in sto.blocks}.get((tuple(box[0]), tuple(box[1])))
+    if blk is None:
+        raise ValueError(f"shard box {box} has no declared block; the file was "
+                         "created with a different sharding")
+    return blk, _to_numpy(loc).astype(sto.dtype)
+
+
+def save_sharded(sto: Storage, x, o: str) -> None:
+    """Write a sharded DTensor (or CArray of them), one S3T block per
+    rank's shard (the reference's collective MPI-IO write,
+    storage.h:202-342, 1002-1094): the blocks are declared on first save
+    by rank 0, each rank then writes its own shard's bytes (one
+    device-to-host copy) to its disjoint file region.  The file is a
+    plain S3T tensor: ``load`` or the reference reads it with any
+    partitioning."""
+    snap = _snapshot(sto, x, o)
+    if snap is not None:
+        _write_block(sto, *snap)
+
+
+def save_sharded_async(sto: Storage, x, o: str):
+    """Asynchronous :func:`save_sharded`: the declare and the shard's
+    host snapshot are synchronous, the block write runs on the IO pool.
+    Returns a future."""
+    snap = _snapshot(sto, x, o)
+
+    def write():
+        if snap is not None:
+            _write_block(sto, *snap)
+
+    fut = _get_io_pool().submit(write)
+    with sto._lock:
+        sto._pending.append(fut)
+    return fut
+
+
+def load_sharded(sto: Storage, sharding, dtype=None):
+    """Read an S3T tensor directly into a sharded DTensor (a CArray of two
+    for complex files): each rank assembles only its own shard from the
+    file blocks it intersects (the reference's distributed ``load``,
+    storage.h:1110-1186).  ``sharding``: a NamedSharding (the DTensor's
+    mesh and spec) or a SingleDeviceSharding (the whole tensor on that
+    rank, an empty tensor elsewhere).  ``dtype``: the real dtype of the
+    result's parts (the file's precision by default).  The shard lands on
+    the current CUDA device for a CUDA mesh, else on the CPU."""
+    from torch.distributed.tensor import DTensor
+
+    from .parallel._local import c_strides
+    from .parallel.mesh import NamedSharding, device_mesh
+
+    shape = tuple(sto.dim)
+    complex_out = np.issubdtype(sto.dtype, np.complexfloating)
+    if dtype is None:
+        dtype = ((torch.float32 if sto.dtype == np.complex64 else torch.float64)
+                 if complex_out else torch.from_numpy(np.zeros(0, sto.dtype)).dtype)
+    r, n = _world()
+    boxes = sharding.boxes(shape)
+    if isinstance(sharding, NamedSharding):
+        dm = device_mesh(sharding.mesh)
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dm.device_type == "cuda" else torch.device("cpu"))
+        ranks = sorted(dm.mesh.reshape(-1).tolist())
+        frm, size = boxes[ranks.index(r)]
+    else:
+        dm = None
+        device = torch.device("cpu")
+        frm, size = boxes[0] if r == sharding.rank else ((0,) * len(shape), (0,) * len(shape))
+    out = np.zeros(size, dtype=sto.dtype)
+    if volume(size):
+        for blk, ifrom, isize in _block_intersections(sto, frm, size):
+            data = _read_block(sto, blk)
+            roff = tuple((f - g) % d for f, g, d in zip(ifrom, frm, sto.dim))
+            boff = tuple((f - g) % d for f, g, d in zip(ifrom, blk.frm, sto.dim))
+            out[tuple(slice(a, a + s) for a, s in zip(roff, isize))] = \
+                data[tuple(slice(a, a + s) for a, s in zip(boff, isize))]
+    parts = ((out.real, out.imag) if complex_out else (out,))
+    loc = [torch.from_numpy(np.ascontiguousarray(p)).to(device=device, dtype=dtype)
+           for p in parts]
+    if dm is not None:
+        loc = [DTensor.from_local(t, dm, sharding.placements(), run_check=False,
+                                  shape=shape, stride=c_strides(shape)) for t in loc]
+    return cplx.CArray(*loc) if complex_out else loc[0]

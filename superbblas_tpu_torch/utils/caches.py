@@ -11,11 +11,12 @@ and ``reportCacheUsage`` (performance.h:436-454).  The port's caches are:
     arguments);
   * the batched-GEMM tile choice by shape (``ops.batched_gemm._tile``)
     and the SM counts of ``ops.roll_add``;
+  * the distributed layer's redistribution plans
+    (``parallel.redistribute.make_plan``: a byte-budget LRU under
+    SBT_CACHEGB, the reference's plan cache, dist.h:2303-2349) and the
+    sharded gather's halo plans (``parallel.gather_sharded``);
   * the CUDA caching allocator's reserved blocks (the reference's buffer
     cache), returned to the driver by ``torch.cuda.empty_cache``.
-
-The distributed layer's redistribution-plan cache joins them when that
-layer is ported.
 """
 
 from __future__ import annotations
@@ -36,11 +37,14 @@ def _lru_caches() -> dict:
 
 def clear_caches() -> None:
     """Drop every library-level cache (clearCaches, alloc.h:440): the
-    spin plans, the lru caches and the allocator's unused reserved
-    blocks."""
+    spin plans, the redistribution and gather halo plans, the lru caches
+    and the allocator's unused reserved blocks."""
     from ..ops import stencil
+    from ..parallel import gather_sharded, redistribute
 
     stencil.clear_plans()
+    redistribute.make_plan.cache_clear()
+    gather_sharded._GATHER_CACHE.clear()
     for fn in _lru_caches().values():
         fn.cache_clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -55,6 +59,7 @@ def report_cache_usage(out=None) -> dict:
     cache.h:238-265)."""
     from .. import flags
     from ..ops import stencil
+    from ..parallel import gather_sharded, redistribute
 
     plans = list(stencil._PLANS.values())
     stats = {
@@ -65,6 +70,12 @@ def report_cache_usage(out=None) -> dict:
                          for p in plans if p.table is not None),
         },
     }
+    info = redistribute.make_plan.cache_info()
+    stats["redistribution_plans"] = {"entries": info.currsize, "hits": info.hits,
+                                     "misses": info.misses, "max_entries": info.maxsize,
+                                     "bytes": info.bytes}
+    stats["gather_halo_plans"] = {"entries": len(gather_sharded._GATHER_CACHE),
+                                  "max_entries": gather_sharded._GATHER_CACHE_MAX}
     for name, fn in _lru_caches().items():
         info = fn.cache_info()
         stats[name] = {"entries": info.currsize, "hits": info.hits,
@@ -79,6 +90,11 @@ def report_cache_usage(out=None) -> dict:
     sp = stats["spin_plans"]
     lines.append(f"  spin plans: {sp['entries']}/{sp['max_entries']} entries, "
                  f"{sp['bytes']} bytes of device tables")
+    rp = stats["redistribution_plans"]
+    lines.append(f"  redistribution plans: {rp['entries']}/{rp['max_entries']} entries, "
+                 f"{rp['bytes']} bytes, {rp['hits']} hits / {rp['misses']} misses")
+    gp = stats["gather_halo_plans"]
+    lines.append(f"  gather halo plans: {gp['entries']}/{gp['max_entries']} entries")
     for name in _lru_caches():
         c = stats[name]
         lines.append(f"  {name}: {c['entries']} entries, {c['hits']} hits / "

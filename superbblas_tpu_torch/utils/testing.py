@@ -11,8 +11,10 @@ Re-creation of the reference's debug nets:
     ``check_collective_consistency`` hashes call metadata across the
     processes of a ``torch.distributed`` group.
 
-The JAX package runs these from its distributed layer under ``SBT_DEBUG``;
-this package has no distributed layer yet, so they are called directly.
+The distributed layer runs them under ``SBT_DEBUG``, as the JAX package
+does: ``check_collective_consistency`` at every collective entry of the
+sharded storage protocol (>=1), ``verify_copy`` on every distributed copy
+(>=2).
 """
 
 from __future__ import annotations

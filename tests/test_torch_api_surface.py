@@ -55,23 +55,23 @@ COUNTERPARTS = {
     "utils/tracker.py": "superbblas_tpu_torch.utils.tracker",
     "utils/caches.py": "superbblas_tpu_torch.utils.caches",
     "utils/testing.py": "superbblas_tpu_torch.utils.testing",
+    "parallel/__init__.py": "superbblas_tpu_torch.parallel",
+    "parallel/partition.py": "superbblas_tpu_torch.parallel.partition",
+    "parallel/mesh.py": "superbblas_tpu_torch.parallel.mesh",
+    "parallel/multihost.py": "superbblas_tpu_torch.parallel.multihost",
+    "parallel/halo.py": "superbblas_tpu_torch.parallel.halo",
+    "parallel/stencil_sharded.py": "superbblas_tpu_torch.parallel.stencil_sharded",
+    "parallel/dist.py": "superbblas_tpu_torch.parallel.dist",
+    "parallel/redistribute.py": "superbblas_tpu_torch.parallel.redistribute",
+    "parallel/overlap.py": "superbblas_tpu_torch.parallel.overlap",
+    "parallel/powers.py": "superbblas_tpu_torch.parallel.powers",
+    "parallel/gather_sharded.py": "superbblas_tpu_torch.parallel.gather_sharded",
 }
 
-_DIST = "the distributed layer: ROADMAP.md Queue 1 item 7"
 #: names of a reference module's __all__ the port does not have yet, by
-#: module, with the queue item that brings them
-STILL_TO_PORT = {
-    "__init__.py": {
-        "parallel": _DIST, "Partition": _DIST, "basic_partitioning": _DIST,
-        "contraction": _DIST, "copy": _DIST, "make_hole": _DIST, "make_mesh": _DIST,
-        "partition_sharding": _DIST, "partitioning_distributed_procs": _DIST,
-        "reshard": _DIST},
-    "flags.py": {
-        "get_debug_level": _DIST, "get_redist_method": _DIST, "get_redist_pack": _DIST},
-    "storage.py": {
-        "save_sharded": _DIST, "load_sharded": _DIST, "save_sharded_async": _DIST,
-        "create_storage_sharded": _DIST, "close_storage_sharded": _DIST},
-}
+#: module, with the queue item that brings them (none: every module of the
+#: JAX package has its counterpart)
+STILL_TO_PORT: dict = {}
 #: names the port does not carry over, with the reason
 NOT_CARRIED = {
     "context.py": {
@@ -87,6 +87,14 @@ NOT_CARRIED = {
     "ops/permute_pallas.py": {
         "pallas_permute": "the Pallas entry; the card's kernel entry is permute_4d, "
                           "reached through maybe_permute"},
+}
+_RAGGED = ("exists because XLA:CPU has no ragged all-to-all; the port's exchange, "
+           "dist.all_to_all_single, takes ragged splits on gloo and NCCL alike")
+#: private helpers of the reference the port does not carry over, with the
+#: reason (held apart: the surface test reads only public names)
+NOT_CARRIED_PRIVATE = {
+    "parallel/redistribute.py": {"_exchange_ragged_emulated": _RAGGED,
+                                 "_supports_ragged": _RAGGED},
 }
 
 
@@ -121,6 +129,17 @@ def test_reference_names_exist_in_the_port(rel):
     # a listed name that the port has is stale in the list
     stale = [n for n in listed if hasattr(port, n) or n not in names]
     assert not stale, f"listed for {rel} but present or not in __all__: {stale}"
+
+
+def test_private_helpers_not_carried():
+    """The reference's private helpers listed as not carried exist there
+    and not in the port."""
+    for rel, names in NOT_CARRIED_PRIVATE.items():
+        port = importlib.import_module(COUNTERPARTS[rel])
+        ref = reference_functions(rel)
+        for name in names:
+            assert name in ref, (rel, name)
+            assert not hasattr(port, name), (rel, name)
 
 
 def test_every_counterpart_module_exists():

@@ -24,7 +24,10 @@ K3, and the AoS staggered packed solve on K3; a CUDA-graph replay of a
 Wilson CG iteration (``aot.aot_compile``) against the eager call, the
 exported Wilson apply launching K1, exported programs reaching K2, K3 and
 E1 launching them, the dense ops and a storage round
-trip of a CUDA CArray.  The kernels at
+trip of a CUDA CArray; the distributed layer on a world-size-1 NCCL group
+(the sharded apply, the redistribution in both methods, the sharded
+checkpoint) and on two gloo ranks sharing the card (the halo exchange and
+one sharded apply against the unsharded K1 apply).  The kernels at
 the main path's shapes are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -1210,3 +1213,123 @@ def test_storage_roundtrip_of_cuda_carray(cuda_device, tmp_path):
     storage.close_storage(sto)
     assert back.re.device.type == "cuda"
     assert torch.equal(back.re, psi.re) and torch.equal(back.im, psi.im)
+
+
+@pytest.mark.cuda
+def test_dist_nccl_world1_apply_redistribute_storage(cuda_device, tmp_path):
+    """A world-size-1 NCCL group: the sharded SoA apply (K1 on the rank's
+    block) equals the unsharded K1 apply bit for bit; redistribute_explicit
+    in both methods (a 1-rank axis resolves to the dense exchange) moves a
+    field to a shifted partition and back exactly; save_sharded /
+    load_sharded round-trip a CUDA CArray bit for bit."""
+    import torch.distributed as dist
+
+    from superbblas_tpu_torch import parallel as par, storage
+    from superbblas_tpu_torch.parallel import redistribute as RD
+
+    assert not dist.is_initialized()
+    par.initialize_distributed(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = par.make_mesh({"X": 1})
+        sh = par.NamedSharding(mesh, par.PartitionSpec(None, None, "X", None, None, None))
+        lat = (8, 8, 8, 16)
+        op = W.wilson_operator(lat, mass=0.2, key=3, layout="soa", device="cuda")
+        x = crand((2, 12) + lat, 9, cuda_device, torch.float32)
+        ops = op.replace(blocks=par.reshard(op.blocks, sh))
+        xs = par.reshard(x, sh)
+        before = S.stencil_matvec_soa.launches
+        y = par.apply_stencil_soa_sharded(ops, xs, mesh, {"x": "X"})
+        assert S.stencil_matvec_soa.launches == before + 1
+        want = S.stencil_matvec_soa(op.blocks, op.kron, x, op.offsets, 3, 3)
+        assert torch.equal(y.re.to_local(), want.re) and torch.equal(y.im.to_local(), want.im)
+        dim = tuple(x.re.shape)
+        src = par.sharding_partition(xs.re, dim)
+        shifted = par.Partition(dim=dim, boxes=(((0, 0, 3, 0, 0, 0), dim),))
+        st = RD.pack_global_device(xs, src)
+        for method in ("ragged", "dense"):
+            there = RD.redistribute_explicit(st, src, shifted, None, method=method)
+            back = RD.redistribute_explicit(there, shifted, src, None, method=method)
+            assert torch.equal(back.re.to_local(), st.re.to_local())
+            assert torch.equal(there.re.to_local()[0], torch.roll(x.re, -3, dims=2))
+        path = str(tmp_path / "psi.s3t")
+        sto = storage.create_storage_sharded(path, "nfxyzt", dim, dtype=np.complex64,
+                                             checksum=2)
+        storage.save_sharded(sto, xs, "nfxyzt")
+        storage.close_storage_sharded(sto)
+        sto = storage.open_storage(path, mode="r")
+        storage.check_or_write_checksums(sto)
+        got = storage.load_sharded(sto, sh)
+        storage.close_storage(sto)
+        assert got.re.to_local().device.type == "cuda"
+        assert torch.equal(got.re.to_local(), x.re) and torch.equal(got.im.to_local(), x.im)
+    finally:
+        par.mesh._DEVICE_MESHES.clear()
+        dist.destroy_process_group()
+
+
+_GLOO_RANK = r'''
+import sys, torch
+from superbblas_tpu_torch import parallel as par, cplx, bsr
+from superbblas_tpu_torch.models import wilson as W
+from superbblas_tpu_torch.ops import stencil as S
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+par.initialize_distributed(f"localhost:{port}", 2, rank, device="cpu")
+mesh = par.make_mesh({"X": 2}, "cuda")
+spec = par.PartitionSpec(None, None, "X", None, None, None)
+sh = par.NamedSharding(mesh, spec)
+lat = (8, 4, 8, 16)
+op = W.wilson_operator(lat, mass=0.2, key=4, layout="soa", device="cuda")
+g = torch.Generator(device="cuda"); g.manual_seed(7)
+x = cplx.CArray(torch.randn((2, 12) + lat, generator=g, device="cuda"),
+                torch.randn((2, 12) + lat, generator=g, device="cuda"))
+xs = par.reshard(x, sh)
+ext = par.exchange_halos(xs, mesh, spec, {2: 1})
+rows = [(rank * 4 + i) % 8 for i in range(-1, 5)]
+assert torch.equal(ext.re.to_local(), x.re[:, :, rows]), "halo"
+before = S.stencil_matvec_soa.launches
+y = par.apply_stencil_soa_sharded(op.replace(blocks=par.reshard(op.blocks, sh)), xs, mesh,
+                                  {"x": "X"})
+assert S.stencil_matvec_soa.launches == before + 1, "one K1 launch"
+want = S.stencil_matvec_soa(op.blocks, op.kron, x, op.offsets, 3, 3)
+sl = slice(rank * 4, rank * 4 + 4)
+assert torch.equal(y.re.to_local(), want.re[:, :, sl]), "apply re"
+assert torch.equal(y.im.to_local(), want.im[:, :, sl]), "apply im"
+print("GLOO_RANK_OK", rank, flush=True)
+'''
+
+
+@pytest.mark.cuda
+def test_dist_gloo_two_ranks_on_one_card_halo_and_apply(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one GPU): the
+    halo exchange gives each rank its neighbours' edge planes, and one
+    sharded apply equals the unsharded K1 apply on that rank's slab, bit
+    for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    script = tmp_path / "rank.py"
+    script.write_text(_GLOO_RANK)
+    root = str(Path(__file__).resolve().parent.parent)
+    env = {**os.environ, "PYTHONPATH": root}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), port], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"GLOO_RANK_OK {r}" in out, out[-3000:]

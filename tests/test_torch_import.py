@@ -22,7 +22,13 @@ def test_import_does_not_load_jax():
             "superbblas_tpu_torch.bsr, superbblas_tpu_torch.ops.batched_gemm, "
             "superbblas_tpu_torch.models.coarse, superbblas_tpu_torch.models.multigrid, "
             "superbblas_tpu_torch.storage, superbblas_tpu_torch.dense, superbblas_tpu_torch.aot, "
-            "superbblas_tpu_torch.context, superbblas_tpu_torch.native, superbblas_tpu_torch.utils; "
+            "superbblas_tpu_torch.context, superbblas_tpu_torch.native, superbblas_tpu_torch.utils, "
+            "superbblas_tpu_torch.parallel, superbblas_tpu_torch.parallel.partition, "
+            "superbblas_tpu_torch.parallel.mesh, superbblas_tpu_torch.parallel.multihost, "
+            "superbblas_tpu_torch.parallel.halo, superbblas_tpu_torch.parallel.stencil_sharded, "
+            "superbblas_tpu_torch.parallel.dist, superbblas_tpu_torch.parallel.redistribute, "
+            "superbblas_tpu_torch.parallel.overlap, superbblas_tpu_torch.parallel.powers, "
+            "superbblas_tpu_torch.parallel.gather_sharded; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'superbblas_tpu')); "
             "assert not bad, bad")
@@ -37,6 +43,23 @@ def test_package_sources_never_import_jax():
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 assert words[1].split(".")[0] not in ("jax", "superbblas_tpu"), \
                     f"{path}: {line}"
+
+
+def test_distributed_worker_never_imports_jax():
+    """The gloo groups' worker (tests/_torch_dist_worker.py) and its
+    launcher import no JAX: neither in their sources nor once loaded
+    (torch.distributed.tensor included)."""
+    for name in ("_torch_dist_worker.py", "_torch_dist.py"):
+        for line in (ROOT / "tests" / name).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "superbblas_tpu"), line
+    code = ("import sys; sys.path.insert(0, 'tests'); import _torch_dist_worker, _torch_dist, "
+            "torch.distributed.tensor; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'superbblas_tpu')); assert not bad, bad")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_fails_without_cuda():
