@@ -99,7 +99,7 @@ def _split_pieces(ff, fs, sfrm, dfrm, dim):
     to the dst box at ``dfrm``; the fragment and both boxes may wrap.
     Along every axis the fragment is cut wherever either local map
     ``(a - frm) % dim`` wraps (the wrapped-fragment seam pitfall — see
-    storage._split_at_seams and CLAUDE.md), so each emitted piece is a
+    storage._split_at_seams), so each emitted piece is a
     plain box-to-box copy: ``(src_from_local, dst_from_local, shape)``
     with all coordinates non-wrapping inside the padded local blocks.
 

@@ -3,7 +3,7 @@
     python tools/dist_nccl.py
 
 Runs ``chip_smoke.dist_child`` in one process a card (rank r on cuda:r,
-NCCL, DIST_RANKS cards; ``chiprun --chips 4``) and holds it to the same
+NCCL, DIST_RANKS cards, four on one host) and holds it to the same
 checks as the smoke's four gloo ranks on one card
 (``chip_smoke.dist_report_b``): the sharded apply against the
 whole-lattice K1 apply, CA powers, the sharded CG against the unsharded
