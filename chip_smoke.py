@@ -2900,6 +2900,62 @@ def tracker_aot_path(op, b, gen):
 
 
 
+def probe_export_path(gen):
+    """The entries no package path calls, exported (fault P7): K1's
+    runtime-shape route, the schedules K4a/K4b (Wilson operator 8^4 x 8),
+    E3 (64^4 f32 at its first design point) and E2 (both variants at
+    [4096, 32, 256] bf16), each traced at CUDA tensors into its custom op
+    with ``export_compiled``, reloaded with ``load_exported``, and run once
+    with the counts set to 0 just before and read just after: its kernel
+    launches once and gives the eager call's bits.  Returns {entry:
+    launches of the loaded program}."""
+    lat4 = (8, 8, 8, 8)
+    op4 = wilson_operator(lat4, mass=0.1, key=0, layout="soa", device="cuda")
+    x4 = randn_c((8, 12) + lat4, gen)
+    xp = torch.randn(E3_SHAPE, generator=gen, device="cuda")
+    xr = torch.randn(E2_SHAPES[1], generator=gen, device="cuda").to(torch.bfloat16)
+
+    def soa(entry):
+        def fn(br, bi, kr, ki, xre, xim):
+            y = entry(CArray(br, bi), CArray(kr, ki), CArray(xre, xim), op4.offsets, 3, 3)
+            return y.re, y.im
+        return fn, (op4.blocks.re, op4.blocks.im, op4.kron.re, op4.kron.im, x4.re, x4.im)
+
+    cases = {
+        "stencil_matvec_soa_rt": (stencil_matvec_soa_rt, *soa(stencil_matvec_soa_rt)),
+        "stencil_matvec_soa_xin": (stencil_matvec_soa_xin, *soa(stencil_matvec_soa_xin)),
+        "stencil_matvec_soa_stream": (stencil_matvec_soa_stream,
+                                      *soa(stencil_matvec_soa_stream)),
+        "permute_4d_tiled": (permute_4d_tiled,
+                             lambda v: (permute_4d_tiled(v, PERMS["tzyx"], TILES[0]),),
+                             (xp,)),
+        "roll_add[f32]": (roll_add, lambda v: (roll_add(v, "f32"),), (xr,)),
+        "roll_add[bf16x2]": (roll_add, lambda v: (roll_add(v, "bf16x2"),), (xr,)),
+    }
+    out = {}
+    for name, (counter, fn, args) in cases.items():
+        want = fn(*args)
+        tmp = tempfile.mkdtemp(prefix="sbt_export_")
+        try:
+            path = aot.export_compiled(fn, args, os.path.join(tmp, "probe.pt2"))
+            loaded = aot.load_exported(path)
+            torch.cuda.synchronize()
+            reset_counts()
+            got = loaded(*args)
+            torch.cuda.synchronize()
+            launches = counter.launches
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"export_compiled/load_exported of {name}: the loaded program launches "
+              f"{launches} (expected 1), equal to the eager call {same}", flush=True)
+        if launches != 1 or not same:
+            raise AssertionError(f"the exported {name} did not launch its kernel once or "
+                                 "differs from the eager call")
+        out[name] = launches
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the dist phase: the distributed layer (superbblas_tpu_torch.parallel)
 
@@ -2985,7 +3041,18 @@ def dist_part_a(op, b, device="cuda", iters=DIST_ITERS_A):
     # a DTensor's reductions sum in their own order: equal to 1e-5, not bit for bit
     if launches != 2 * iters + 1 or rel > 1e-5 or hist_rel > 1e-5:
         raise AssertionError("dist (a): the sharded solve differs from the plain one")
-    del xp, rhs_p, rhs, op_s, oph_s
+    del xp, rhs_p, rhs
+    x_solvers = x
+    x, walls_e, launches_e = dist_part_a_entry(op, b, op_s, oph_s, b_s, mesh, axes, iters,
+                                               device)
+    walls.update(walls_e)
+    rel_s = max(float((a.to_local() - c.to_local()).abs().max()) for a, c in zip(x, x_solvers))
+    rel_s /= float(x_solvers.re.to_local().abs().max())
+    print(f"dist (a) cg_solve on DTensors against the solvers.cg solve above: max rel diff "
+          f"{rel_s:.3e} (the two CGs order their updates apart)", flush=True)
+    if rel_s > 1e-5:
+        raise AssertionError("dist (a): cg_solve on DTensors differs from solvers.cg")
+    del op_s, oph_s, x_solvers
     # checkpoint: one block, reloaded bit for bit
     tmp = tempfile.mkdtemp(prefix="sbt_dist_")
     try:
@@ -3041,7 +3108,95 @@ def dist_part_a(op, b, device="cuda", iters=DIST_ITERS_A):
     del x, y, z
     par.mesh._DEVICE_MESHES.clear()
     dist.destroy_process_group()
-    return launches, walls
+    return {"solvers_cg": launches, **launches_e}, walls
+
+
+def _cg_explicit(op_s, oph_s, b_s, mesh, axes, iters):
+    """``models.cg_solve``'s iteration, each apply an explicit
+    ``parallel.apply_stencil_soa_sharded`` call (the reference the
+    ordinary entry point is held to bit for bit)."""
+    from superbblas_tpu_torch import parallel as par
+    from superbblas_tpu_torch.models.wilson import _axpy
+
+    def A(v):
+        return par.apply_stencil_soa_sharded(op_s, v, mesh, axes)
+
+    def Ah(v):
+        return par.apply_stencil_soa_sharded(oph_s, v, mesh, axes)
+
+    rhs = Ah(b_s)
+    x, rr, p, rs = cplx.cmap(torch.zeros_like, b_s), rhs, rhs, cplx.inner_real(rhs, rhs)
+    for _ in range(iters):
+        ap = Ah(A(p))
+        alpha = rs / torch.clamp_min(cplx.inner_real(p, ap), 1e-30)
+        x = _axpy(alpha, p, x)
+        rr = _axpy(-alpha, ap, rr)
+        rs_new = cplx.inner_real(rr, rr)
+        beta = rs_new / torch.clamp_min(rs, 1e-30)
+        p = _axpy(beta, p, rr)
+        rs = rs_new
+    return x, rs
+
+
+def dist_part_a_entry(op, b, op_s, oph_s, b_s, mesh, axes, iters, device):
+    """Part (a)'s ordinary entry points on DTensors: ``models.cg_solve`` on
+    the sharded operator and field (its adjoint built from the sharded
+    blocks), bit for bit against the same CG through explicit
+    ``apply_stencil_soa_sharded`` calls, with 2 iters + 1 K1 launches;
+    ``eo_solve_packed_soa`` on them against the plain call (4 iters + 4
+    packed K1 launches each); the walls beside ``cg_solve`` and
+    ``eo_solve_packed_soa`` on plain tensors.  Returns (the DTensor
+    cg_solve's x, walls, K1 launches)."""
+    walls, launches = {}, {}
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    x, rs = cg_solve(op_s, b_s, n_iters=iters)
+    sync(device)
+    walls["cg_solve_dtensor"] = time.perf_counter() - t0
+    launches["cg_solve_dtensor"] = read_counts()["stencil_matvec_soa"]
+    xe, rse = _cg_explicit(op_s, oph_s, b_s, mesh, axes, iters)
+    bits = all(torch.equal(a.to_local(), c.to_local()) for a, c in zip(x, xe)) and \
+        float(rs) == float(rse)
+    del xe
+    sync(device)
+    t0 = time.perf_counter()
+    xp, rsp = cg_solve(op, b, n_iters=iters)
+    sync(device)
+    walls["cg_solve_plain"] = time.perf_counter() - t0
+    rel = max(float((a.to_local() - c).abs().max()) for a, c in zip(x, xp)) / float(
+        xp.re.abs().max())
+    del xp
+    print(f"dist (a) models.cg_solve on DTensors (mesh X=1) {iters} iterations "
+          f"{walls['cg_solve_dtensor']:.3f} s, K1 launches {launches['cg_solve_dtensor']} "
+          f"(expected {2 * iters + 1}); against the same CG through explicit "
+          f"apply_stencil_soa_sharded calls: bit for bit {bits}; against cg_solve on plain "
+          f"tensors ({walls['cg_solve_plain']:.3f} s): max rel diff {rel:.3e}", flush=True)
+    if launches["cg_solve_dtensor"] != 2 * iters + 1 or not bits or rel > 1e-5:
+        raise AssertionError("dist (a): cg_solve on DTensors")
+    eo_it = EO_ITERS
+    a = MASS + 4.0
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    psi, rs_eo = eo_solve_packed_soa(op_s, b_s, a, n_iters=eo_it)
+    sync(device)
+    walls["eo_dtensor"] = time.perf_counter() - t0
+    launches["eo_dtensor"] = read_counts()["stencil_matvec_soa"]
+    t0 = time.perf_counter()
+    psi_p, rs_p = eo_solve_packed_soa(op, b, a, n_iters=eo_it)
+    sync(device)
+    walls["eo_plain"] = time.perf_counter() - t0
+    rel_eo = max(float((u.to_local() - c).abs().max()) for u, c in zip(psi, psi_p)) / float(
+        psi_p.re.abs().max())
+    print(f"dist (a) eo_solve_packed_soa on DTensors {eo_it} iterations "
+          f"{walls['eo_dtensor']:.3f} s, K1 launches {launches['eo_dtensor']} (expected "
+          f"{4 * eo_it + 4}); against the plain call ({walls['eo_plain']:.3f} s): max rel "
+          f"diff {rel_eo:.3e}, |r|^2 {float(rs_eo):.4e} vs {float(rs_p):.4e}", flush=True)
+    if launches["eo_dtensor"] != 4 * eo_it + 4 or rel_eo > 1e-5:
+        raise AssertionError("dist (a): eo_solve_packed_soa on DTensors")
+    del psi, psi_p
+    return x, walls, launches
 
 
 def sync(device):
@@ -3330,6 +3485,7 @@ def dist_child(rank, world, port, out_path, device="cuda", xl=DIST_X_LOCAL,
     # 6. the overlap on an AoS stencil without spin factors (K3) against CA powers
     # at power 1 and the unsharded apply; the sharded gather (E1)
     res.update(dist_child_aos(rank, world, mesh, device))
+    res.update(dist_child_entry(rank, world, mesh, device))
     res["wall_s"] = time.perf_counter() - t_all
     free(device)
     # 7. rank 0 runs the unsharded CG on the whole lattice for the history
@@ -3419,6 +3575,72 @@ def dist_child_aos(rank, world, mesh, device):
     return out
 
 
+def dist_child_entry(rank, world, mesh, device):
+    """Part (b)'s ordinary entry points on DTensors: ``models.apply_wilson``
+    of the SoA Wilson operator (DIST_AOS_LAT x DIST_COLS f32, the operator
+    every rank holds whole, cut to the rank's slab) on a field sharded on X
+    and on one sharded on its columns, each against the whole-lattice
+    apply on the rank (one K1 launch each); ``parallel.copy`` between
+    orders of different label sets (a spin component sliced out of a
+    field, written into one, and a masked copy) against ``local_copy`` of
+    the whole tensors, exactly."""
+    from superbblas_tpu_torch import parallel as par
+    from superbblas_tpu_torch.ops.copy import local_copy
+
+    out = {}
+    lat = DIST_AOS_LAT
+    op = wilson_operator(lat, mass=MASS, key=5, layout="soa", device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+    xg = _randn_c((DIST_COLS, 12) + lat, gen)
+    want = apply_wilson(op, xg)
+    mesh_n = par.make_mesh({"N": world}, device)
+    for label, m, spec in (("x", mesh, ("X",)), ("cols", mesh_n, ("N",))):
+        pspec = par.PartitionSpec(None, None, "X", None, None, None) if label == "x" else \
+            par.PartitionSpec("N", None, None, None, None, None)
+        xs = cplx.cmap(lambda a: par.reshard(a, par.NamedSharding(m, pspec)), xg)
+        sync(device)
+        reset_counts()
+        y = apply_wilson(op, xs)
+        sync(device)
+        out[f"entry_{label}_k1"] = read_counts()["stencil_matvec_soa"]
+        if label == "x":
+            sl = (slice(None), slice(None), slice(rank * lat[0] // world,
+                                                  (rank + 1) * lat[0] // world))
+        else:
+            sl = (slice(rank * DIST_COLS // world, (rank + 1) * DIST_COLS // world),)
+        w = cplx.cmap(lambda a: a[sl], want)
+        yl = cplx.cmap(lambda a: a.to_local(), y)
+        out[f"entry_{label}_bits"] = all(torch.equal(a, c) for a, c in zip(yl, w))
+        out[f"entry_{label}_rel"] = max(float((a - c).abs().max()) for a, c in zip(yl, w)) / \
+            float(w.re.abs().max())
+        del y, yl, xs
+    del want, xg, op
+    # parallel.copy across label sets: f "xysn" (a spin axis), g "xyn" (none)
+    X = 4 * world
+    f = torch.randn((X, 8, 4, 6), generator=gen, device=device)
+    g = torch.randn((X, 8, 6), generator=gen, device=device)
+    fs = par.reshard(f, par.NamedSharding(mesh, par.PartitionSpec("X", None, None, None)))
+    gs = par.reshard(g, par.NamedSharding(mesh, par.PartitionSpec("X", None, None)))
+    rng = np.random.default_rng(7)
+    m0 = rng.random((X, 8, 4, 6)) < 0.5
+    m1 = np.zeros((X, 8, 6), bool)
+    m1.reshape(-1)[rng.permutation(m1.size)[:int(m0[:, :, 1:2].sum())]] = True
+    cases = {
+        "slice": (1.0, fs, "xysn", gs, "xyn", dict(from0=(0, 0, 2, 0), size0=(X, 8, 1, 6))),
+        "insert": (-1.0, gs, "xyn", fs, "xysn", dict(from1=(0, 0, 1, 0))),
+        "masked": (1.0, fs, "xysn", gs, "xyn", dict(from0=(0, 0, 1, 0), size0=(X, 8, 1, 6),
+                                                   mask0=m0, mask1=m1)),
+    }
+    plain = {"xysn": f, "xyn": g}
+    sl = slice(rank * X // world, (rank + 1) * X // world)
+    for name, (alpha, xa, o0, ya, o1, kw) in cases.items():
+        got = par.copy(alpha, xa, o0, ya, o1, **kw)
+        w = local_copy(alpha, plain[o0], o0, plain[o1], o1, **kw)
+        out[f"copy_{name}_bits"] = torch.equal(got.to_local(), w[sl])
+    return out
+
+
 def dist_part_b(device="cuda"):
     """Part (b): DIST_RANKS processes of this script on one card, gloo
     with CUDA tensors on cuda:0 (NCCL refuses two ranks on one GPU:
@@ -3497,8 +3719,19 @@ def dist_report_b(res, wall, backend="gloo"):
     print(f"dist (b) CG residual history: sharded {hist[0]:.6e} .. {hist[-1]:.6e}, "
           f"unsharded {hist_g[0]:.6e} .. {hist_g[-1]:.6e}, max rel diff {hist_rel:.3e} "
           f"(<= 1e-5)", flush=True)
+    for r in res:
+        print(f"dist (b) rank {r['rank']}: apply_wilson (the ordinary entry point) on "
+              f"DTensors {DIST_AOS_LAT} x {DIST_COLS} against the whole-lattice apply: "
+              f"sharded on X bit for bit {r['entry_x_bits']} (max rel {r['entry_x_rel']:.3e}, "
+              f"K1 {r['entry_x_k1']}), on its columns bit for bit {r['entry_cols_bits']} "
+              f"(max rel {r['entry_cols_rel']:.3e}, K1 {r['entry_cols_k1']}); parallel.copy "
+              f"across label sets exact: slice {r['copy_slice_bits']}, insert "
+              f"{r['copy_insert_bits']}, masked {r['copy_masked_bits']}", flush=True)
     bad = [r["rank"] for r in res if not (
-        (r["apply_bits"] or r["apply_rel"] <= 1e-6) and r["k1_apply"] == 1
+        (r["entry_x_bits"] or r["entry_x_rel"] <= 1e-6) and r["entry_x_k1"] == 1
+        and (r["entry_cols_bits"] or r["entry_cols_rel"] <= 1e-6) and r["entry_cols_k1"] == 1
+        and r["copy_slice_bits"] and r["copy_insert_bits"] and r["copy_masked_bits"]
+        and (r["apply_bits"] or r["apply_rel"] <= 1e-6) and r["k1_apply"] == 1
         and r["k1_cg"] == 2 * DIST_ITERS_B + 1 and r["power2_rel"] <= 1e-6
         and r["file_blocks"] == DIST_RANKS and r["reload_x_bits"] and r["reload_y_bits"]
         and r["load_whole_bits"] and r["k3_overlap"] > 0 and r["overlap_rel"] <= 1e-12
@@ -3582,6 +3815,7 @@ def main():
     if launches == 0:
         raise AssertionError("the Wilson path launched no stencil kernel")
     utilities = tracker_aot_path(op, b, gen)
+    probe_exports = probe_export_path(gen)
     dist_a_launches, dist_a_walls = dist_part_a(op, b)
     s_launches, s_err, ms = schedule_path(op, b)
     eo_launches, eo_err, eo_ms, eo_bound, eo_psi = eo_path(op, b, args.profile)
@@ -3631,6 +3865,7 @@ def main():
         regs, _, _, per_sm = attrs[f"K1 runtime {','.join(map(str, shape))} float32/float32"]
         return {"source": "superbblas_tpu_torch/csrc/stencil_rt.cu", "registers": regs,
                 "blocks_per_sm": per_sm,
+                "launches_export": probe_exports["stencil_matvec_soa_rt"],
                 "tile": stencil_ops.rt_tile(*shape, K1_TIME_COLS, 9, 4, 4)}
     # the clover term: the block-streaming kernel, its launches in the solve
     # by form, and torch.einsum beside it
@@ -3644,8 +3879,13 @@ def main():
         "launches": launches, "max_abs_err": err, "ms": ms["k1"], "plain_ms": ms["plain"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "bound_ref_ms": k1_bound[2],
         "plan_builds": PLANS_BUILT["main"],
-        "launches_dist": {"a_nccl_1_rank": dist_a_launches,
-                          "b_gloo_per_rank": [r["k1_cg"] for r in dist_b]}}] + [{
+        "launches_dist": {"a_nccl_1_rank": dist_a_launches["solvers_cg"],
+                          "a_cg_solve_dtensor": dist_a_launches["cg_solve_dtensor"],
+                          "a_eo_solve_packed_soa_dtensor": dist_a_launches["eo_dtensor"],
+                          "b_gloo_per_rank": [r["k1_cg"] for r in dist_b],
+                          "b_apply_wilson_dtensor_per_rank": [
+                              r["entry_x_k1"] + r["entry_cols_k1"] for r in dist_b]},
+        "walls_dist_a_s": {k: v for k, v in dist_a_walls.items()}}] + [{
         "name": f"stencil_matvec_soa[{pair}]", **stencil, **tiled_src,
         "launches": n_launch, "max_abs_err": e, "ms": t["kernel"], "plain_ms": t["plain"],
         "bound_ms": bd_[0], "bound_by": bd_[1], "bound_ref_ms": bd_[2]}
@@ -3678,7 +3918,8 @@ def main():
         "registers": sched_attrs[f"{name} 4,4,3,3 sparse float32/float32"][0],
         "blocks_per_sm": sched_attrs[f"{name} 4,4,3,3 sparse float32/float32"][3],
         "ms_staggered": staggered[4][name], "k1_ms_staggered": staggered[4]["k1"],
-        "bound_ms_staggered": staggered[3][0]}
+        "bound_ms_staggered": staggered[3][0],
+        "launches_export": probe_exports[fn.__name__]}
         for (name, fn), line in zip(SCHEDULES.items(), (649, 795))] + [{
         "name": "permute_4d", "route": "cuda",
         "source": "superbblas_tpu_torch/csrc/permute.cu",
@@ -3712,7 +3953,8 @@ def main():
         "launches": launches, "max_abs_err": err, "shape": list(shape),
         "ms": t[shape]["kernel"], "plain_ms": t[shape]["plain"],
         "device_ms": t[shape]["kernel_device"], "plain_device_ms": t[shape]["plain_device"],
-        "bound_ms": bd_[shape][0], "bound_by": bd_[shape][1], "library_ms": None}
+        "bound_ms": bd_[shape][0], "bound_by": bd_[shape][1], "library_ms": None,
+        "launches_export": probe_exports[f"roll_add[{v}]"]}
         for (v, f), (launches, err, t, bd_) in e2.items()
         for shape in (E2_SHAPES[1] if f == "vec16" else E2_FORM_SHAPES[f],)] + [{
         "name": f"permute_4d_tiled[{','.join(map(str, tile))}]", "route": "cuda",
@@ -3721,7 +3963,9 @@ def main():
         "launches": e3[tile][0], "max_abs_err": e3[tile][1], "ms": e3[tile][2],
         "plain_ms": e3_call_ms, "bound_ms": e3_bound[0], "bound_by": e3_bound[1],
         "library_ms": e3_call_ms, "device_ms": e3[tile][3], "k2_ms": e3_k2_ms[0],
-        "k2_device_ms": e3_k2_ms[1]} for tile in TILES]}))
+        "k2_device_ms": e3_k2_ms[1],
+        "launches_export": probe_exports["permute_4d_tiled"] if tile == TILES[0] else 0}
+        for tile in TILES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,7 @@ from torch import nn
 from . import cplx
 from .cplx import CArray
 from .labels import Coor, check_order, volume
-from .ops._guard import refuse_dtensor
+from .ops._guard import is_sharded
 from .ops.batched_gemm import batched_small_gemm
 from .ops.copy import _is_static, local_permute
 from .ops.stencil import aos_to_soa, soa_eligible, soa_to_aos, stencil_matvec_soa
@@ -490,9 +490,15 @@ def apply_stencil_soa(op: BSROperator, x_soa: CArray, interpret: Optional[bool] 
     """SoA stencil matvec: ``x_soa`` [ncols, KD*BD, *lat] ->
     [ncols, KI*BI, *lat]; the CUDA kernel for CUDA operands, the plain
     version for CPU operands.  ``interpret`` (the Pallas interpreter's
-    switch in the JAX package) is accepted and unused."""
+    switch in the JAX package) is accepted and unused.  A sharded field
+    (DTensors) goes to ``parallel.apply_stencil_soa_sharded``, which runs
+    the kernel on each rank's halo-extended shard."""
     if op.mode != "stencil_soa":
         raise ValueError("operator was not built with layout='soa'")
+    if is_sharded(x_soa, op.blocks_re):
+        from .parallel.dispatch import apply_stencil_soa_dtensor
+
+        return apply_stencil_soa_dtensor(op, x_soa, packed_parity)
     return stencil_matvec_soa(op.blocks, op.kron, x_soa, op.offsets,
                               volume(op.bi), volume(op.bd),
                               packed_parity=packed_parity)
@@ -668,10 +674,13 @@ def bsr_krylov(alpha, op: BSROperator, x, ox: str, beta=0.0, y=None,
     tensors, CArrays or complex tensors (a complex ``x`` gives a complex
     result).  An SoA operator takes fields in its preferred order
     (:func:`bsr_get_preferred_layout`) by reshape alone; any other order
-    pays one permutation a side."""
-    refuse_dtensor("bsr_krylov", "parallel.bsr_krylov_overlap, parallel.bsr_krylov_ca or "
-                   "parallel.apply_stencil_soa_sharded", op.blocks_re,
-                   tuple(x) if cplx.is_carray(x) else x)
+    pays one permutation a side.  Sharded operands (DTensors, or CArrays
+    of them) go to the ``parallel`` function of the operator's mode
+    (``parallel.dispatch``); the result is sharded as x."""
+    if is_sharded(x, op.blocks_re):
+        from .parallel.dispatch import bsr_krylov_dtensor
+
+        return bsr_krylov_dtensor(alpha, op, x, ox, beta, y, oy, okr, power)
     check_order(ox)
     user_complex = not cplx.is_carray(x) and x.is_complex()
     if user_complex:

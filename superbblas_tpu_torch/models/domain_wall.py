@@ -39,9 +39,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import cplx
 from ..bsr import BSROperator, apply_stencil_soa, bsr_from_stencil, bsr_krylov
 from ..cplx import CArray
 from ..labels import volume
+from ..ops._guard import is_sharded
 from .wilson import NC, NS, _seed_from_key, gamma5, gamma_matrices, random_su3_links, \
     wilson_operator
 
@@ -292,6 +294,46 @@ def apply_domain_wall(op, x):
     projector terms are elementwise with the mass walls at the s wrap."""
     if not isinstance(op, DomainWallSoAOperator):
         return bsr_krylov(1.0, op, x, "sxyztSCn")
+    if is_sharded(x):
+        return _apply_dw_sharded(op, x)
+    return _apply_dw_soa(op, x, lambda v: _w5(op, v))
+
+
+def _w5(op, v, wrap=None, unwrap=None):
+    """The 4-d hopping of every s-slice of v [n, Ls, 12, *lat]: one SoA
+    apply with s folded into the columns (``wrap``/``unwrap`` carry the
+    folded field to and from the sharded apply)."""
+    nl, Ls = v.re.shape[0], v.re.shape[1]
+    f = cplx.cmap(lambda a: a.reshape((nl * Ls,) + tuple(a.shape[2:])), v)
+    y = apply_stencil_soa(op.wilson, f if wrap is None else wrap(f))
+    y = y if unwrap is None else unwrap(y)
+    return cplx.cmap(lambda a: a.reshape((nl, Ls) + tuple(a.shape[1:])), y)
+
+
+def _apply_dw_sharded(op, x):
+    """The SoA apply on a sharded field [n, Ls, 12, *lat] (DTensors,
+    sharded on columns and lattice axes): the s5 terms on the local
+    shards, the hopping through the sharded SoA apply with s folded into
+    the columns.  A sharded Ls or spin axis raises: the s5 terms act
+    along both."""
+    from ..parallel._local import from_local, local, mesh_axes, wrap_labels
+
+    lat = "xyzt"[:x.re.ndim - 3]
+    mesh, lab = mesh_axes(x, "nsf" + lat)
+    if "s" in lab or "f" in lab:
+        raise ValueError("apply_domain_wall: a sharded Ls or spin axis; the s5 terms act "
+                         "along them (shard the columns and lattice axes)")
+    folded = (x.re.shape[0] * op.Ls,) + tuple(x.re.shape[2:])
+
+    def W5(v):
+        return _w5(op, v, lambda f: wrap_labels(f, mesh, "nf" + lat, lab, folded), local)
+
+    return from_local(_apply_dw_soa(op, local(x), W5), x)
+
+
+def _apply_dw_soa(op, x, W5):
+    """The SoA apply on x [n, Ls, 12, *lat] with the hopping ``W5`` of
+    [n, Ls, 12, *lat] fields."""
     n, Ls = x.re.shape[0], op.Ls
     if x.re.shape[1] != Ls:
         raise ValueError(f"field has {x.re.shape[1]} s-slices, the operator Ls = {Ls}")
@@ -305,11 +347,6 @@ def apply_domain_wall(op, x):
         w = torch.full((Ls,), v_bulk, dtype=dt, device=dev)
         w[at] = v_wall
         return w.reshape(shape_c)
-
-    def W5(v):
-        yf = apply_stencil_soa(op.wilson, CArray(v.re.reshape((n * Ls,) + rest),
-                                                 v.im.reshape((n * Ls,) + rest)))
-        return CArray(yf.re.reshape((n, Ls) + rest), yf.im.reshape((n, Ls) + rest))
 
     wp = op.pm_diag.to(dt).reshape(shape_f)       # weights of x_{s+1}
     wm = op.pp_diag.to(dt).reshape(shape_f)       # weights of x_{s-1}

@@ -22,7 +22,7 @@ half-lattice solves (no masked waste) are ``models/eo_packed.py``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ import torch
 from .. import cplx
 from ..bsr import BSROperator
 from ..cplx import CArray
+from ..ops._guard import is_sharded
 from .wilson import _axpy, _inner, _zeros_like, adjoint_operator, apply_wilson
 
 __all__ = ["checkerboard_masks", "eo_solve", "schur_matvec", "schur_cg"]
@@ -55,11 +56,14 @@ def schur_cg(Dhat, Dhat_h, rhs, n_iters: int):
     return x, rs
 
 
-def checkerboard_masks(lat_dims: Tuple[int, ...], trailing: int, device="cuda"):
+def checkerboard_masks(lat_dims: Tuple[int, ...], trailing: int, device="cuda",
+                       origin: Optional[Tuple[int, ...]] = None):
     """(even, odd) 0/1 f32 masks shaped [*lat] + [1]*trailing, built with
-    numpy and put on ``device``: the card unless the caller names the CPU."""
+    numpy and put on ``device``: the card unless the caller names the CPU.
+    ``origin``: the global coordinates of the block's first site (a
+    shard's offset), whose parity the block's sites add to theirs."""
     coords = np.meshgrid(*[np.arange(d) for d in lat_dims], indexing="ij")
-    par = sum(coords) % 2
+    par = (sum(coords) + sum(origin or ())) % 2
     even = (par == 0).astype(np.float32)
     shape = tuple(lat_dims) + (1,) * trailing
     even = torch.from_numpy(even.reshape(shape)).to(device)
@@ -67,9 +71,28 @@ def checkerboard_masks(lat_dims: Tuple[int, ...], trailing: int, device="cuda"):
 
 
 def _mask(m, x):
+    """m * x; for a sharded x (DTensors) ``m`` is the mask of x's local
+    block (``_masks`` built it) and the product is x's shard."""
+    if is_sharded(x):
+        from ..parallel._local import from_local, local
+
+        return from_local(_mask(m, local(x)), x)
     if cplx.is_carray(x):
         return CArray(m * x.re, m * x.im)
     return m * x
+
+
+def _masks(lat_dims, b, nlat: int):
+    """The checkerboard masks of ``b``'s sites: of its local block, with
+    the parity of the block's global origin, where ``b`` is sharded."""
+    if not is_sharded(b):
+        return checkerboard_masks(lat_dims, b.ndim - nlat, device=b.device)
+    from ..parallel._local import local, shard_origin
+
+    bl = local(b)
+    shape = tuple((bl.re if cplx.is_carray(bl) else bl).shape)
+    return checkerboard_masks(shape[:nlat], len(shape) - nlat, device=b.device,
+                              origin=shard_origin(b)[:nlat])
 
 
 def _scale(a, x):
@@ -100,10 +123,11 @@ def eo_solve(op: BSROperator, b, a: float, n_iters: int = 50):
 
     ``op`` is the AoS Wilson operator, ``a`` its site-diagonal scalar
     (mass + 4 r), ``b`` [*lat, NS, NC, ncols] (a CArray or a complex
-    tensor).  The masks are made on ``b``'s device; the adjoint is built
-    once a call and kept by no one."""
+    tensor).  The masks are made on ``b``'s device (for a sharded ``b``,
+    those of its local block, from its global origin); the adjoint is
+    built once a call and kept by no one."""
     nlat = len(op.dim_d)
-    even, odd = checkerboard_masks(op.dim_i, b.ndim - nlat, device=b.device)
+    even, odd = _masks(op.dim_i, b, nlat)
     op_h = adjoint_operator(op)
 
     b_e = _mask(even, b)

@@ -26,6 +26,7 @@ from ..bsr import (BSROperator, apply_stencil_soa, bsr_cast_storage, bsr_from_st
                    bsr_krylov)
 from ..cplx import CArray
 from ..labels import volume
+from ..ops._guard import is_sharded
 from ..ops.stencil import derive_kron
 
 __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets", "wilson_operator",
@@ -169,22 +170,41 @@ def apply_wilson(op: BSROperator, x):
 def adjoint_operator(op: BSROperator) -> BSROperator:
     """The conjugate-transposed stencil operator: direction k's adjoint
     has offset -o_k and block A_k(s - o_k)^H.  Built anew on every call;
-    callers that apply it repeatedly keep the result."""
+    callers that apply it repeatedly keep the result.  Sharded blocks
+    (DTensors) stay sharded: a roll along a sharded lattice axis moves
+    only the rolled edge between neighbouring ranks
+    (``parallel.halo.roll_local``)."""
     bi, bd = volume(op.bi), volume(op.bd)
     nd = len(op.dim_d)
+    lat = tuple(op.dim_i)
+    roll, wrap = torch.roll, None
+    if is_sharded(op.blocks_re):
+        from ..parallel._local import from_local, local
+        from ..parallel.halo import roll_local
+
+        d = op.blocks_re
+        mesh = d.device_mesh
+        names = {p.dim: nm for nm, p in zip(mesh.mesh_dim_names, d.placements)
+                 if p.is_shard()}
+
+        def roll(a, shift, dims):
+            return roll_local(a, shift, dims, names.get(dims), mesh)
+
+        def wrap(a, like):
+            return from_local(a, like)
 
     def adj_soa(a):
         ndir, FB = a.shape[0], a.shape[1]
-        lat = tuple(a.shape[2:])
-        a = a.reshape((ndir, bi, bd) + lat).transpose(1, 2)   # transpose block
+        shp = tuple(a.shape[2:])
+        a = a.reshape((ndir, bi, bd) + shp).transpose(1, 2)   # transpose block
         rows = []
         for k in range(ndir):
             blk = a[k]
             for ax, off in enumerate(op.offsets[k]):
                 if off % lat[ax] != 0:
-                    blk = torch.roll(blk, off, dims=2 + ax)
+                    blk = roll(blk, off, 2 + ax)
             rows.append(blk)
-        return torch.stack(rows, 0).reshape((ndir, FB) + lat)
+        return torch.stack(rows, 0).reshape((ndir, FB) + shp)
 
     def adj_aos(a):
         a = a.transpose(-1, -2)                               # transpose block
@@ -192,12 +212,18 @@ def adjoint_operator(op: BSROperator) -> BSROperator:
         for k in range(op.ndir):
             blk = a[(slice(None),) * nd + (k,)]
             for ax, off in enumerate(op.offsets[k]):
-                if off % op.dim_i[ax] != 0:
-                    blk = torch.roll(blk, off, dims=ax)
+                if off % lat[ax] != 0:
+                    blk = roll(blk, off, ax)
             rows.append(blk)
         return torch.stack(rows, dim=nd)
 
     adj = adj_soa if op.mode == "stencil_soa" else adj_aos
+    if wrap is not None:
+        adj0 = adj
+
+        def adj(a):
+            return wrap(adj0(local(a).contiguous()), a)
+
     blocks = adj(op.blocks_re) if op.blocks_im is None else \
         CArray(adj(op.blocks_re), -adj(op.blocks_im))
     kron = op.kron

@@ -24,6 +24,7 @@ import torch
 from .. import cplx
 from ..labels import ContractionPlan
 from ..utils.tracker import tracked as _tracked
+from ._guard import is_sharded
 from .copy import _is_static, local_permute
 
 __all__ = ["local_contraction"]
@@ -60,7 +61,19 @@ def local_contraction(
     runs as 3 real contractions (Gauss trick).  Products are formed and
     summed in f32 for bf16/f16/f32 operands, and the result is rounded to
     ``dtype`` once, at the end.  The result lies on the operands' device.
+    Sharded operands (DTensors, or CArrays of them) go to
+    ``parallel.contraction``: the local shards are contracted and the mesh
+    axes that shard a contracted label all-reduced.
     """
+    if is_sharded(x0, x1, r):
+        from ..parallel.dist import contraction as dist_contraction
+
+        if precision is not None:
+            raise ValueError("local_contraction: ``precision`` on sharded operands; "
+                             "parallel.contraction contracts at the default precision")
+        out = dist_contraction(alpha, x0, o0, conj0, x1, o1, conj1, beta, r, o_r)
+        return out if dtype is None or r is not None else cplx.cmap(
+            lambda a: a.to(dtype), out) if cplx.is_carray(out) else out.to(dtype)
     if r is not None:
         dimr = tuple(r.shape)
         dtype = r.dtype

@@ -40,6 +40,7 @@ from ..labels import (
     split_box,
     volume,
 )
+from ._guard import is_sharded
 from .permute import maybe_permute
 
 __all__ = ["local_copy", "local_permute"]
@@ -115,10 +116,17 @@ def local_copy(
 
     Returns the updated ``y`` (functional: the caller's ``y`` is left as it
     was).  ``x`` and ``y`` are tensors or split-complex ``cplx.CArray``s.
-    See the module docstring for the full semantics.
+    See the module docstring for the full semantics.  Sharded operands
+    (DTensors, or CArrays of them) go to ``parallel.copy``, which moves
+    only the boxes' pieces between ranks; the result is sharded as ``y``.
     """
     check_order(o0)
     check_order(o1)
+    if is_sharded(x, y):
+        from ..parallel.dist import copy as dist_copy
+
+        return dist_copy(alpha, x, o0, y, o1, from0=from0, size0=size0, from1=from1,
+                         copy_add=copy_add, mask0=mask0, mask1=mask1)
     if copy_add not in ("copy", "add"):
         raise ValueError(f"copy_add must be 'copy' or 'add', got {copy_add!r}")
 
@@ -274,9 +282,15 @@ def _masked_copy(alpha, x, o0, y, o1, from0, size0, from1, size1, copy_add,
 
 def local_permute(x, o0: str, o1: str, dtype=None):
     """Return ``x`` with axes reordered from label order o0 to o1.
-    Accepts plain tensors or split-complex cplx.CArray."""
+    Accepts plain tensors or split-complex cplx.CArray.  A DTensor (or a
+    CArray of them) is permuted shard by shard, its placements following
+    their labels (nothing moves between ranks)."""
     check_order(o0)
     check_order(o1)
+    if is_sharded(x):
+        from ..parallel.dispatch import local_permute_dtensor
+
+        return local_permute_dtensor(x, o0, o1, dtype)
     if cplx.is_carray(x):
         out = cplx.cmap(lambda v: _permute_to(v, o0, o1), x)
     else:

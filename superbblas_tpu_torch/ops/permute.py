@@ -188,6 +188,8 @@ def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int], tile: Tuple) -> torch
     perm, tile = tuple(int(p) for p in perm), tuple(tile)
     if tile not in TILES:
         raise ValueError(f"permute_4d_tiled: design point {tile} is not one of {TILES}")
+    if torch.compiler.is_compiling():
+        return torch.ops.sbt.permute_4d_tiled(x, list(perm), tile[0], list(tile[1:]))
     if x.device.type == "cpu":
         return permute_4d_reference(x, perm)
     if x.device.type != "cuda":
@@ -215,3 +217,15 @@ def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int], tile: Tuple) -> torch
 
 
 permute_4d_tiled.launches = 0
+
+
+@torch.library.custom_op("sbt::permute_4d_tiled", mutates_args=())
+def _tiled_op(x: torch.Tensor, perm: List[int], form: str, point: List[int]) -> torch.Tensor:
+    """:func:`permute_4d_tiled` as an op of a traced program (the design
+    point split into its form and its numbers)."""
+    return permute_4d_tiled(x, perm, (form,) + tuple(point))
+
+
+@_tiled_op.register_fake
+def _(x, perm, form, point):
+    return x.new_empty(tuple(x.shape[p] for p in perm))

@@ -67,6 +67,8 @@ def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
     if x.dtype != torch.bfloat16 or x.ndim < 1 or x.numel() == 0:
         raise ValueError(f"roll_add: a non-empty bf16 tensor, got {x.dtype} "
                          f"{tuple(x.shape)}")
+    if torch.compiler.is_compiling():
+        return torch.ops.sbt.roll_add(x, variant)
     if x.device.type == "cpu":
         return roll_add_reference(x)
     if x.device.type != "cuda":
@@ -97,3 +99,14 @@ def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
 roll_add.launches = 0
 roll_add.by_form = collections.Counter()
 roll_add.by_variant_form = collections.Counter()
+
+
+@torch.library.custom_op("sbt::roll_add", mutates_args=())
+def _roll_add_op(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """:func:`roll_add` as an op of a traced program."""
+    return roll_add(x, variant)
+
+
+@_roll_add_op.register_fake
+def _(x, variant):
+    return torch.empty_like(x)

@@ -926,6 +926,9 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
     operands the kernel (``stencil_matvec_soa_rt.launches``) or raise."""
     refuse_dtensor("stencil_matvec_soa_rt", "parallel.apply_stencil_soa_sharded",
                    tuple(blocks), tuple(x))
+    if torch.compiler.is_compiling():
+        return _traced("stencil_matvec_soa_rt", blocks, kron, x, offsets, bi, bd,
+                       -1 if packed_parity is None else int(packed_parity))
     if _on_cpu(blocks, x, "stencil_matvec_soa_rt"):
         KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
         check_block(KI, KD, bi, bd)
@@ -941,6 +944,81 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
     stencil_matvec_soa_rt.launches += 1
     stencil_matvec_soa_rt.by_shape[KI, KD, bi, bd] += 1
     return y
+
+
+def _traced(name: str, blocks: CArray, kron: Optional[CArray], x: CArray, offsets, bi: int,
+            bd: int, *extra) -> CArray:
+    """Entry ``name`` as its custom op ``sbt::<name>`` in a traced program
+    (the offsets flattened; ``extra`` the entry's own int argument)."""
+    kre, kim = (None, None) if kron is None else (kron.re, kron.im)
+    return CArray(*getattr(torch.ops.sbt, name)(
+        blocks.re, blocks.im, kre, kim, x.re, x.im,
+        [int(v) for off in offsets for v in off], bi, bd, *extra))
+
+
+def _untraced(x_re: torch.Tensor, blocks_re, blocks_im, kron_re, kron_im, x_im, offsets):
+    """The CArrays and offsets of a custom op's arguments."""
+    nd = x_re.ndim - 2
+    offs = tuple(tuple(offsets[i:i + nd]) for i in range(0, len(offsets), nd))
+    kron = None if kron_re is None else CArray(kron_re, kron_im)
+    return CArray(blocks_re, blocks_im), kron, CArray(x_re, x_im), offs
+
+
+def _fake_y(kron_re, x_re, x_im, bi):
+    KI = 1 if kron_re is None else kron_re.shape[1]
+    shape = (x_re.shape[0], KI * bi) + tuple(x_re.shape[2:])
+    return x_re.new_empty(shape), x_im.new_empty(shape)
+
+
+@torch.library.custom_op("sbt::stencil_matvec_soa_rt", mutates_args=())
+def _rt_op(blocks_re: torch.Tensor, blocks_im: torch.Tensor,
+           kron_re: Optional[torch.Tensor], kron_im: Optional[torch.Tensor],
+           x_re: torch.Tensor, x_im: torch.Tensor, offsets: List[int], bi: int, bd: int,
+           packed_parity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stencil_matvec_soa_rt` as an op of a traced program."""
+    b, k, x, offs = _untraced(x_re, blocks_re, blocks_im, kron_re, kron_im, x_im, offsets)
+    y = stencil_matvec_soa_rt(b, k, x, offs, bi, bd,
+                              packed_parity=None if packed_parity < 0 else packed_parity)
+    return y.re.contiguous(), y.im.contiguous()
+
+
+@torch.library.custom_op("sbt::stencil_matvec_soa_xin", mutates_args=())
+def _xin_op(blocks_re: torch.Tensor, blocks_im: torch.Tensor,
+            kron_re: Optional[torch.Tensor], kron_im: Optional[torch.Tensor],
+            x_re: torch.Tensor, x_im: torch.Tensor, offsets: List[int], bi: int,
+            bd: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stencil_matvec_soa_xin` as an op of a traced program: the
+    kron's spin plan is built from its value when the program runs."""
+    b, k, x, offs = _untraced(x_re, blocks_re, blocks_im, kron_re, kron_im, x_im, offsets)
+    y = stencil_matvec_soa_xin(b, k, x, offs, bi, bd)
+    return y.re.contiguous(), y.im.contiguous()
+
+
+@torch.library.custom_op("sbt::stencil_matvec_soa_stream", mutates_args=())
+def _stream_op(blocks_re: torch.Tensor, blocks_im: torch.Tensor,
+               kron_re: Optional[torch.Tensor], kron_im: Optional[torch.Tensor],
+               x_re: torch.Tensor, x_im: torch.Tensor, offsets: List[int], bi: int,
+               bd: int, nc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stencil_matvec_soa_stream` as an op of a traced program (nc
+    -1 for None); the kron's spin plan as for the X-inside schedule."""
+    b, k, x, offs = _untraced(x_re, blocks_re, blocks_im, kron_re, kron_im, x_im, offsets)
+    y = stencil_matvec_soa_stream(b, k, x, offs, bi, bd, nc=None if nc < 0 else nc)
+    return y.re.contiguous(), y.im.contiguous()
+
+
+@_rt_op.register_fake
+def _(blocks_re, blocks_im, kron_re, kron_im, x_re, x_im, offsets, bi, bd, packed_parity):
+    return _fake_y(kron_re, x_re, x_im, bi)
+
+
+@_xin_op.register_fake
+def _(blocks_re, blocks_im, kron_re, kron_im, x_re, x_im, offsets, bi, bd):
+    return _fake_y(kron_re, x_re, x_im, bi)
+
+
+@_stream_op.register_fake
+def _(blocks_re, blocks_im, kron_re, kron_im, x_re, x_im, offsets, bi, bd, nc):
+    return _fake_y(kron_re, x_re, x_im, bi)
 
 
 def _schedule(entry: str, blocks: CArray, kron: Optional[CArray], x: CArray, offsets,
@@ -982,6 +1060,8 @@ def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
     n, X = x.shape[0], x.shape[2]
     elem = x.re.element_size()
     S, C, rs = xin_tile(n, X, KD * bd, elem)
+    if torch.compiler.is_compiling():
+        return _traced("stencil_matvec_soa_xin", blocks, kron, x, offsets, bi, bd)
     if _on_cpu(blocks, x, "stencil_matvec_soa_xin"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
     fits16 = S * elem % 16 == 0 and x.shape[3:].numel() * elem % 16 == 0
@@ -1008,6 +1088,9 @@ def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
     n = x.shape[0]
     if nc is not None and (nc < 1 or n % nc):
         raise ValueError(f"nc={nc} must divide the column count n={n}")
+    if torch.compiler.is_compiling():
+        return _traced("stencil_matvec_soa_stream", blocks, kron, x, offsets, bi, bd,
+                       -1 if nc is None else int(nc))
     if _on_cpu(blocks, x, "stencil_matvec_soa_stream"):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])

@@ -12,7 +12,10 @@ masked copy — is ``dist.all_to_all_single`` with per-peer split sizes
 (NCCL on the card, gloo on the CPU).  The kernels run on each rank's
 local shard: the SoA stencil K1 through ``apply_stencil_soa_sharded``,
 the AoS stencil and gather modes through ``bsr_krylov_overlap`` /
-``bsr_krylov_ca`` / ``apply_gather_sharded`` (K3/E1).
+``bsr_krylov_ca`` / ``apply_gather_sharded`` (K3/E1).  The package's
+ordinary entry points (``bsr.apply_stencil_soa``, ``bsr.bsr_krylov``,
+the model applies and solves, ``local_copy``, ``local_permute``,
+``local_contraction``) send DTensor operands here (``dispatch.py``).
 """
 
 from .partition import (

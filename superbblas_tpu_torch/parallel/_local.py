@@ -3,6 +3,8 @@ shared by the distributed layer's modules."""
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from .. import cplx
@@ -94,3 +96,93 @@ def wrap_labels(loc, mesh, o: str, axes: dict, shape):
                                   stride=c_strides(shape))
 
     return cplx.cmap(wrap, loc) if cplx.is_carray(loc) else wrap(loc)
+
+
+def dtensor_of(t):
+    """The DTensor behind ``t`` (a DTensor or a CArray of them), or None
+    for a plain tensor (a CArray whose parts disagree raises)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None or t is None:
+        return None
+    if cplx.is_carray(t):
+        a, b = isinstance(t.re, mod.DTensor), isinstance(t.im, mod.DTensor)
+        if a != b:
+            raise ValueError("a CArray with one sharded part and one plain part")
+        return t.re if a else None
+    return t if isinstance(t, mod.DTensor) else None
+
+
+def mesh_axes(t, o: str):
+    """``(mesh, {label: mesh axis})`` of the DTensor ``t`` (or CArray of
+    them) with labels ``o``: its placements read as the ``parallel``
+    functions take them; ``(None, {})`` for a plain tensor.  A label
+    sharded over two mesh axes, or a partial placement, raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d = dtensor_of(t)
+    if d is None:
+        return None, {}
+    if d.ndim != len(o):
+        raise ValueError(f"a rank-{d.ndim} DTensor with labels {o!r}")
+    out = {}
+    for nm, p in zip(d.device_mesh.mesh_dim_names, d.placements):
+        if isinstance(p, Shard):
+            c = o[p.dim]
+            if c in out:
+                raise ValueError(f"label {c!r} is sharded over two mesh axes "
+                                 f"({out[c]!r}, {nm!r}); the sharded entry points take one")
+            out[c] = nm
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"placement {p} has no partition (reduce it first)")
+    return d.device_mesh, out
+
+
+def shard_origin(t) -> tuple:
+    """Global offset of this rank's shard of the DTensor ``t`` (or CArray
+    of them), per array axis; zeros for a plain tensor."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    d = dtensor_of(t)
+    if d is None:
+        a = t.re if cplx.is_carray(t) else t
+        return (0,) * a.ndim
+    return tuple(int(v) for v in compute_local_shape_and_global_offset(
+        d.shape, d.device_mesh, d.placements)[1])
+
+
+def lattice_shards(op, x, ox: str, what: str):
+    """(mesh, {lattice label: mesh axis}, {other label: mesh axis}) of a
+    sharded operand ``x`` (labels ``ox``) of the operator ``op``; ``op``'s
+    blocks, where they are DTensors, must live on x's mesh and shard the
+    lattice as x does.  Only lattice and column labels may be sharded."""
+    mesh, lab = mesh_axes(x, ox)
+    if mesh is None:
+        raise ValueError(f"{what}: the blocks are sharded but the field is not; shard "
+                         "the field as the blocks")
+    fixed = op.kron_d + op.blk_d
+    bad = [c for c in lab if c in fixed]
+    if bad:
+        raise ValueError(f"{what}: labels {bad} (spin or block) are sharded; only lattice "
+                         "and column labels may be")
+    lat = {c: nm for c, nm in lab.items() if c in op.lat_d}
+    cols = {c: nm for c, nm in lab.items() if c not in op.lat_d}
+    blk = dtensor_of(op.blocks_re if op.blocks_im is None else
+                     cplx.CArray(op.blocks_re, op.blocks_im))
+    if blk is not None and op.mode == "gather":
+        raise ValueError(f"{what}: gather-mode blocks are stored flat; keep them whole on "
+                         "every rank (each rank takes its rows)")
+    if blk is not None:
+        if blk.device_mesh != mesh:
+            raise ValueError(f"{what}: the blocks and the field live on different meshes")
+        nlat = len(op.dim_i)
+        lead = 2 if op.mode == "stencil_soa" else 0
+        names = [chr(0x100 + i) for i in range(blk.ndim)]
+        for k in range(nlat):
+            names[lead + k] = op.lat_d[k]
+        _, blab = mesh_axes(blk, "".join(names))
+        for c in set(blab) | set(lat):
+            if blab.get(c) != lat.get(c):
+                raise ValueError(
+                    f"{what}: the blocks shard lattice label {c!r} over {blab.get(c)!r} "
+                    f"and the field over {lat.get(c)!r}; they must agree")
+    return mesh, lat, cols

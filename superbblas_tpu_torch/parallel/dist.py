@@ -103,10 +103,11 @@ def _write(yl, frm, piece, alpha, copy_add):
         yl[sl] += piece
 
 
-def _copy_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add, x_boxes, y_boxes,
-                dim0, dim1):
-    """Unmasked distributed copy of one real part: returns y's new local
-    shard."""
+def _copy_parts(alpha, xl, x_plain, o0, yl, o1, from0, size0, from1, copy_add, x_boxes,
+                y_boxes, dim0, dim1):
+    """Unmasked distributed copy of one real part (``xl``, ``yl``: this
+    rank's shards, or the whole tensor every rank holds where ``x_plain``;
+    ``o0`` and ``o1`` hold the same labels): returns y's new local shard."""
     from torch.distributed.tensor import DTensor, Shard
 
     from .redistribute import _axis_mesh, redistribute_explicit
@@ -114,10 +115,9 @@ def _copy_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add, x_boxes, y
     import torch.distributed as dist
 
     r, n = dist.get_rank(), dist.get_world_size()
-    xl, yl = local(xp), local(yp).clone()
+    yl = yl.clone()
     amap = [o1.index(c) for c in o0]
     perm = find_permutation(o0, o1)
-    x_plain = _dt(xp) is None
     for off, sh in _cut_region(from0, size0, dim0, from1, dim1, amap):
         xlo = tuple((f + o) % d for f, o, d in zip(from0, off, dim0))
         ylo, ysh = [0] * len(o1), [0] * len(o1)
@@ -154,7 +154,7 @@ def _copy_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add, x_boxes, y
     return yl
 
 
-def _masked_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add, x_boxes, y_boxes,
+def _masked_parts(alpha, xl, o0, yl, o1, from0, size0, from1, copy_add, x_boxes, y_boxes,
                   dim0, dim1, mask0, mask1):
     """Masked distributed copy of one real part: the i-th selected source
     element (scanned in o1 order) goes to the i-th selected destination
@@ -177,7 +177,7 @@ def _masked_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add, x_boxes,
     if src_sel.size != dst_sel.size:
         raise ValueError(f"masked copy: incompatible masks ({src_sel.size} source vs "
                          f"{dst_sel.size} destination selected elements)")
-    xl, yl = local(xp), local(yp).clone()
+    yl = yl.clone()
     xc = np.stack(np.unravel_index(src_sel, dim0), -1)
     yc = np.stack(np.unravel_index(dst_sel, dim1), -1)
 
@@ -235,7 +235,10 @@ def copy(
     every rank holds); the result is the updated ``y`` with ``y``'s
     sharding, or ``out_sharding``'s if given.  Without a DTensor operand
     it is ``local_copy``.  ``mask0``/``mask1`` are global host masks, as
-    ``local_copy`` takes them."""
+    ``local_copy`` takes them.  ``o0`` and ``o1`` may hold different
+    labels where ``labels.check_isomorphic`` admits them: a label on one
+    side only has extent 1 in the copied box (a spin component sliced
+    into a field without spin, or the reverse)."""
     if flags.get_debug_level() >= 2:
         from ..utils.testing import verify_copy
 
@@ -244,9 +247,6 @@ def copy(
         out = local_copy(alpha, x, o0, y, o1, from0=from0, size0=size0, from1=from1,
                          copy_add=copy_add, mask0=mask0, mask1=mask1)
         return out if out_sharding is None else reshard(out, out_sharding)
-    if set(o0) != set(o1):
-        raise NotImplementedError("the distributed copy moves between orders of the "
-                                  f"same labels; got {o0!r} and {o1!r}")
     dim0, dim1 = tuple(x.shape), tuple(y.shape)
     from0 = tuple(int(v) for v in from0) if from0 is not None else (0,) * len(o0)
     size0 = tuple(int(v) for v in size0) if size0 is not None else dim0
@@ -257,6 +257,18 @@ def copy(
     x_boxes, y_boxes = _boxes(x, dim0), _boxes(y, dim1)
     if len(x_boxes) != len(y_boxes):
         raise ValueError("x and y live on meshes of different rank counts")
+    # labels on one side only have extent 1 in the copy: give each side the
+    # other's as trailing axes of extent 1, so that both hold the same labels
+    add0 = "".join(c for c in o1 if c not in o0)
+    add1 = "".join(c for c in o0 if c not in o1)
+    one0, one1 = (1,) * len(add0), (1,) * len(add1)
+    o0w, o1w = o0 + add0, o1 + add1
+    dim0w, dim1w = dim0 + one0, dim1 + one1
+    from0w, size0w, from1w = from0 + (0,) * len(add0), size0 + one0, from1 + (0,) * len(add1)
+    x_boxes = [(f + (0,) * len(add0), z + one0) for f, z in x_boxes]
+    y_boxes = [(f + (0,) * len(add1), z + one1) for f, z in y_boxes]
+    m0 = None if mask0 is None else np.asarray(mask0).reshape(dim0w)
+    m1 = None if mask1 is None else np.asarray(mask1).reshape(dim1w)
     xs = cplx.is_carray(x) or cplx.is_carray(y)
     if xs:
         xc = x if cplx.is_carray(x) else cplx.CArray(x, torch.zeros_like(x))
@@ -268,15 +280,20 @@ def copy(
     else:
         pairs = [(x, y)]
     outs = []
+    x_plain = _dt(x) is None
     for xp, yp in pairs:
+        xl, yl = local(xp), local(yp)
         if volume(size0) == 0:
-            outs.append(local(yp))
-        elif mask0 is not None or mask1 is not None:
-            outs.append(_masked_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add,
-                                      x_boxes, y_boxes, dim0, dim1, mask0, mask1))
+            outs.append(yl)
+            continue
+        xw, yw = xl.reshape(tuple(xl.shape) + one0), yl.reshape(tuple(yl.shape) + one1)
+        if mask0 is not None or mask1 is not None:
+            got = _masked_parts(alpha, xw, o0w, yw, o1w, from0w, size0w, from1w, copy_add,
+                                x_boxes, y_boxes, dim0w, dim1w, m0, m1)
         else:
-            outs.append(_copy_parts(alpha, xp, o0, yp, o1, from0, size0, from1, copy_add,
-                                    x_boxes, y_boxes, dim0, dim1))
+            got = _copy_parts(alpha, xw, x_plain, o0w, yw, o1w, from0w, size0w, from1w,
+                              copy_add, x_boxes, y_boxes, dim0w, dim1w)
+        outs.append(got.reshape(yl.shape))
     if _dt(y) is None:
         out = cplx.CArray(*outs) if xs else outs[0]
     else:
@@ -294,7 +311,8 @@ def _label_mesh(x, o: str) -> dict:
     from .mesh import sharding_of
 
     spec = sharding_of(x).spec
-    return {nm: o[i] for i, nm in enumerate(spec) if nm is not None}
+    return {nm: o[i] for i, e in enumerate(spec) if e is not None
+            for nm in ((e,) if isinstance(e, str) else e)}
 
 
 def _respec(x, o: str, want: dict):

@@ -24,8 +24,9 @@ import torch
 
 from .. import cplx
 from ._local import c_strides
+from .mesh import axis_size
 
-__all__ = ["exchange_halos", "crop_halos", "extend_local", "post_halos"]
+__all__ = ["exchange_halos", "crop_halos", "extend_local", "post_halos", "roll_local"]
 
 
 def _edge(a: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
@@ -178,3 +179,19 @@ def crop_halos(x, widths: Dict[int, int]):
     if cplx.is_carray(x):
         return cplx.cmap(crop, x)
     return crop(x)
+
+
+def roll_local(a: torch.Tensor, shift: int, axis: int, name, mesh) -> torch.Tensor:
+    """This rank's shard of ``torch.roll(global, shift, axis)`` for a
+    tensor sharded on ``axis`` over mesh axis ``name`` (None, or a 1-rank
+    axis: a local roll): one exchange of the |shift|-wide edges,
+    |shift| at most the local extent."""
+    if name is None or axis_size(mesh, name) == 1:
+        return torch.roll(a, shift, dims=axis)
+    w, L = abs(shift), a.shape[axis]
+    if w == 0:
+        return a
+    if w > L:
+        raise ValueError(f"a roll by {shift} exceeds the local extent {L}")
+    (lo, hi), = post_halos([a], axis, name, w, mesh).wait()
+    return torch.cat([lo, a, hi], dim=axis).narrow(axis, w - shift, L)

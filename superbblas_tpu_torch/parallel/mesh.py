@@ -33,7 +33,8 @@ __all__ = ["PartitionSpec", "NamedSharding", "SingleDeviceSharding", "RankGrid",
 
 
 class PartitionSpec(tuple):
-    """Per array axis, the mesh axis name that shards it, or None."""
+    """Per array axis, the mesh axis name that shards it, a tuple of names
+    (the axis split over their product, the first major), or None."""
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
@@ -79,44 +80,61 @@ class NamedSharding:
     mesh: object
     spec: PartitionSpec
 
+    def _names(self, entry) -> tuple:
+        """The mesh axes of one spec entry, major first: () for None, one
+        name, or a tuple of names (the array axis split over their
+        product)."""
+        return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
     def placements(self):
         """The DTensor placements: per mesh dimension, ``Shard(axis)`` of
-        the array axis the spec gives it, else ``Replicate()``."""
+        the array axis the spec gives it, else ``Replicate()``.  An entry
+        naming several mesh axes gives each a ``Shard`` of that axis
+        (DTensor nests them in the mesh's order, so the entry must name
+        them in that order)."""
         from torch.distributed.tensor import Replicate, Shard
 
+        names = tuple(self.mesh.mesh_dim_names)
+        for e in self.spec:
+            got = self._names(e)
+            if len(got) > 1 and list(got) != sorted(got, key=names.index):
+                raise NotImplementedError(
+                    f"spec entry {e}: DTensor nests the shards of one array axis in the "
+                    f"mesh's order {names}; name them so")
         out = []
-        for name in self.mesh.mesh_dim_names:
-            axes = [i for i, s in enumerate(self.spec) if s == name]
+        for name in names:
+            axes = [i for i, e in enumerate(self.spec) if name in self._names(e)]
             out.append(Shard(axes[0]) if axes else Replicate())
         return out
 
     def boxes(self, shape) -> list:
         """(from, size) of the block each rank of the mesh holds, in rank
         order (DTensor's chunking: ceil(d / n) per shard, the last ones
-        smaller or empty)."""
+        smaller or empty; an axis split over several mesh axes is cut by
+        the first, each piece by the next, and so on, as DTensor nests
+        them and as the JAX package's ``devices_indices_map`` gives them
+        where the extents divide)."""
         shape = tuple(int(d) for d in shape)
         ranks = _mesh_ranks(self.mesh)
         names = tuple(self.mesh.mesh_dim_names)
-        for s in self.spec:
-            if s is not None and not isinstance(s, str):
-                raise NotImplementedError("a spec entry names one mesh axis or None")
-            if s is not None and s not in names:
-                raise ValueError(f"spec names {s!r}, not an axis of the mesh {names}")
+        for e in self.spec:
+            if e is not None and not isinstance(e, (str, tuple, list)):
+                raise NotImplementedError("a spec entry names mesh axes or None")
+            for s in self._names(e):
+                if s not in names:
+                    raise ValueError(f"spec names {s!r}, not an axis of the mesh {names}")
         out = {}
         for coord in np.ndindex(*ranks.shape):
             frm, size = [], []
             for i, d in enumerate(shape):
-                s = self.spec[i] if i < len(self.spec) else None
-                if s is None:
-                    frm.append(0)
-                    size.append(d)
-                    continue
-                m = names.index(s)
-                n = ranks.shape[m]
-                chunk = -(-d // n)
-                f = min(coord[m] * chunk, d)
-                frm.append(f if f < d else 0)
-                size.append(max(0, min(chunk, d - coord[m] * chunk)))
+                f, z = 0, d
+                for s in self._names(self.spec[i] if i < len(self.spec) else None):
+                    m = names.index(s)
+                    chunk = -(-z // ranks.shape[m])
+                    lo = min(coord[m] * chunk, z)
+                    f, z = f + lo, max(0, min(chunk, z - lo))
+                frm.append(f if z else 0)
+                size.append(z)
             if volume(size) == 0:
                 frm = [0] * len(shape)
             out[int(ranks[coord])] = (tuple(frm), tuple(size))
@@ -246,9 +264,9 @@ def sharding_of(x) -> NamedSharding:
     spec = [None] * a.ndim
     for name, p in zip(a.device_mesh.mesh_dim_names, a.placements):
         if isinstance(p, Shard):
-            if spec[p.dim] is not None:
-                raise NotImplementedError("an array axis sharded over two mesh axes")
-            spec[p.dim] = name
+            # a second mesh axis on one array axis nests inside the first
+            spec[p.dim] = name if spec[p.dim] is None else (
+                (spec[p.dim],) if isinstance(spec[p.dim], str) else spec[p.dim]) + (name,)
         elif not isinstance(p, Replicate):
             raise ValueError(f"placement {p} has no partition (reduce it first)")
     return NamedSharding(a.device_mesh, PartitionSpec(*spec))

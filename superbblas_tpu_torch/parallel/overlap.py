@@ -36,7 +36,7 @@ from ..ops.copy import _is_static, local_permute
 from ._local import local_slab
 from .halo import post_halos
 from .mesh import axis_size
-from .powers import _prepare, _wrap
+from .powers import _local_cols, _prepare, _wrap
 
 __all__ = ["bsr_krylov_overlap"]
 
@@ -123,7 +123,7 @@ def bsr_krylov_overlap(
     if oy is None:
         oy = op.lat_i + op.kron_i + op.blk_i + cols
     check_order(oy)
-    xc, shard, cols, col_shape, user_complex = _prepare(op, x, ox, mesh, axes)
+    xc, shard, cols, col_shape, user_complex, col_axes = _prepare(op, x, ox, mesh, axes)
     nlat = len(op.dim_d)
 
     if op.mode == "gather":
@@ -135,7 +135,7 @@ def bsr_krylov_overlap(
             fn = _apply_gather_kron if op.kron is not None else _apply_gather
             yc = fn(op, xc)
         return _finish_overlap(op, oy, cols, col_shape, alpha, beta, y, yc, shard, mesh,
-                               user_complex)
+                               user_complex, col_axes)
 
     radius = [max((abs(o[ax]) for o in op.offsets), default=0) for ax in range(nlat)]
     ax_names: Dict[int, str] = {}
@@ -211,16 +211,18 @@ def bsr_krylov_overlap(
             core = cplx.cmap(add_at, core, contrib) if cplx.is_carray(core) \
                 else add_at(core, contrib)
     return _finish_overlap(op, oy, cols, col_shape, alpha, beta, y, core, shard, mesh,
-                           user_complex)
+                           user_complex, col_axes)
 
 
-def _finish_overlap(op, oy, cols, col_shape, alpha, beta, y, yc, shard, mesh, user_complex):
+def _finish_overlap(op, oy, cols, col_shape, alpha, beta, y, yc, shard, mesh, user_complex,
+                    col_axes=None):
     """Shared tail: the canonical [*lat_loc, KI?, BI, N] result in the
     user's oy labels, scaled, beta*y added (y's local slab), complex
     restored, wrapped sharded."""
     lat_loc = tuple(yc.shape[:len(op.dim_i)])
     ki_shape = tuple(op.ki) if op.kron is not None else ()
-    shape = lat_loc + ki_shape + tuple(op.bi) + col_shape
+    shape = lat_loc + ki_shape + tuple(op.bi) + _local_cols(cols, col_shape, col_axes or {},
+                                                            mesh)
     canon_y = op.lat_i + op.kron_i + op.blk_i + cols
     out = local_permute(_reshape(yc, shape), canon_y, oy)
     if not (_is_static(alpha) and alpha == 1):
@@ -231,4 +233,4 @@ def _finish_overlap(op, oy, cols, col_shape, alpha, beta, y, yc, shard, mesh, us
             yl = cplx.from_complex(yl)
         out = cplx.add(out, cplx.scale(beta, yl))
     col_in_oy = tuple(col_shape[cols.index(c)] for c in oy if c in cols)
-    return _wrap(op, out, oy, shard, mesh, (), col_in_oy, user_complex)
+    return _wrap(op, out, oy, shard, mesh, (), col_in_oy, user_complex, col_axes=col_axes)

@@ -38,9 +38,10 @@ __all__ = ["bsr_krylov_ca"]
 
 def _prepare(op: BSROperator, x, ox: str, mesh, axes):
     """Shared preamble of the sharded Krylov paths: this rank's canonical
-    local operand [*lat_loc, KD?, BD, N], the lattice axes sharded
-    ({lattice axis: mesh axis}), the column labels and whether the user
-    passed complex data."""
+    local operand [*lat_loc, KD?, BD, N_loc], the lattice axes sharded
+    ({lattice axis: mesh axis}), the column labels, their global extents,
+    whether the user passed complex data and the column labels x shards
+    ({label: mesh axis}: they need no exchange)."""
     check_order(ox)
     shard = {k: axes[c] for k, c in enumerate(op.lat_d)
              if axes.get(c) is not None and axis_size(mesh, axes[c]) > 1}
@@ -55,6 +56,7 @@ def _prepare(op: BSROperator, x, ox: str, mesh, axes):
     if user_complex:
         xl = cplx.from_complex(xl)
     cols = "".join(c for c in ox if c not in op.lat_d + op.kron_d + op.blk_d)
+    col_axes = {c: nm for c, nm in have.items() if c in cols}
     canon_x = op.lat_d + op.kron_d + op.blk_d + cols
     xc = local_permute(xl, ox, canon_x)
     nlat = len(op.dim_d)
@@ -64,13 +66,28 @@ def _prepare(op: BSROperator, x, ox: str, mesh, axes):
     N = volume(xc.shape[nlat + len(op.kron_d) + len(op.blk_d):])
     xc = _reshape(xc, lat_shape + ((KD, BD, N) if op.kron is not None else (BD, N)))
     col_shape = tuple(int(x.shape[ox.index(c)]) for c in cols)
-    return xc, shard, cols, col_shape, user_complex
+    return xc, shard, cols, col_shape, user_complex, col_axes
 
 
-def _wrap(op, out, oy: str, shard, mesh, lead: tuple, col_shape, user_complex, extra=""):
+def _local_cols(cols, col_shape, col_axes, mesh):
+    """The local extents of the column labels (a sharded one divides
+    evenly over its mesh axis)."""
+    out = []
+    for c, s in zip(cols, col_shape):
+        n = axis_size(mesh, col_axes[c]) if c in col_axes else 1
+        if s % n:
+            raise ValueError(f"column label {c!r} ({s}) must divide evenly over mesh axis "
+                             f"{col_axes[c]!r} ({n})")
+        out.append(s // n)
+    return tuple(out)
+
+
+def _wrap(op, out, oy: str, shard, mesh, lead: tuple, col_shape, user_complex, extra="",
+          col_axes=None):
     """The local result in labels ``oy`` as a DTensor whose image lattice
-    labels are sharded as the domain's were (a plain tensor where nothing
-    is sharded)."""
+    labels are sharded as the domain's were, and its column labels as x's
+    (a plain tensor where nothing is sharded); ``col_shape`` holds the
+    global column extents in oy's order."""
     if user_complex:
         out = cplx.to_complex(out)
     ki = tuple(op.ki) if op.kron is not None else ()
@@ -78,9 +95,11 @@ def _wrap(op, out, oy: str, shard, mesh, lead: tuple, col_shape, user_complex, e
                                   lead + tuple(op.dim_i) + ki + tuple(op.bi))}
     canon_cols = [c for c in oy if c not in shape]
     shape.update(dict(zip(canon_cols, col_shape)))
-    if not shard:
+    col_axes = col_axes or {}
+    if not shard and not col_axes:
         return out
     axes = {op.lat_i[k]: nm for k, nm in shard.items()}
+    axes.update(col_axes)
     return wrap_labels(out, mesh, oy, axes, tuple(shape[c] for c in oy))
 
 
@@ -121,7 +140,7 @@ def bsr_krylov_ca(
     check_order(oy)
     if okr not in oy:
         raise ValueError(f"power label {okr!r} not in oy={oy!r}")
-    xc, shard, cols, col_shape, user_complex = _prepare(op, x, ox, mesh, axes)
+    xc, shard, cols, col_shape, user_complex, col_axes = _prepare(op, x, ox, mesh, axes)
     nlat = len(op.dim_d)
 
     if op.mode == "gather":
@@ -165,19 +184,21 @@ def bsr_krylov_ca(
             outs.append(_crop(cur, widths))
         stacked = _stack(outs, axis=0)
     return _finish_powers(op, oy, okr, cols, col_shape, alpha, power, stacked, shard, mesh,
-                          user_complex)
+                          user_complex, col_axes)
 
 
 def _finish_powers(op, oy, okr, cols, col_shape, alpha, power, stacked, shard, mesh,
-                   user_complex):
+                   user_complex, col_axes=None):
     """Shared tail: the canonical [power, *lat_loc, KI?, BI, N] stack in
     the user's oy labels, scaled, complex restored, wrapped sharded."""
     lat_loc = tuple(stacked.shape[1:1 + len(op.dim_i)])
     ki_shape = tuple(op.ki) if op.kron is not None else ()
-    shape = (power,) + lat_loc + ki_shape + tuple(op.bi) + col_shape
+    loc_cols = _local_cols(cols, col_shape, col_axes or {}, mesh)
+    shape = (power,) + lat_loc + ki_shape + tuple(op.bi) + loc_cols
     canon_y = okr + op.lat_i + op.kron_i + op.blk_i + cols
     out = local_permute(_reshape(stacked, shape), canon_y, oy)
     if not (_is_static(alpha) and alpha == 1):
         out = cplx.scale(alpha, out)
     col_in_oy = tuple(col_shape[cols.index(c)] for c in oy if c in cols)
-    return _wrap(op, out, oy, shard, mesh, (power,), col_in_oy, user_complex, extra=okr)
+    return _wrap(op, out, oy, shard, mesh, (power,), col_in_oy, user_complex, extra=okr,
+                 col_axes=col_axes)

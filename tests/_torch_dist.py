@@ -53,9 +53,21 @@ def _free_port() -> int:
 def run_group(suite: str, cases, tmp: Path, nproc: int = 4, timeout: float = 180.0,
               env=None) -> GroupResult:
     """Run ``cases`` ([(name, kind, params)]) of ``suite`` on a gloo group
-    of ``nproc`` processes; returns a GroupResult."""
+    of ``nproc`` processes; returns a GroupResult.  The rendezvous port is
+    free when it is picked but may be taken before rank 0 binds it (several
+    groups start at once under xdist): a group whose rank 0 found it taken
+    starts again once on another port."""
+    res = _run_group(suite, cases, tmp, nproc, timeout, env)
+    if res.error is not None and "address already in use" in res.log.lower():
+        res = _run_group(suite, cases, tmp, nproc, timeout, env)
+    return res
+
+
+def _run_group(suite, cases, tmp, nproc, timeout, env) -> GroupResult:
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
+    for old in tmp.glob("out_rank*.pkl"):
+        old.unlink()
     with open(tmp / "cases.pkl", "wb") as f:
         pickle.dump(list(cases), f)
     port = str(_free_port())

@@ -331,12 +331,12 @@ def k_refusal(p):
     x = shard(p["x"], m, p["spec"])
     b = shard(np.ones((4, 3, 3)), m, ("X", None, None))
     calls = {
-        "stencil_matvec_soa": lambda: bsr.apply_stencil_soa(ops, x),
+        "stencil_matvec_soa": lambda: stencil.stencil_matvec_soa(
+            ops.blocks, op.kron, x, op.offsets, 3, 3),
         "batched_small_gemm": lambda: batched_gemm.batched_small_gemm(b, b),
         "batched_gemm_rowpack": lambda: batched_gemm.batched_gemm_rowpack(b, b),
         "maybe_permute": lambda: permute.maybe_permute(x.re, (0, 1, 5, 3, 4, 2)),
         "permute_4d": lambda: permute.permute_4d(b, (2, 1, 0)),
-        "bsr_krylov": lambda: bsr.bsr_krylov(1.0, ops, x, "nSCxyzt"),
         "stencil_matvec_soa_rt": lambda: stencil.stencil_matvec_soa_rt(
             ops.blocks, op.kron, x, op.offsets, 3, 3),
     }
@@ -347,6 +347,9 @@ def k_refusal(p):
             out[name] = ""
         except ValueError as e:
             out[name] = str(e)
+    # one level up, the ordinary entry point takes the DTensor to the
+    # sharded apply (the wrappers above see only local shards)
+    out["entry"] = str(bsr.apply_stencil_soa(ops, x).re.placements)
     out["inner"] = float(cplx.inner_real(x, x))
     out["local_inner"] = float((x.re.to_local() ** 2).sum() + (x.im.to_local() ** 2).sum())
     return out
@@ -424,6 +427,151 @@ def k_raises(p):
         return {"raised": ""}
     except (ValueError, NotImplementedError) as e:
         return {"raised": f"{type(e).__name__}: {e}"}
+
+
+# ---------------------------------------------------------------------------
+# the ordinary entry points on sharded operands
+
+
+def _family(p):
+    from superbblas_tpu_torch.models import clover as C, domain_wall as D, staggered as S
+    from superbblas_tpu_torch.models import wilson as W
+
+    f, lat = p["family"], tuple(p["lat"])
+    kw = dict(links=p["links"], dtype=torch.complex128, layout=p["layout"], device="cpu")
+    if f == "wilson":
+        return W.wilson_operator(lat, mass=p["mass"], **kw), W.apply_wilson
+    if f == "twisted":
+        return W.twisted_mass_operator(lat, mass=p["mass"], mu=p["mu"], **kw), W.apply_wilson
+    if f == "clover":
+        return C.wilson_clover_operator(lat, mass=p["mass"], c_sw=p["c_sw"], **kw), \
+            C.apply_clover
+    if f == "staggered":
+        return S.staggered_operator(lat, mass=p["mass"], **kw), S.apply_staggered
+    return D.mobius_operator(lat, Ls=p["Ls"], M5=p["M5"], m_f=p["m_f"], b5=p["b5"],
+                             c5=p["c5"], **kw), D.apply_domain_wall
+
+
+def _comms(fn):
+    """fn() and the collectives it made ({op name: count})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    with CommDebugMode() as c:
+        out = fn()
+    return out, {str(k).split("'")[1] if "'" in str(k) else str(k): int(v)
+                 for k, v in c.get_comm_counts().items()}
+
+
+def k_entry_apply(p):
+    """A family's apply on a sharded field (and sharded blocks where
+    ``blocks_spec``), against the same call on the whole field."""
+    m = mesh(*p["mesh"])
+    op, apply = _family(p)
+    if p.get("blocks_spec") is not None:
+        op = op.replace(blocks=shard((op.blocks.re.numpy(), op.blocks.im.numpy()), m,
+                                     p["blocks_spec"]))
+    x = shard(p["x"], m, p["spec"])
+    y, comms = _comms(lambda: apply(op, x))
+    plain_op, _ = _family(p)
+    return {"full": full(y), "local": local(y), "plain": local(apply(plain_op, carr(*p["x"]))),
+            "comms": comms, "placements": str(y.re.placements)}
+
+
+def k_entry_solve(p):
+    from superbblas_tpu_torch.models import eo_packed as EP, even_odd as EO, wilson as W
+
+    m = mesh(*p["mesh"])
+    op, _ = _family(p)
+    if p.get("blocks_spec") is not None:
+        op = op.replace(blocks=shard((op.blocks.re.numpy(), op.blocks.im.numpy()), m,
+                                     p["blocks_spec"]))
+    b = shard(p["b"], m, p["spec"])
+    plain_op, _ = _family(p)
+    fn = {"cg": lambda o, v: W.cg_solve(o, v, n_iters=p["iters"]),
+          "eo_packed": lambda o, v: EP.eo_solve_packed_soa(o, v, p["a"], p["iters"]),
+          "eo_packed_aos": lambda o, v: EP.eo_solve_packed(o, v, p["a"], p["iters"]),
+          "eo_masked": lambda o, v: EO.eo_solve(o, v, p["a"], p["iters"])}[p["fn"]]
+    (x, rs), comms = _comms(lambda: fn(op, b))
+    xp, rsp = fn(plain_op, carr(*p["b"]))
+    out = {"full": full(x), "rs": float(rs), "plain": local(xp), "rs_plain": float(rsp),
+           "comms": comms}
+    if p["fn"] == "eo_masked":
+        even, _ = EO._masks(op.dim_i, b, len(op.dim_i))
+        out["mask"] = even.numpy()
+        from superbblas_tpu_torch.parallel._local import shard_origin
+
+        out["origin"] = shard_origin(b)
+    return out
+
+
+def k_entry_packed(p):
+    """cb_pack_soa / the packed hopping / cb_unpack_soa on sharded fields
+    against the plain calls (the packed X is sharded over ``X``, Y over
+    ``Y``: a rank's packing and its halo'd block start at odd y)."""
+    from superbblas_tpu_torch.models import eo_packed as EP
+    from superbblas_tpu_torch.parallel._local import shard_origin
+
+    m = mesh(*p["mesh"])
+    op, _ = _family(p)
+    b = shard(p["x"], m, p["spec"])
+    bp = carr(*p["x"])
+    out = {"origin": shard_origin(b)}
+    for par_ in (0, 1):
+        packed = EP.cb_pack_soa(b, par_)
+        out[f"pack{par_}"] = full(packed)
+        hop = EP.hopping_packed_soa(op, 1 - par_)
+        y, comms = _comms(lambda: EP.apply_hopping_packed_soa(hop, packed, 1 - par_))
+        out[f"hop{par_}"] = local(y)
+        out[f"comms{par_}"] = comms
+        hp = EP.hopping_packed_soa(op, 1 - par_)
+        out[f"hop{par_}_plain"] = local(EP.apply_hopping_packed_soa(
+            hp, EP.cb_pack_soa(bp, par_), 1 - par_))
+    out["unpack"] = full(EP.cb_unpack_soa(EP.cb_pack_soa(b, 0), EP.cb_pack_soa(b, 1)))
+    return out
+
+
+def k_entry_krylov(p):
+    """bsr_krylov on a sharded field: gather mode, powers with okr, an SoA
+    operator in any order."""
+    from superbblas_tpu_torch import bsr
+
+    m = mesh(*p["mesh"])
+    op = _op(p) if p["op"] != "family" else _family(p)[0]
+    x = shard(p["x"], m, p["spec"])
+    y0 = shard(p["y"], m, p["y_spec"]) if p.get("y") is not None else None
+    out, comms = _comms(lambda: bsr.bsr_krylov(p["alpha"], op, x, p["ox"], p.get("beta", 0.0),
+                                               y0, p.get("oy"), p.get("okr"),
+                                               p.get("power", 1)))
+    return {"full": full(out), "comms": comms}
+
+
+def k_entry_engine(p):
+    """local_copy / local_permute / local_contraction / parallel.copy on
+    sharded operands."""
+    from superbblas_tpu_torch.ops.contract import local_contraction
+    from superbblas_tpu_torch.ops.copy import local_copy, local_permute
+
+    fn = p["fn"]
+    if fn == "permute":
+        out, comms = _comms(lambda: local_permute(_operand(p, "x"), p["o0"], p["o1"]))
+    elif fn == "contraction":
+        x0, x1 = _operand(p, "x0"), _operand(p, "x1")
+        out, comms = _comms(lambda: local_contraction(
+            p["alpha"], x0, p["o0"], p.get("conj0", False), x1, p["o1"], p.get("conj1", False),
+            0.0, None, p["o_r"]))
+    else:
+        x, y = _operand(p, "x"), _operand(p, "y")
+        call = local_copy if fn == "copy" else par.copy
+        out, comms = _comms(lambda: call(p["alpha"], x, p["o0"], y, p["o1"],
+                                         from0=p.get("from0"), size0=p.get("size0"),
+                                         from1=p.get("from1"),
+                                         copy_add=p.get("copy_add", "copy"),
+                                         mask0=p.get("mask0"), mask1=p.get("mask1")))
+    from torch.distributed.tensor import DTensor
+
+    a = out.re if cplx.is_carray(out) else out
+    return {"full": full(out), "comms": comms,
+            "placements": str(a.placements) if isinstance(a, DTensor) else ""}
 
 
 # ---------------------------------------------------------------------------

@@ -104,3 +104,25 @@ def gamma5_np():
 
     g = gamma_matrices()
     return g[0] @ g[1] @ g[2] @ g[3]
+
+
+def jax_native_lib(wait: float = 60.0):
+    """The JAX package's native plan library, built by whichever test
+    process gets there first.  Its loader compiles with g++ straight into
+    the library's path and remembers a failed load, so a process that loads
+    while another is writing the file gets None for good: with several test
+    processes starting at once this skipped the port's native tests.  This
+    forgets such a failure and looks again until the library loads, the
+    machine has no g++, or ``wait`` seconds pass."""
+    import shutil
+    import time
+
+    from superbblas_tpu import native as jnative
+
+    t0 = time.monotonic()
+    while True:
+        lib = jnative.get_lib()
+        if lib is not None or shutil.which("g++") is None or time.monotonic() - t0 > wait:
+            return lib
+        jnative._tried = False
+        time.sleep(0.5)

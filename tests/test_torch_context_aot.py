@@ -175,6 +175,88 @@ def test_export_on_cuda_tensors_holds_kernel_ops(tmp_path, case, target):
     assert (tmp_path / f"{case}.pt2").stat().st_size > 0 and path.endswith(".pt2")
 
 
+def _probe_call(name):
+    """(function, argument shapes and dtypes) of a call reaching one of the
+    entries with no caller in the package: K1's runtime-shape route, the
+    schedules K4a/K4b, the tile sweep E3 and the roll-add probe E2."""
+    import superbblas_tpu_torch.cplx as TC
+    from superbblas_tpu_torch.models.wilson import wilson_offsets
+    from superbblas_tpu_torch.ops import permute as TP, roll_add as TR, stencil as TS
+
+    lat = (8, 4, 4, 8)
+    offs = wilson_offsets(4)
+    soa = [(9, 9) + lat, (9, 9) + lat, (9, 4, 4), (9, 4, 4), (2, 12) + lat, (2, 12) + lat]
+    if name in ("stencil_matvec_soa_rt", "stencil_matvec_soa_xin",
+                "stencil_matvec_soa_stream"):
+        entry = getattr(TS, name)
+
+        def fn(br, bi, kr, ki, xr, xi):
+            y = entry(TC.CArray(br, bi), TC.CArray(kr, ki), TC.CArray(xr, xi), offs, 3, 3)
+            return y.re, y.im
+
+        return fn, [(s, torch.float32) for s in soa]
+    if name == "permute_4d_tiled":
+        return (lambda v: TP.permute_4d_tiled(v, (3, 1, 2, 0), TP.TILES[0]),
+                [((8, 4, 4, 64), torch.float32)])
+    return (lambda v: TR.roll_add(v, "bf16x2"), [((4, 8, 64), torch.bfloat16)])
+
+
+PROBES = ["stencil_matvec_soa_rt", "stencil_matvec_soa_xin", "stencil_matvec_soa_stream",
+          "permute_4d_tiled", "roll_add"]
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_export_on_cuda_tensors_holds_probe_ops(tmp_path, name):
+    """Traced at fake CUDA tensors, a call of an entry that no package path
+    calls (K1's runtime-shape route, K4a, K4b, E3, E2) holds that entry's
+    custom op and nothing else, and export_compiled saves it: the wrappers
+    read data pointers and the schedules the kron's host value, which a
+    traced tensor has not, so the op's real body runs them when the
+    exported program runs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fn, specs = _probe_call(name)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = tuple(torch.empty(s, dtype=dt, device="cuda") for s, dt in specs)
+    path = aot.export_compiled(fn, args, str(tmp_path / f"{name}.pt2"))
+    program = torch.export.export(aot._Module(fn), args)
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert [t for t in targets if t.startswith("sbt.")] == [f"sbt.{name}.default"]
+    assert (tmp_path / f"{name}.pt2").stat().st_size > 0 and path.endswith(".pt2")
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_custom_ops_pass_opcheck_and_match_the_eager_call(name):
+    """Each probe entry's custom op on CPU tensors (its real body is the
+    eager call, so the plain version): schema, fake implementation and
+    real one agree (``torch.library.opcheck``), and the op gives the
+    eager call's bits."""
+    fn, specs = _probe_call(name)
+    g = torch.Generator().manual_seed(5)
+    args = [torch.randn(s, generator=g).to(dt) for s, dt in specs]
+    op = getattr(torch.ops.sbt, name).default
+    if name.startswith("stencil"):
+        from superbblas_tpu_torch.models.wilson import wilson_offsets
+
+        extra = {"stencil_matvec_soa_rt": [-1], "stencil_matvec_soa_xin": [],
+                 "stencil_matvec_soa_stream": [-1]}[name]
+        op_args = tuple(args) + ([v for off in wilson_offsets(4) for v in off], 3, 3, *extra)
+        want = fn(*args)
+    elif name == "permute_4d_tiled":
+        from superbblas_tpu_torch.ops.permute import TILES
+
+        op_args = (args[0], [3, 1, 2, 0], TILES[0][0], list(TILES[0][1:]))
+        want = (fn(*args),)
+    else:
+        op_args = (args[0], "bf16x2")
+        want = (fn(*args),)
+    torch.library.opcheck(op, op_args)
+    got = op(*op_args)
+    got = got if isinstance(got, tuple) else (got,)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
 @pytest.mark.parametrize("op", ["stencil_matvec_soa", "permute_4d", "batched_small_gemm",
                                 "batched_gemm_rowpack"])
 def test_kernel_custom_ops_pass_opcheck(op):

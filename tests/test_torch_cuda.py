@@ -1110,6 +1110,48 @@ def _kernel_counts():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stencil_matvec_soa_rt", "stencil_matvec_soa_xin",
+                                  "stencil_matvec_soa_stream", "permute_4d_tiled", "roll_add"])
+def test_exported_probe_entry_launches_its_kernel_once(cuda_device, tmp_path, name):
+    """Fault P7 repaired: an entry no package path calls (K1's
+    runtime-shape route, K4a, K4b, E3, E2), exported on the card, traces
+    into its custom op; the loaded program launches its kernel once and
+    gives the eager call's bits."""
+    from superbblas_tpu_torch import aot
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    lat = (8, 4, 4, 8)
+    op = W.wilson_operator(lat, mass=0.1, key=0, layout="soa", device=cuda_device)
+    if name.startswith("stencil"):
+        entry = getattr(S, name)
+
+        def fn(br, bi, kr, ki, xr, xi):
+            y = entry(CArray(br, bi), CArray(kr, ki), CArray(xr, xi), op.offsets, 3, 3)
+            return y.re, y.im
+
+        x = [torch.randn((4, 12) + lat, generator=gen, device=cuda_device) for _ in range(2)]
+        args = (op.blocks.re, op.blocks.im, op.kron.re, op.kron.im, *x)
+    elif name == "permute_4d_tiled":
+        entry = P.permute_4d_tiled
+        fn = lambda v: (P.permute_4d_tiled(v, (3, 2, 1, 0), P.TILES[0]),)  # noqa: E731
+        args = (torch.randn((16, 8, 8, 64), generator=gen, device=cuda_device),)
+    else:
+        entry = R.roll_add
+        fn = lambda v: (R.roll_add(v, "bf16x2"),)  # noqa: E731
+        args = (torch.randn((64, 4, 256), generator=gen, device=cuda_device)
+                .to(torch.bfloat16),)
+    want = fn(*args)
+    loaded = aot.load_exported(aot.export_compiled(fn, args, str(tmp_path / "p.pt2")))
+    torch.cuda.synchronize()
+    before = entry.launches
+    got = loaded(*args)
+    torch.cuda.synchronize()
+    assert entry.launches - before == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["local_permute", "local_contraction", "aos_staggered",
                                   "coarse"])
 def test_export_reaching_k2_k3_e1_launches_them(cuda_device, tmp_path, case):

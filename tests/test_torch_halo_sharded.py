@@ -186,8 +186,10 @@ def test_sharded_solve_checkpoint_redistribute_matches_jax(group):
 
 def test_kernel_wrappers_refuse_dtensors_and_inner_products_reduce(group):
     """No hidden gather: a DTensor reaching a kernel wrapper raises and
-    names the distributed function; the solvers' inner product of sharded
-    fields reads the all-reduced value, not the rank's part."""
+    names the distributed function, while the ordinary entry point one
+    level up (``bsr.apply_stencil_soa``) takes it to the sharded apply;
+    the solvers' inner product of sharded fields reads the all-reduced
+    value, not the rank's part."""
     res, params = group
     x = params["refusal"]["x"]
     want = float((x[0] ** 2).sum() + (x[1] ** 2).sum())
@@ -195,11 +197,11 @@ def test_kernel_wrappers_refuse_dtensors_and_inner_products_reduce(group):
              "stencil_matvec_soa_rt": "apply_stencil_soa_sharded",
              "batched_small_gemm": "apply_gather_sharded",
              "batched_gemm_rowpack": "apply_gather_sharded",
-             "maybe_permute": "parallel.copy", "permute_4d": "parallel.copy",
-             "bsr_krylov": "bsr_krylov_overlap"}
+             "maybe_permute": "parallel.copy", "permute_4d": "parallel.copy"}
     for got in res.case("refusal"):
         for name, hint in hints.items():
             assert got[name].startswith(f"{name}: a sharded DTensor operand; use"), name
             assert hint in got[name], name
+        assert got["entry"] == "(Shard(dim=2), Shard(dim=3))"
         np.testing.assert_allclose(got["inner"], want, rtol=1e-12)
         assert abs(got["local_inner"] - want) > 1e-3 * want

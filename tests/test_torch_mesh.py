@@ -86,6 +86,8 @@ MESH_CASES = [
     ("mesh-2x2-xy", dict(mesh=((2, 2), ("x", "y")), spec=("x", "y", None))),
     ("mesh-2x2-yx", dict(mesh=((2, 2), ("x", "y")), spec=("y", None, "x"))),
     ("mesh-4", dict(mesh=((4,), ("p",)), spec=(None, "p", None))),
+    # one array axis over both mesh axes, x major (DTensor's [Shard(0), Shard(0)])
+    ("mesh-2x2-one-axis", dict(mesh=((2, 2), ("x", "y")), spec=(("x", "y"), None, None))),
     ("mesh-4-replicated", dict(mesh=((4,), ("p",)), spec=(None, None, None))),
 ]
 

@@ -9,6 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from _torch_parity import jax_native_lib
 from superbblas_tpu import native as JN
 from superbblas_tpu import parallel as par
 from superbblas_tpu_torch import native as TN
@@ -18,7 +19,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.fixture(scope="module")
 def both_libs():
-    if TN.get_lib() is None or JN.get_lib() is None:
+    if TN.get_lib() is None or jax_native_lib() is None:
         pytest.skip("native toolchain unavailable")
     return True
 

@@ -10,6 +10,7 @@ from itertools import product
 import numpy as np
 import pytest
 
+from _torch_parity import jax_native_lib
 from superbblas_tpu.parallel import partition as JP
 from superbblas_tpu_torch.parallel import partition as TP
 
@@ -142,7 +143,7 @@ def test_plans_on_both_engines_match_jax(engine, monkeypatch):
     if engine == "python":
         monkeypatch.setattr(native, "fragment_plan", lambda *a, **k: None)
         monkeypatch.setattr(jnative, "fragment_plan", lambda *a, **k: None)
-    elif native.get_lib() is None or jnative.get_lib() is None:
+    elif native.get_lib() is None or jax_native_lib() is None:
         pytest.skip("no C++ toolchain to build the native plan engine")
     rng = np.random.default_rng(321)
     for case in range(25):

@@ -289,6 +289,9 @@ def _group_cases():
     half = (((0, 0), (4, 8)),) * 2 + (((4, 0), (4, 8)),) * 2
     auto("auto-grid", src=PP(da, half), dst=gb, x=xa, order="xy",
          x_mesh=((2, 2), ("x", "y")), x_spec=("x", None))
+    # x's rows split over both mesh axes, [Shard(0), Shard(0)]: the boxes of ga
+    auto("auto-two-axes", src=ga, dst=gb, x=xa, order="xy",
+         x_mesh=((2, 2), ("x", "y")), x_spec=(("x", "y"), None))
     auto("auto-uneven", src=ga, dst=bp("xy", da, (3, 1), nprocs=4), x=xa, order="xy",
          x_mesh=((4,), ("x",)), x_spec=("x", None))
     auto("auto-on-master", src=ga, dst=bp("xy", da, (1, 1), nprocs=4), x=xa, order="xy",
