@@ -1,0 +1,7 @@
+"""Mean ms of a call of ``models.clover.apply_clover`` from the
+benchmark's A and A^H: CUDA events around each call in the traced solves."""
+
+
+def read(t: dict):
+    ms = t.get("spans", {}).get("apply_clover") or []
+    return sum(ms) / len(ms) if ms else None
