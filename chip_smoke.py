@@ -2769,9 +2769,10 @@ TRACK_AGREE = 0.15
 def tracker_aot_path(op, b, gen):
     """The tracker, the context and the AOT capture around K1: five
     Wilson applies at the main shape with SBT_TRACK_TIME=1 (their GFLOP/s
-    in ``report_timings`` against the same applies on CUDA events); K1's
-    wrapper host time with tracking off against the undecorated call, in
-    turns, at the bench shape; ``aot_compile`` of one Wilson CG iteration
+    in ``report_timings`` against the same applies on CUDA events); the
+    host time of ``apply_stencil_soa`` and of K1's wrapper
+    (``stencil_matvec_soa``, its ``k1`` span site) with tracking off
+    against their undecorated bodies, in turns, at the bench shape; ``aot_compile`` of one Wilson CG iteration
     at the bench shape, its replay against the eager call bit for bit;
     ``export_compiled``/``load_exported`` of the Wilson apply at 8^4 x 8,
     the loaded program launching K1, and of a 4-D relabel at 64^4 f32, the
@@ -2816,17 +2817,23 @@ def tracker_aot_path(op, b, gen):
     op8 = wilson_operator(lat8, mass=0.1, key=0, layout="soa", device=ctx.device)
     x8 = context.make_sure(cplx.cmap(lambda v: v.cpu(), randn_c((n, 12) + lat8, gen)), ctx)
     tracked, untracked = bsr.apply_stencil_soa, bsr.apply_stencil_soa.__wrapped__
-    calls = {"tracked": lambda: tracked(op8, x8), "untracked": lambda: untracked(op8, x8)}
-    turns = {"tracked": [], "untracked": []}
+    k1_args = (op8.blocks, op8.kron, x8, op8.offsets, 3, 3)
+    calls = {"tracked": lambda: tracked(op8, x8), "untracked": lambda: untracked(op8, x8),
+             "k1": lambda: stencil_matvec_soa(*k1_args),
+             "k1 body": lambda: stencil_matvec_soa.__wrapped__(*k1_args)}
+    turns = {k: [] for k in calls}
     for r in range(LAUNCH_TURNS):
-        for k in (("tracked", "untracked") if r % 2 == 0 else ("untracked", "tracked")):
+        for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
             turns[k].append(launch_us(calls[k]))
     out["host_us"] = {k: statistics.median(v) for k, v in turns.items()}
     print(f"K1 wrapper host time at {lat8} x {n}, tracking off, {LAUNCH_TURNS} turns of "
           f"{LAUNCH_CALLS} calls: apply_stencil_soa {out['host_us']['tracked']:.2f} us, "
           f"undecorated {out['host_us']['untracked']:.2f} us (turns "
           f"{[round(v, 2) for v in turns['tracked']]} / "
-          f"{[round(v, 2) for v in turns['untracked']]})", flush=True)
+          f"{[round(v, 2) for v in turns['untracked']]}); stencil_matvec_soa with its "
+          f"``k1`` span site {out['host_us']['k1']:.2f} us, its body alone "
+          f"{out['host_us']['k1 body']:.2f} us (turns {[round(v, 2) for v in turns['k1']]} / "
+          f"{[round(v, 2) for v in turns['k1 body']]})", flush=True)
 
     op8_h = adjoint_operator(op8)
     state = (cplx.cmap(torch.zeros_like, x8), x8, x8, cplx.inner_real(x8, x8))
@@ -3743,6 +3750,18 @@ def dist_report_b(res, wall, backend="gloo"):
         raise AssertionError(f"dist (b): checks failed on ranks {bad} (history {hist_rel:.3e})")
 
 
+def kernel_library() -> None:
+    """Build (where ``csrc/`` changed) and load the kernels' library, and
+    say which it did."""
+    t0 = time.perf_counter()
+    builds = tracker.counters().get("kernels.builds", 0)
+    _cuda.library()
+    nvcc = ("already built" if tracker.counters().get("kernels.builds", 0) == builds
+            else "built with nvcc")
+    print(f"kernel library {_cuda.BUILD}: {nvcc}, build and load "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3771,13 +3790,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    _cuda.library()
-    nvcc = ("already built" if _cuda.build_seconds is None
-            else f"nvcc {_cuda.build_seconds:.2f} s")
-    print(f"kernel library {_cuda.BUILD}: {nvcc}, build and load "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-
+    kernel_library()
     rate = copy_rate()
     print(f"device-to-device copy {rate / 1e12:.3f} TB/s measured (1 GiB, read and write "
           f"counted); the bounds take the data sheet's {HBM_BYTES_PER_S / 1e12:.2f} TB/s",

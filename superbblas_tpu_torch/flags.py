@@ -10,7 +10,8 @@ errors:
     checks of the collective storage protocol; >=2 mock-index
     verification of every distributed copy and redistribution
     (utils/testing.py, ``parallel.redistribute._debug_replay``).
-  * ``SBT_TRACK_TIME`` (0/1): enable the tracker (utils/tracker.py).
+  * ``SBT_TRACK_TIME`` (0/1): enable the tracker's call-path report
+    (utils/tracker.py).
   * ``SBT_REDIST_METHOD`` ("auto"|"ragged"|"dense", default "auto"): the
     explicit redistribution's exchange: "ragged" = ``all_to_all_single``
     with the plan's true per-peer counts, "dense" = every pair padded to
@@ -121,11 +122,15 @@ def wrapper_state() -> tuple:
 
 
 def clear_cache() -> None:
-    """Re-read environment variables (for tests)."""
+    """Re-read environment variables (for tests), the tracker's switch
+    among them."""
+    from .utils import tracker
+
     _env_int.cache_clear()
     _env_str.cache_clear()
     _env_float.cache_clear()
     wrapper_state.cache_clear()
+    tracker.refresh()
 
 
 def log(level: int, msg: str) -> None:

@@ -27,6 +27,7 @@ import torch
 
 from .. import cplx
 from ..bsr import BSROperator, apply_stencil_soa, bsr_from_stencil, bsr_krylov
+from ..utils import tracker
 from .wilson import NC, NS, _seed_from_key, apply_wilson, gamma_matrices, links_tensor, \
     random_su3_links, real_parts, wilson_operator
 
@@ -134,10 +135,12 @@ def wilson_clover_operator(
     return CloverOperator(hop=hop, clover=clover, c_sw=c_sw)
 
 
+@tracker.spanned("apply_clover")
 def apply_clover(op: CloverOperator, x):
     """y = D_clover x.  AoS operators take [*lat, NS, NC, ncols] (CArray or
     complex); SoA operators [ncols, 12, *lat] CArrays, both terms running
-    the stencil kernel on the same operand."""
+    the stencil kernel on the same operand.  Each call is an
+    ``apply_clover`` span of the tracker."""
     y_hop = apply_wilson(op.hop, x)
     if op.hop.mode == "stencil_soa":
         return cplx.add(y_hop, apply_stencil_soa(op.clover, x))

@@ -44,6 +44,7 @@ from ..bsr import BSROperator, apply_stencil_soa, bsr_from_stencil, bsr_krylov
 from ..cplx import CArray
 from ..labels import volume
 from ..ops._guard import is_sharded
+from ..utils import tracker
 from .wilson import NC, NS, _seed_from_key, gamma5, gamma_matrices, random_su3_links, \
     wilson_operator
 
@@ -284,8 +285,9 @@ def mobius_operator(
     return _aos_operator(lat5, offsets, blocks, part_np, device)
 
 
+@tracker.spanned("apply_domain_wall")
 def apply_domain_wall(op, x):
-    """y = D_dw x.
+    """y = D_dw x (each call an ``apply_domain_wall`` span of the tracker).
 
     AoS operators (BSROperator): x [Ls, *lat, NS, NC, ncols] (CArray or
     complex), one ``bsr_krylov`` at lattice rank 5.  SoA operators

@@ -3,7 +3,8 @@
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, into
-``_build/<hash of the sources>/``, and loaded with ``ctypes``.  Nothing is
+``_build/<hash of the sources>/``, and loaded with ``ctypes``; each build
+counts in the tracker's ``kernels.builds``.  Nothing is
 built or loaded at import, so the package imports on machines without
 CUDA; on a machine with a card but no ``nvcc`` the build raises.
 """
@@ -18,8 +19,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
+
+from ..utils import tracker
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,9 +32,6 @@ SOURCES = ("stencil_soa.cu", "stencil_rt.cu", "stencil_tiled.cu", "stencil_site.
 HEADERS = ("stencil_soa.cuh", "stencil_plan.cuh", "kernel_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
-
-#: seconds nvcc took in this process (None: the library was already built)
-build_seconds = None
 
 
 def _nvcc() -> str:
@@ -67,11 +66,9 @@ def on_device(dev):
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from ``csrc/`` if needed."""
-    global build_seconds
     out = BUILD / _digest() / "libsbt_kernels.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
         # build in a private directory, then rename: concurrent processes
         # never load a half-written library
         with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -95,7 +92,7 @@ def library() -> ctypes.CDLL:
                     raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(args)}\n"
                                        f"{stdout}\n{stderr}")
             os.replace(so, out)
-        build_seconds = time.perf_counter() - t0
+        tracker.count("kernels.builds")
     lib = ctypes.CDLL(str(out))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # (ki, kd, bi, bd, type pair, b, kron, x, y re/im pointers, n, X, Y, Z, T,

@@ -56,6 +56,7 @@ import torch
 
 from .. import cplx
 from ..cplx import CArray
+from ..utils import tracker
 from ._guard import refuse_dtensor
 
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
@@ -421,7 +422,7 @@ def host_kron(kron: CArray) -> Tuple[np.ndarray, np.ndarray]:
             parent, fn = e[3]
             e[2] = fn(*host_kron(parent))
         else:
-            e[2] = (kron.re.detach().cpu().numpy(), kron.im.detach().cpu().numpy())
+            e[2] = (tracker.to_host(kron.re), tracker.to_host(kron.im))
             stencil_matvec_soa.kron_reads += 1
     return e[2]
 
@@ -822,6 +823,7 @@ def _on_cpu(blocks: CArray, x: CArray, name: str) -> bool:
     return False
 
 
+@tracker.spanned("k1", events=False)
 def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
                        offsets: Sequence[Tuple[int, ...]], bi: int, bd: int,
                        interpret: bool = False, packed_parity: Optional[int] = None,
@@ -838,7 +840,8 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     (``stencil_matvec_soa.launches`` counts the launches of these routes,
     ``.by_shape`` them by shape, ``.by_route`` by ``k1_route``'s name),
     :func:`stencil_matvec_soa_rt` at the other shapes; a case none takes
-    raises.  Above MAX_BLOCK it raises ValueError on every device."""
+    raises.  Above MAX_BLOCK it raises ValueError on every device.  Each
+    call is a ``k1`` span of the tracker (host time, entry to return)."""
     refuse_dtensor("stencil_matvec_soa", "parallel.apply_stencil_soa_sharded",
                    tuple(blocks), tuple(x))
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])

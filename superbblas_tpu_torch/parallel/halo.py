@@ -14,6 +14,9 @@ side of every sharded lattice axis; ``exchange_halos`` does so for a
 sharded DTensor and returns the extended blocks as a DTensor;
 ``post_halos`` starts an exchange asynchronously (``async_op=True``) and
 returns a handle whose ``wait()`` gives the halos, for the overlap path.
+Each ``extend_local`` call is a ``halo.extend`` span of the tracker
+(``utils/tracker.py``, host time), so that a profile ties the packing,
+the exchange and the concatenation it launches to this module.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from .. import cplx
+from ..utils import tracker
 from ._local import c_strides
 from .mesh import axis_size
 
@@ -112,6 +116,7 @@ def _flat(a):
     return list(a) if cplx.is_carray(a) else [a]
 
 
+@tracker.spanned("halo.extend", events=False)
 def extend_local(a, ax_names: Dict[int, str], widths: Dict[int, int], mesh):
     """Halo-extend shard-local (possibly split-complex) blocks along the
     given array axes, one exchange per axis, corners riding the

@@ -10,6 +10,11 @@ the JAX package; the fixed-count loops (``power_iteration``, ``lanczos``,
 ``refined_solve``) read nothing in the loop.  Iteration counts are
 returned as Python ints.
 
+For the tracker (``utils/tracker.py``): a ``cg`` or ``cgne`` solve is one
+``solver.cg`` span; each convergence read is a ``solver.read`` span
+(host time) and one ``host_reads``; each loop adds
+the iterations it ran to the ``solver.iterations`` counter.
+
 With ``cols=True`` the LAST axis of the operands holds independent
 right-hand sides: the inner products keep it, and the step sizes become
 per-column vectors that broadcast against it.
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from . import cplx
+from .utils import tracker
 
 __all__ = ["cg", "cgne", "bicgstab", "pcg", "fgcr", "power_iteration",
            "lanczos", "ritz_extremes", "refined_solve"]
@@ -81,11 +87,13 @@ def _zeros(x):
     return cplx.cmap(torch.zeros_like, x) if cplx.is_carray(x) else torch.zeros_like(x)
 
 
+@tracker.spanned("solver.read", events=False)
 def _above(ratio, tol: float) -> bool:
     """Host read of the convergence test: max(ratio) > tol^2."""
-    return float(torch.max(ratio)) > tol * tol
+    return tracker.to_host(torch.max(ratio)) > tol * tol
 
 
+@tracker.spanned("solver.cg")
 def cg(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100,
        cols: bool = False, callback: Optional[Callable] = None):
     """Conjugate gradients for Hermitian positive-definite ``A``.
@@ -114,13 +122,16 @@ def cg(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100,
         k += 1
         if callback is not None:
             callback(rs)
+    tracker.count("solver.iterations", k)
     return x, rs, k
 
 
+@tracker.spanned("solver.cg")
 def cgne(A: Callable, Ah: Callable, b, **kw):
     """CG on the normal equations A^H A x = A^H b for general ``A`` with
     adjoint ``Ah``."""
-    return cg(lambda v: Ah(A(v)), Ah(b), **kw)
+    # cg's own body, so that the solve with its A^H b is one span
+    return cg.__wrapped__(lambda v: Ah(A(v)), Ah(b), **kw)
 
 
 def bicgstab(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100):
@@ -152,6 +163,7 @@ def bicgstab(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100):
         p = _axpy_c(beta, pm, r)
         rho = rho_new
         k += 1
+    tracker.count("solver.iterations", k)
     return x, _inner_r(r, r), k
 
 
@@ -194,6 +206,7 @@ def fgcr(A: Callable, b, M: Optional[Callable] = None, x0=None,
             r = _axpy_c((-alpha[0], -alpha[1]), w, r)
         rs = _inner_r(r, r, cols)
         k += restart
+    tracker.count("solver.iterations", k)
     return x, rs, k
 
 
@@ -306,4 +319,5 @@ def pcg(A: Callable, M: Callable, b, x0=None, tol: float = 1e-8,
         p = _axpy_c((beta, 0.0 * beta), p, z)
         rz, rn = rz_new, _inner_r(r, r, cols)
         k += 1
+    tracker.count("solver.iterations", k)
     return x, rn, k
