@@ -131,6 +131,17 @@ Wilson path's lattice and links, twisted mass (mu 0.05, cg_solve, 25
 iterations) and staggered (adjoint_operator; K1 (1,1,3,3) checked and
 timed).
 
+Fused CG kernels (``ops/cg_update.py``, before the family paths):
+``cg_dot``, ``cg_xr`` and ``cg_p`` against their plain versions on random
+fields of the clover and Moebius paths' shapes, the fields and the ratio
+bit for bit (out of place and in place), each sum within CG_SUM_UNITS
+units of 2^-24 of the sum of its terms' magnitudes; one iteration's three
+timed beside the plain versions and the 22-plane bound.  Every
+``solvers.cg`` solve of one system of CUDA fields (the family paths'
+CGNE, dist (a) on DTensors and on plain tensors, dist (b) on each rank)
+must launch them it + 1, it and it times from counts set to 0 just
+before it; the ``cols=True`` solves (coarse, MG) none.
+
 P2 path (fault P2): a default-dtype (complex128) SoA ``mobius_operator``
 at 8^3x16, Ls 8, and a complex128 SoA ``wilson_operator`` on the main
 lattice and links, applied through K1's f64 route, and the Wilson blocks
@@ -242,6 +253,9 @@ from superbblas_tpu_torch.bsr import (BSROperator, bsr_cast_storage, bsr_krylov,
                                       create_kron_bsr)
 from superbblas_tpu_torch.ops import _cuda
 from superbblas_tpu_torch.ops import batched_gemm as gemm_ops
+from superbblas_tpu_torch.ops.cg_update import (cg_dot, cg_dot_reference, cg_p,
+                                                cg_p_reference, cg_xr, cg_xr_reference)
+from superbblas_tpu_torch.ops.cg_update import workspace as cg_workspace
 from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_gemm_rowpack,
                                                    batched_small_gemm,
                                                    batched_small_gemm_reference)
@@ -416,9 +430,11 @@ def same_as_rt(blocks, kron, x, offsets, label, bi=3, bd=3):
     return err
 
 
+#: the fused CG kernels, in an iteration's order
+CG_KERNELS = (cg_dot, cg_xr, cg_p)
 COUNTED = (stencil_matvec_soa, stencil_matvec_soa_rt, stencil_matvec_soa_xin,
            stencil_matvec_soa_stream, permute_4d, permute_4d_tiled, batched_small_gemm,
-           batched_gemm_rowpack, roll_add)
+           batched_gemm_rowpack, roll_add) + CG_KERNELS
 
 
 def reset_counts():
@@ -430,6 +446,8 @@ def reset_counts():
     permute_4d.by_route.clear()
     roll_add.by_form.clear()
     roll_add.by_variant_form.clear()
+    for fn in CG_KERNELS:
+        fn.by_form.clear()
     stencil_matvec_soa.plan_builds = 0
     stencil_matvec_soa.kron_reads = 0
 
@@ -442,6 +460,24 @@ def read_counts():
 
 #: spin plans built by each path's solve, by path (the kernels line)
 PLANS_BUILT = {}
+#: [cg_dot, cg_xr, cg_p] launches of each path's solve, by path (the
+#: kernels line)
+FUSED_LAUNCHES = {}
+
+
+def expect_fused(label, counts, it):
+    """Raise unless the run since reset_counts() launched cg_dot, cg_xr
+    and cg_p it + 1, it and it times, ``solvers.cg`` from x0 = 0 with
+    every iteration on the fused kernels (the extra cg_dot is |b|^2), or
+    none of them where ``it`` is None (``cols=True``: the PyTorch ops);
+    kept in FUSED_LAUNCHES under the label's first word."""
+    got = [counts[fn.__name__] for fn in CG_KERNELS]
+    want = [0, 0, 0] if it is None else [it + 1, it, it]
+    FUSED_LAUNCHES[label.split()[0]] = got
+    print(f"{label}: fused CG launches (cg_dot, cg_xr, cg_p) {got} (expected {want})",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: fused CG launches {got}, expected {want}")
 
 
 def expect_plans(label, operators):
@@ -1386,6 +1422,7 @@ def coarse_path(gen, profile: bool):
           f"(E1 expected {3 * k})", flush=True)
     if not (k < COARSE_MAXITER and finite and res <= 10 * COARSE_TOL and launches == 3 * k):
         raise AssertionError("coarse CG did not converge through E1")
+    expect_fused("coarse path cg (cols=True)", counts, None)
     if profile:
         profile_run("coarse cg", lambda: solvers.cg(A, x, tol=COARSE_TOL,
                                                     maxiter=COARSE_MAXITER, cols=True))
@@ -1449,6 +1486,7 @@ def mg_path(profile: bool):
     torch.cuda.synchronize()
     t_cg = time.perf_counter() - t0
     cg_counts = read_counts()
+    expect_fused("mg path CGNE (cols=True)", cg_counts, None)
     res_mg = rel_res_cols(D, xm, b)
     res_cg = rel_res_cols(A, xc, rhs)
     diff = rel_diff(xm, xc)
@@ -1800,13 +1838,105 @@ def k1_shape_path(gen):
     return out, err[MOEBIUS_SHAPE]
 
 
+#: the most a fused CG kernel's sum may differ from its plain version's
+#: (PyTorch's tree), in units of 2^-24 times the sum of the terms'
+#: magnitudes: each adds its terms in a tree whose upper levels make
+#: almost all of the error, about one unit each
+CG_SUM_UNITS = 16
+#: the fields of one iteration's three fused kernels: cg_dot reads p and
+#: Ap, cg_xr reads x, p, r, Ap and writes x and r, cg_p reads r and p and
+#: writes p: 11 fields, 22 planes
+CG_PLANES = 22
+
+
+def cg_sum_units(got, want, terms) -> float:
+    """|got - want| in units of 2^-24 times the sum of |terms| (f64)."""
+    scale = float(sum(torch.sum(torch.abs(t.double())) for t in terms))
+    return abs(float(got) - float(want)) / (2.0 ** -24 * scale)
+
+
+def cg_update_checks(gen, rate):
+    """The fused CG kernels (``ops/cg_update.py``) against their plain
+    versions on random fields of the clover and Moebius paths' shapes
+    (the vec16 form): the fields bit for bit, out of place and in place,
+    the ratio bit for bit, each sum within CG_SUM_UNITS; then one
+    iteration's three kernels timed beside the plain versions at the
+    clover shape, against the 22-plane bound at the data sheet's rate
+    and at the measured copy ``rate``.  Returns {max_sum_units, ms,
+    plain_ms, bound_ms, copy_rate_ms, launches}."""
+    shapes = {"clover": (MAIN_COLS, 12) + CLOVER_LAT,
+              "moebius": (MOEBIUS_COLS, MOEBIUS_LS, 12) + MOEBIUS_LAT}
+    reset_counts()
+    units = {}
+    for name, shape in shapes.items():
+        x, p, r, e = (randn_c(shape, gen) for _ in range(4))
+        q = CArray(1.5 * p.re + 0.1 * e.re, 1.5 * p.im + 0.1 * e.im)    # a positive pAp
+        del e
+        ws = cg_workspace(x.re)
+        rs, pap = cg_dot(r, r, ws), cg_dot(p, q, ws)
+        u = [cg_sum_units(rs, cg_dot_reference(r, r), (r.re * r.re, r.im * r.im)),
+             cg_sum_units(pap, cg_dot_reference(p, q), (p.re * q.re, p.im * q.im))]
+        xo, ro, xw, rw = (CArray(torch.empty_like(a.re), torch.empty_like(a.im))
+                          for a in (x, r, x, r))
+        rs_new = cg_xr(x, p, r, q, rs, pap, xo, ro, ws)
+        want = cg_xr_reference(x, p, r, q, rs, pap, xw, rw)
+        bits = all(torch.equal(a, c) for a, c in zip((*xo, *ro), (*xw, *rw)))
+        u.append(cg_sum_units(rs_new, want, (ro.re * ro.re, ro.im * ro.im)))
+        del xw, rw
+        bs = torch.clamp_min(rs * 3.0, 1e-30)
+        po, pw = (CArray(torch.empty_like(p.re), torch.empty_like(p.im)) for _ in range(2))
+        ratio = cg_p(ro, p, rs_new, rs, bs, po)
+        ratio_w = cg_p_reference(ro, p, rs_new, rs, bs, pw)
+        bits = bits and all(torch.equal(a, c) for a, c in zip(po, pw)) \
+            and torch.equal(ratio, ratio_w)
+        del pw
+        # in place, as solvers.cg updates its own fields after the first iteration
+        cg_xr(x, p, r, q, rs, pap, x, r, ws)
+        cg_p(r, p, rs_new, rs, bs, p)
+        in_place = all(torch.equal(a, c) for a, c in zip((*x, *r, *p), (*xo, *ro, *po)))
+        units[name] = max(u)
+        n = x.re.numel()
+        print(f"cg_update {name} {shape} ({n} floats a plane, {4 * n / 1e6:.1f} MB): fields "
+              f"bit for bit {bits}, in place {in_place}; sums against the plain version "
+              f"(rs, pAp, rs_new) {', '.join(f'{v:.2f}' for v in u)} units of 2^-24 of the "
+              f"sum of |terms| (<= {CG_SUM_UNITS})", flush=True)
+        if not (bits and in_place and max(u) <= CG_SUM_UNITS):
+            raise AssertionError(f"cg_update {name}: a fused kernel differs from its plain "
+                                 "version")
+        if name == "clover":
+            def fused():
+                pap_ = cg_dot(p, q, ws)
+                cg_p(ro, p, cg_xr(x, p, r, q, rs, pap_, xo, ro, ws), rs, bs, po)
+
+            def plain():
+                pap_ = cg_dot_reference(p, q)
+                cg_p_reference(ro, p, cg_xr_reference(x, p, r, q, rs, pap_, xo, ro), rs, bs,
+                               po)
+
+            t = time_turns({"fused": fused, "plain": plain}, 11)
+            nbytes = CG_PLANES * 4 * n
+            timing = {"ms": t["fused"], "plain_ms": t["plain"],
+                      "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                      "copy_rate_ms": 1e3 * nbytes / rate}
+            print(f"cg_update {name}: one iteration's cg_dot + cg_xr + cg_p median "
+                  f"{t['fused']:.4f} ms ({nbytes / t['fused'] / 1e9:.3f} TB/s over 22 planes), "
+                  f"plain versions {t['plain']:.4f} ms, over 11 in turns; bound "
+                  f"{timing['bound_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+                  f"{timing['copy_rate_ms']:.4f} ms at the measured copy rate", flush=True)
+        del x, p, r, q, xo, ro, po, ws
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    return {"max_sum_units": max(units.values()), **timing,
+            "launches": {fn.__name__: counts[fn.__name__] for fn in CG_KERNELS}}
+
+
 def family_solve(label, A, Ah, b, maxiter, plans):
     """CGNE (``solvers.cgne``) to FAMILY_TOL, the counts set to 0 and the
     kept spin plans dropped just before, read just after; then its true
     residuals in f64: the normal one against SOLVE_RES_TOL, the unsquared
     one against UNSQUARED_TOL, and ``plans`` plans built (one per operator
-    with spin factors).  Returns (iterations, {route: launches by
-    shape})."""
+    with spin factors), and every iteration on the fused CG kernels.
+    Returns (iterations, {route: launches by shape})."""
     torch.cuda.reset_peak_memory_stats()
     clear_plans()
     reset_counts()
@@ -1836,6 +1966,7 @@ def family_solve(label, A, Ah, b, maxiter, plans):
             or counts["batched_gemm_rowpack"]:
         raise AssertionError(f"{label}: a kernel off the SoA path was launched")
     expect_plans(label, plans)
+    expect_fused(label, counts, it)
     return it, shapes
 
 
@@ -3028,13 +3159,21 @@ def dist_part_a(op, b, device="cuda", iters=DIST_ITERS_A):
     x, rs, it = solvers.cg(A, rhs, tol=0.0, maxiter=iters, callback=hist.append)
     sync(device)
     walls["solve"] = time.perf_counter() - t0
-    launches = read_counts()["stencil_matvec_soa"]
+    counts = read_counts()
+    launches = counts["stencil_matvec_soa"]
+    # the fused CG kernels run on the DTensors' local shards (on the card)
+    fused = it if device != "cpu" else None
+    expect_fused("dist_a sharded solvers.cg", counts, fused)
     hist = [float(v) for v in hist]
     # the same CG on plain tensors
     hist_p = []
     rhs_p = bsr.apply_stencil_soa(op_h, b)
-    xp, rsp, _ = solvers.cg(lambda v: bsr.apply_stencil_soa(op_h, bsr.apply_stencil_soa(op, v)),
-                            rhs_p, tol=0.0, maxiter=iters, callback=hist_p.append)
+    reset_counts()
+    xp, rsp, it_p = solvers.cg(lambda v: bsr.apply_stencil_soa(op_h,
+                                                               bsr.apply_stencil_soa(op, v)),
+                               rhs_p, tol=0.0, maxiter=iters, callback=hist_p.append)
+    expect_fused("dist_a_plain solvers.cg on plain tensors", read_counts(),
+                 it_p if device != "cpu" else None)
     hist_p = [float(v) for v in hist_p]
     xl = cplx.cmap(lambda a: a.to_local(), x)
     same = torch.equal(xl.re, xp.re) and torch.equal(xl.im, xp.im)
@@ -3390,7 +3529,12 @@ def dist_child(rank, world, port, out_path, device="cuda", xl=DIST_X_LOCAL,
     psi, rs, it = solvers.cg(A, rhs, tol=0.0, maxiter=iters, callback=hist.append)
     sync(device)
     res["cg_s"] = time.perf_counter() - t0
-    res["k1_cg"] = read_counts()["stencil_matvec_soa"]
+    counts = read_counts()
+    res["k1_cg"] = counts["stencil_matvec_soa"]
+    # [cg_dot, cg_xr, cg_p] launches, and those of a solve on the fused
+    # kernels (none on CPU tensors)
+    res["cg_fused"] = [counts[fn.__name__] for fn in CG_KERNELS]
+    res["cg_fused_expected"] = [it + 1, it, it] if device != "cpu" else [0, 0, 0]
     res["cg_hist"] = [float(v) for v in hist]
     del rhs, op_s, oph_s, b_s, b_l
     free(device)
@@ -3710,7 +3854,8 @@ def dist_report_b(res, wall, backend="gloo"):
         print(f"dist (b) rank {r['rank']}: sharded apply vs the unsharded port apply on the "
               f"whole lattice: bit for bit {r['apply_bits']} (max rel {r['apply_rel']:.3e}); "
               f"K1 launches: apply {r['k1_apply']}, CG {r['k1_cg']} (expected "
-              f"{2 * DIST_ITERS_B + 1}); halo {r['halo_bytes_per_apply'] / 1e6:.1f} MB an apply,"
+              f"{2 * DIST_ITERS_B + 1}); fused CG launches (cg_dot, cg_xr, cg_p) "
+              f"{r['cg_fused']} (expected {r['cg_fused_expected']}); halo {r['halo_bytes_per_apply'] / 1e6:.1f} MB an apply,"
               f" exchange {r['exchange_ms']:.2f} ms against the apply {r['apply_ms']:.2f} ms; "
               f"power 2 vs two applies max rel {r['power2_rel']:.3e}; CG {DIST_ITERS_B} its "
               f"{r['cg_s']:.3f} s; checkpoint {r['file_blocks']} blocks save "
@@ -3740,6 +3885,7 @@ def dist_report_b(res, wall, backend="gloo"):
         and r["copy_slice_bits"] and r["copy_insert_bits"] and r["copy_masked_bits"]
         and (r["apply_bits"] or r["apply_rel"] <= 1e-6) and r["k1_apply"] == 1
         and r["k1_cg"] == 2 * DIST_ITERS_B + 1 and r["power2_rel"] <= 1e-6
+        and r["cg_fused"] == r["cg_fused_expected"]
         and r["file_blocks"] == DIST_RANKS and r["reload_x_bits"] and r["reload_y_bits"]
         and r["load_whole_bits"] and r["k3_overlap"] > 0 and r["overlap_rel"] <= 1e-12
         and r["overlap_vs_ca_rel"] <= 1e-12 and r["gather_mode"] == "gather"
@@ -3818,6 +3964,7 @@ def main():
     k1_shapes, moebius_cols_err = k1_shape_path(gen)
     aos_launches, aos_err = families_aos_check(gen)
     dc_launches, dc_err = default_call_path(gen)
+    cg_upd = cg_update_checks(gen, rate)
     clover = clover_path(gen, args.profile)
     dense_walls = dense_solve_path(clover[4], rate)
     clover = clover[:4]
@@ -3978,7 +4125,14 @@ def main():
         "library_ms": e3_call_ms, "device_ms": e3[tile][3], "k2_ms": e3_k2_ms[0],
         "k2_device_ms": e3_k2_ms[1],
         "launches_export": probe_exports["permute_4d_tiled"] if tile == TILES[0] else 0}
-        for tile in TILES]}))
+        for tile in TILES] + [{
+        "name": "cg_update[cg_dot, cg_xr, cg_p]", "route": "cuda",
+        "source": "superbblas_tpu_torch/csrc/cg_update.cu", "replaces": None,
+        "launches": cg_upd["launches"], "launches_by_path": FUSED_LAUNCHES,
+        "launches_dist_b_per_rank": [r["cg_fused"] for r in dist_b],
+        "max_sum_units": cg_upd["max_sum_units"], "ms": cg_upd["ms"],
+        "plain_ms": cg_upd["plain_ms"], "bound_ms": cg_upd["bound_ms"], "bound_by": "bytes",
+        "copy_rate_ms": cg_upd["copy_rate_ms"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

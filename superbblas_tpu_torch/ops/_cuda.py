@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("stencil_soa.cu", "stencil_rt.cu", "stencil_tiled.cu", "stencil_site.cu",
-           "stencil_schedules.cu", "permute.cu", "batched_gemm.cu", "roll_add.cu")
+           "stencil_schedules.cu", "permute.cu", "batched_gemm.cu", "roll_add.cu",
+           "cg_update.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("stencil_soa.cuh", "stencil_plan.cuh", "kernel_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -137,6 +138,12 @@ def library() -> ctypes.CDLL:
     lib.sbt_permute_4d_tiled.restype = i
     lib.sbt_roll_add.argtypes = [i, i, i64, i64, p, p, i, p]
     lib.sbt_roll_add.restype = i
+    # (form, n, the fields' planes, the scalars, workspace and cap or cap,
+    # the result, stream)
+    lib.sbt_cg_dot.argtypes = [i, i64] + [p] * 5 + [i, p, p]
+    lib.sbt_cg_xr.argtypes = [i, i64] + [p] * 15 + [i, p, p]
+    lib.sbt_cg_p.argtypes = [i, i64] + [p] * 10 + [i, p]
+    lib.sbt_cg_dot.restype = lib.sbt_cg_xr.restype = lib.sbt_cg_p.restype = i
     # (f64, V, I, J, N, tile, sites) as ops/batched_gemm.py picks them + b,
     # x, y, stream
     for name in ("sbt_batched_gemm_small", "sbt_batched_gemm_rowpack"):

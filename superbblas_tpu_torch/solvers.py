@@ -13,16 +13,25 @@ returned as Python ints.
 For the tracker (``utils/tracker.py``): a ``cg`` or ``cgne`` solve is one
 ``solver.cg`` span; each convergence read is a ``solver.read`` span
 (host time) and one ``host_reads``; each loop adds
-the iterations it ran to the ``solver.iterations`` counter.
+the iterations it ran to the ``solver.iterations`` counter, and ``cg``
+those it ran on the fused kernels also to ``solver.fused_iterations``.
+
+``cg`` on one system of split-complex f32 fields on a CUDA device
+(contiguous planes, or DTensors of such shards) runs an iteration's
+vector updates and inner products as the three kernels of
+``ops/cg_update.py`` (22 planes of field traffic where the PyTorch ops
+move 78); every other operand takes the PyTorch ops.
 
 With ``cols=True`` the LAST axis of the operands holds independent
 right-hand sides: the inner products keep it, and the step sizes become
 per-column vectors that broadcast against it.
 
-The solvers are sharding-oblivious: on sharded ``DTensor`` operands the
-axpys propagate shard-locally, and each inner product is a partial sum
-plus one all-reduce (``cplx.reduced``), so the host reads of the
-convergence test see the global values.
+On sharded ``DTensor`` operands the PyTorch ops propagate shard-locally,
+and each inner product is a partial sum plus one all-reduce
+(``cplx.reduced``), so the host reads of the convergence test see the
+global values.  ``cg``'s fused loop does the same by hand: its kernels
+run on the local shards, each partial sum goes through ``cplx.reduced``,
+and the results are wrapped back with the operands' mesh and placements.
 """
 
 from __future__ import annotations
@@ -104,6 +113,8 @@ def cg(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100,
     then (N,) and the loop runs until every column converges.
     ``callback(rs)``, where given, sees |r|^2 after every iteration (the
     residual history; it reads nothing to the host itself)."""
+    if _fusable(b, x0, cols):
+        return _cg_fused(A, b, x0, tol, maxiter, callback)
     x = _zeros(b) if x0 is None else x0
     r = _axpy_c((-1.0, 0.0), A(x), b) if x0 is not None else b
     p = r
@@ -124,6 +135,94 @@ def cg(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100,
             callback(rs)
     tracker.count("solver.iterations", k)
     return x, rs, k
+
+
+def _fusable(b, x0, cols: bool) -> bool:
+    """Whether ``cg`` runs its iteration on ``ops/cg_update.py``'s kernels:
+    one system (not ``cols``) of split-complex f32 fields whose planes
+    (local shards) are contiguous, of one shape, on a CUDA device."""
+    from .parallel._local import local
+
+    if cols or not cplx.is_carray(b) or not (x0 is None or cplx.is_carray(x0)):
+        return False
+    planes = [*local(b)] + ([] if x0 is None else [*local(x0)])
+    return all(t.device.type == "cuda" and t.dtype == torch.float32 and t.is_contiguous()
+               and t.shape == planes[0].shape for t in planes)
+
+
+def _all_reduced(t, like):
+    """The 0-dim partial sum ``t`` of this rank's shards of fields placed
+    as the DTensor ``like``, summed over the mesh axes that shard them
+    (``cplx.reduced``), as a local tensor; ``t`` itself where ``like`` is
+    None."""
+    if like is None:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    pl = [Partial() if isinstance(p, Shard) else Replicate() for p in like.placements]
+    return cplx.reduced(DTensor.from_local(t, like.device_mesh, pl, run_check=False)).to_local()
+
+
+def _global(c, like):
+    """A local field (CArray) or 0-dim scalar as ``like``'s DTensors: the
+    field placed as ``like``, the scalar replicated; itself where ``like``
+    is None."""
+    if like is None:
+        return c
+    if cplx.is_carray(c):
+        from .parallel._local import from_local
+
+        return from_local(c, like)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(c, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _cg_fused(A, b, x0, tol, maxiter, callback):
+    """``cg``'s loop where ``_fusable``: an iteration is A p, then
+    ``cg_dot``, ``cg_xr`` and ``cg_p`` on the fields' local planes, each
+    partial sum of shards all-reduced once; the scalars stay 0-dim tensors
+    on the device, and ``cg_p`` gives the ratio the convergence read
+    takes.  ``b`` and ``x0`` are never written: r and p start as ``b``
+    (or r as b - A x0), the first iteration writes new fields, and the
+    later ones update cg's own in place."""
+    from .ops import cg_update as U
+    from .parallel._local import dtensor_of, local
+
+    like = dtensor_of(b)
+    bl = local(b)
+    ws = U.workspace(bl.re)
+    if x0 is None:
+        x, r = _zeros(bl), bl
+        rs = _all_reduced(U.cg_dot(r, r, ws), like)
+        bs = torch.clamp_min(rs, 1e-30)
+    else:
+        x = local(x0)
+        r = cplx.cmap(torch.Tensor.contiguous, local(_axpy_c((-1.0, 0.0), A(x0), b)))
+        rs = _all_reduced(U.cg_dot(r, r, ws), like)
+        bs = torch.clamp_min(_all_reduced(U.cg_dot(bl, bl, ws), like), 1e-30)
+    p, p_arg = r, (b if x0 is None else _global(r, like))
+    ratio = rs / bs
+    k = 0
+    while k < maxiter and _above(ratio, tol):
+        ap = cplx.cmap(torch.Tensor.contiguous, local(A(p_arg)))
+        pap = _all_reduced(U.cg_dot(p, ap, ws), like)
+        first = k == 0
+        x_out = cplx.cmap(torch.empty_like, x) if first and x0 is not None else x
+        r_out = cplx.cmap(torch.empty_like, r) if first else r
+        rs_new = _all_reduced(U.cg_xr(x, p, r, ap, rs, pap, x_out, r_out, ws), like)
+        p_out = cplx.cmap(torch.empty_like, p) if first else p
+        ratio = U.cg_p(r_out, p, rs_new, rs, bs, p_out)
+        x, r, rs = x_out, r_out, rs_new
+        if first:
+            p, p_arg = p_out, _global(p_out, like)
+        k += 1
+        if callback is not None:
+            callback(_global(rs, like))
+    tracker.count("solver.iterations", k)
+    tracker.count("solver.fused_iterations", k)
+    return _global(x, like), _global(rs, like), k
 
 
 @tracker.spanned("solver.cg")

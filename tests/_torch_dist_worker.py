@@ -323,7 +323,7 @@ def k_refusal(p):
     distributed function to use; a reduced inner product reads the global
     value."""
     from superbblas_tpu_torch import bsr
-    from superbblas_tpu_torch.ops import batched_gemm, permute, stencil
+    from superbblas_tpu_torch.ops import batched_gemm, cg_update, permute, stencil
 
     m = mesh(*p["mesh"])
     op = _wilson(p)
@@ -339,6 +339,7 @@ def k_refusal(p):
         "permute_4d": lambda: permute.permute_4d(b, (2, 1, 0)),
         "stencil_matvec_soa_rt": lambda: stencil.stencil_matvec_soa_rt(
             ops.blocks, op.kron, x, op.offsets, 3, 3),
+        "cg_dot": lambda: cg_update.cg_dot(x, x),
     }
     out = {}
     for name, call in calls.items():
@@ -501,6 +502,38 @@ def k_entry_solve(p):
         from superbblas_tpu_torch.parallel._local import shard_origin
 
         out["origin"] = shard_origin(b)
+    return out
+
+
+def k_fused_cgne(p):
+    """A Wilson CGNE at f32 on fields sharded as ``spec`` (the blocks
+    replicated), through the ordinary applies, with ``solvers.cg``'s loop
+    on the fused kernels' plain versions (``solvers._fusable`` forced, so
+    that they take the CPU shards) and on the PyTorch ops."""
+    from superbblas_tpu_torch import solvers
+    from superbblas_tpu_torch.models import wilson as W
+    from superbblas_tpu_torch.utils import tracker
+
+    m = mesh(*p["mesh"])
+    op = _wilson(dict(p, f64=False))
+    oph = W.adjoint_operator(op)
+    b = shard(p["b"], m, p["spec"])
+    out = {}
+    for name, fused in (("fused", True), ("ops", False)):
+        before = tracker.counters().get("solver.fused_iterations", 0)
+        saved = solvers._fusable
+        if fused:
+            solvers._fusable = lambda *args: True
+        try:
+            x, rs, k = solvers.cgne(lambda v: W.apply_wilson(op, v),
+                                    lambda v: W.apply_wilson(oph, v), b, tol=p["tol"],
+                                    maxiter=p["maxiter"])
+        finally:
+            solvers._fusable = saved
+        out[name] = {"x": full(x), "rs": float(rs), "k": k,
+                     "rs_placements": str(getattr(rs, "placements", None)),
+                     "fused": tracker.counters().get("solver.fused_iterations", 0) - before}
+    out["b"] = full(b)
     return out
 
 

@@ -27,7 +27,10 @@ E1 launching them, the dense ops and a storage round
 trip of a CUDA CArray; the distributed layer on a world-size-1 NCCL group
 (the sharded apply, the redistribution in both methods, the sharded
 checkpoint) and on two gloo ranks sharing the card (the halo exchange and
-one sharded apply against the unsharded K1 apply).  The kernels at
+one sharded apply against the unsharded K1 apply); CG's fused updates
+(``ops/cg_update.py``) against their plain version at the benchmark's
+plane sizes, with a tail and on a 4-byte offset view, their reductions
+bit for bit twice, and a clover CGNE at 16^3x32 on them.  The kernels at
 the main path's shapes are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -43,13 +46,14 @@ import numpy as np
 import pytest
 import torch
 
-from superbblas_tpu_torch import local_copy
+from superbblas_tpu_torch import local_copy, solvers
 from superbblas_tpu_torch.cplx import CArray
 from superbblas_tpu_torch import models as M
 from superbblas_tpu_torch.models import coarse as C
 from superbblas_tpu_torch.models import eo_packed as E
 from superbblas_tpu_torch.models import wilson as W
 from superbblas_tpu_torch.ops import batched_gemm as G
+from superbblas_tpu_torch.ops import cg_update as U
 from superbblas_tpu_torch.ops import permute as P
 from superbblas_tpu_torch.ops import roll_add as R
 from superbblas_tpu_torch.ops import stencil as S
@@ -1375,3 +1379,126 @@ def test_dist_gloo_two_ranks_on_one_card_halo_and_apply(cuda_device, tmp_path):
                 p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"GLOO_RANK_OK {r}" in out, out[-3000:]
+
+
+#: floats a plane: the Moebius cell's field (16^3x32 x Ls 12 x 12:
+#: 75.5 MB), one with a tail of n % 4, and the 12-rhs clover cell's
+#: (32^3x64 x 12 x 12 rhs: 1.21 GB)
+CG_PLANES = [18874368, 1000003, 301989888]
+
+
+def _cg_operands(n, device, offset=0):
+    """x, p, r and q = 1.5 p + noise (a positive pAp) of n floats a plane,
+    each plane starting ``offset`` floats into its buffer."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(n)
+
+    def field():
+        return CArray(*(torch.randn(n + offset, generator=gen, device=device)[offset:]
+                        for _ in range(2)))
+
+    x, p, r, e = field(), field(), field(), field()
+    q = CArray(*((1.5 * a + 0.1 * b) for a, b in zip(p, e)))
+    if offset:
+        q = CArray(*(torch.cat([a[:offset], a])[offset:] for a in q))
+    return x, p, r, q
+
+
+def _sum_close(got, want, terms):
+    """A reduction in another order: within 1e-5 of the sum of |terms|.
+    Each of the kernel's accumulators adds up to ~560 terms in turn
+    (sqrt(560) 2^-24 = 1.4e-6 typical, relative), PyTorch's in a tree."""
+    scale = float(sum(torch.sum(torch.abs(t.double())) for t in terms))
+    assert abs(float(got) - float(want)) <= 1e-5 * scale, (float(got), float(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(n, 0) for n in CG_PLANES] + [(CG_PLANES[1], 1)])
+def test_cg_update_kernels_match_plain_version(cuda_device, n, offset):
+    """Each kernel against its plain version: the fields bit for bit (the
+    same roundings, given the same scalars), the sums within f32 rounding;
+    a view 4 bytes into its buffer takes the element form."""
+    x, p, r, q = _cg_operands(n, cuda_device, offset)
+    assert U.form(*x, *p, *r, *q) == ("elem" if offset else "vec16")
+    ws = U.workspace(x.re)
+    forms = U.cg_xr.by_form.copy()
+    rs, pap, bs = U.cg_dot(r, r, ws), U.cg_dot(p, q, ws), torch.tensor(7.0, device=cuda_device)
+    _sum_close(pap, U.cg_dot_reference(p, q), [p.re * q.re, p.im * q.im])
+    _sum_close(rs, U.cg_dot_reference(r, r), [r.re * r.re, r.im * r.im])
+    xo, ro = CArray(*map(torch.empty_like, x)), CArray(*map(torch.empty_like, r))
+    xw, rw = CArray(*map(torch.empty_like, x)), CArray(*map(torch.empty_like, r))
+    rs_new = U.cg_xr(x, p, r, q, rs, pap, xo, ro, ws)
+    want = U.cg_xr_reference(x, p, r, q, rs, pap, xw, rw)
+    for a, b in zip((*xo, *ro), (*xw, *rw)):
+        assert torch.equal(a, b)
+    _sum_close(rs_new, want, [ro.re * ro.re, ro.im * ro.im])
+    del xw, rw
+    po, pw = CArray(*map(torch.empty_like, p)), CArray(*map(torch.empty_like, p))
+    ratio = U.cg_p(ro, p, rs_new, rs, bs, po)
+    want_ratio = U.cg_p_reference(ro, p, rs_new, rs, bs, pw)
+    for a, b in zip(po, pw):
+        assert torch.equal(a, b)
+    assert torch.equal(ratio, want_ratio)
+    # in place, as solvers.cg updates its own fields
+    U.cg_xr(x, p, r, q, rs, pap, x, r, ws)
+    U.cg_p(r, p, rs_new, rs, bs, p)
+    for a, b in zip((*x, *r, *p), (*xo, *ro, *po)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert U.cg_xr.by_form - forms == {("elem" if offset else "vec16"): 2}
+
+
+@pytest.mark.cuda
+def test_cg_update_reductions_repeat_bit_for_bit(cuda_device):
+    """No float atomics: the same launch twice gives the same bits (the
+    last block sums the blocks' partials in block order)."""
+    x, p, r, q = _cg_operands(CG_PLANES[0], cuda_device)
+    ws = U.workspace(x.re)
+    rs = U.cg_dot(r, r, ws)
+    dots = [U.cg_dot(p, q, ws) for _ in range(3)]
+    outs = [U.cg_xr(x, p, r, q, rs, dots[0], CArray(*map(torch.empty_like, x)),
+                    CArray(*map(torch.empty_like, r)), ws) for _ in range(3)]
+    assert all(torch.equal(d, dots[0]) for d in dots) and all(torch.equal(o, outs[0])
+                                                             for o in outs)
+    assert int(ws[-1]) == 0                      # the ticket, reset by each last block
+
+
+@pytest.mark.cuda
+def test_clover_cgne_on_the_fused_kernels(cuda_device, monkeypatch):
+    """A clover CGNE at 16^3x32 runs every iteration on the fused kernels
+    (three launches an iteration) and takes the iterations of the PyTorch
+    loop, to the same solution within f32 rounding."""
+    from superbblas_tpu_torch.models import clover as Cl
+    from superbblas_tpu_torch.utils import tracker
+
+    lat = (16, 16, 16, 32)
+    op = Cl.wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, dtype=torch.complex64,
+                                   layout="soa", device=cuda_device)
+    b = crand((1, 12) + lat, 5, cuda_device, torch.float32)
+    signs = torch.tensor((1.0,) * 6 + (-1.0,) * 6, device=cuda_device).reshape(1, 12, 1, 1, 1,
+                                                                                  1)
+
+    def g5(v):
+        return CArray(v.re * signs, v.im * signs)
+
+    def solve():
+        return solvers.cgne(lambda v: Cl.apply_clover(op, v),
+                            lambda v: g5(Cl.apply_clover(op, g5(v))), b, tol=1e-5, maxiter=300)
+
+    keep = (b.re.clone(), b.im.clone())
+    before, launches = tracker.counters(), [f.launches for f in (U.cg_dot, U.cg_xr, U.cg_p)]
+    x, rs, k = solve()
+    after = tracker.counters()
+    assert after["solver.fused_iterations"] - before.get("solver.fused_iterations", 0) == k
+    assert after["solver.iterations"] - before.get("solver.iterations", 0) == k
+    # cg_dot once more for |b|^2 before the loop
+    assert [f.launches - n for f, n in zip((U.cg_dot, U.cg_xr, U.cg_p), launches)] == \
+        [k + 1, k, k]
+    assert torch.equal(b.re, keep[0]) and torch.equal(b.im, keep[1])
+    monkeypatch.setattr(solvers, "_fusable", lambda *args: False)
+    x_ops, rs_ops, k_ops = solve()
+    assert k == k_ops > 10
+    scale = float(x_ops.re.abs().max())
+    for a, w in zip(x, x_ops):
+        assert float((a - w).abs().max()) <= 1e-4 * scale
+    assert abs(float(rs) - float(rs_ops)) <= 0.05 * float(rs_ops)

@@ -197,7 +197,8 @@ def test_kernel_wrappers_refuse_dtensors_and_inner_products_reduce(group):
              "stencil_matvec_soa_rt": "apply_stencil_soa_sharded",
              "batched_small_gemm": "apply_gather_sharded",
              "batched_gemm_rowpack": "apply_gather_sharded",
-             "maybe_permute": "parallel.copy", "permute_4d": "parallel.copy"}
+             "maybe_permute": "parallel.copy", "permute_4d": "parallel.copy",
+             "cg_dot": "solvers.cg"}
     for got in res.case("refusal"):
         for name, hint in hints.items():
             assert got[name].startswith(f"{name}: a sharded DTensor operand; use"), name

@@ -172,7 +172,8 @@ def test_track_time_reports_the_span_sites(monkeypatch):
 def test_card_recording_adds_no_synchronisation():
     """On the card a recorded clover CGNE solve makes exactly the
     synchronising calls the unrecorded one makes (its convergence reads),
-    and its applies carry device times."""
+    its applies carry device times, and every iteration runs on CG's
+    fused kernels (``ops/cg_update.py``), which synchronise nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     solve = _clover_cgne("cuda", (8, 8, 8, 8))
@@ -198,3 +199,5 @@ def test_card_recording_adds_no_synchronisation():
     assert counts[0][0] >= counts[0][1] + 1
     ms = [s[5] for s in rec["spans"] if s[2] == "apply_clover"]
     assert ms and all(v is not None and v > 0 for v in ms)
+    kept = rec["counters"]
+    assert kept["solver.fused_iterations"] == kept["solver.iterations"] == counts[0][1]

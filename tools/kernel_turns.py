@@ -1,11 +1,12 @@
 """Time the clover term's K1, the permute kernel K2, the stencil's
 X-inside and X-streaming schedules beside K1, K1's runtime-shape route,
 the transpose tile sweep E3, the bf16 roll-plus-add E2 and the gather
-applies (with K3 at the kron gather's colour stage) of two or more
-checkouts of the port in turns, on one card.
+applies (with K3 at the kron gather's colour stage) and CG's fused
+updates of two or more checkouts of the port in turns, on one card.
 
     python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
-                                 [--only clover permute schedules runtime sweep e2 gather]
+                                 [--only clover permute schedules runtime sweep e2 gather
+                                         host cg_update]
 
 Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
 checkout) is run in a process of its own, which builds that tree's kernels
@@ -62,6 +63,16 @@ calls), ms:
   ``flags.wrapper_state``) and ``empty_call_ns``: host nanoseconds a call
   of ``torch.compiler.is_compiling``, of ``flags.wrapper_state`` and of a
   lambda that does nothing, over a million calls;
+- ``cg_update`` (a dict, ``--only cg_update``): CG's fused kernels
+  (``ops/cg_update.py``) alone at the Moebius cell's plane (18,874,368
+  floats: 16^3x32 x Ls 12 x 12, 75.5 MB) and the 12-rhs clover cell's
+  (301,989,888: 32^3x64 x 12 x 12 rhs, 1.21 GB),
+  on fresh outputs: ``<plane>_dot``, ``_xr``, ``_p`` (ms) and their GB/s
+  (4, 12 and 6 planes moved), ``<plane>_fused`` the three in a row against
+  ``<plane>_ops``, the same iteration as the PyTorch ops of
+  ``solvers.cg`` (78 planes), and ``<plane>_bound`` the 22 planes at
+  ``copy_rate_gbs``, this process's device-to-device copy rate of a GiB
+  (read and write counted);
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -254,6 +265,44 @@ def worker(reps: int, solve: bool, only) -> dict:
         out["k3_colour_device"] = graph_ms(lambda: batched_small_gemm(b, xb))
         out["bmm_colour_device"] = graph_ms(lambda: torch.bmm(b, xb))
         del b, xb
+    if "cg_update" in only:
+        from superbblas_tpu_torch.ops import cg_update as U
+
+        a = torch.empty(2 ** 28, device="cuda")
+        c = torch.empty_like(a)
+        rate = 2 * 2 ** 30 / (median_ms(lambda: c.copy_(a)) * 1e-3)
+        del a, c
+        res = {"copy_rate_gbs": rate / 1e9}
+        for label, n in (("moebius", 18874368), ("prop12", 301989888)):
+            x, p, r, e = (randn_c((n,)) for _ in range(4))
+            q = CArray(1.5 * p.re + 0.1 * e.re, 1.5 * p.im + 0.1 * e.im)
+            del e
+            ws = U.workspace(x.re)
+            rs, pap, bs = U.cg_dot(r, r, ws), U.cg_dot(p, q, ws), U.cg_dot(x, x, ws)
+            xo, ro, po = (CArray(torch.empty_like(f.re), torch.empty_like(f.im))
+                          for f in (x, r, p))
+            fns = {"dot": (4, lambda: U.cg_dot(p, q, ws)),
+                   "xr": (12, lambda: U.cg_xr(x, p, r, q, rs, pap, xo, ro, ws)),
+                   "p": (6, lambda: U.cg_p(r, p, rs, rs, bs, po)),
+                   "fused": (22, lambda: (fns["dot"][1](), fns["xr"][1](), fns["p"][1]()))}
+            for key, (planes, fn) in fns.items():
+                ms = median_ms(fn)
+                res[f"{label}_{key}"] = ms
+                res[f"{label}_{key}_gbs"] = planes * 4 * n / (ms * 1e-3) / 1e9
+            del xo, ro, po
+
+            def ops():
+                alpha = rs / torch.clamp_min(solvers._inner_r(p, q), 1e-30)
+                x2 = solvers._axpy_c((alpha, 0.0 * alpha), p, x)
+                r2 = solvers._axpy_c((-alpha, 0.0 * alpha), q, r)
+                rs2 = solvers._inner_r(r2, r2)
+                beta = rs2 / torch.clamp_min(rs, 1e-30)
+                return x2, solvers._axpy_c((beta, 0.0 * beta), p, r2), rs2 / bs
+
+            res[f"{label}_ops"] = median_ms(ops)
+            res[f"{label}_bound"] = 22 * 4 * n / rate * 1e3
+            del x, p, r, q
+        out["cg_update"] = res
     if solve:
         lat = (24, 24, 24, 48)
         op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
@@ -287,7 +336,7 @@ def main():
     parser.add_argument("--no-solve", action="store_true")
     parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
                         choices=["clover", "permute", "schedules", "runtime", "sweep", "e2",
-                                 "gather", "host"])
+                                 "gather", "host", "cg_update"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
