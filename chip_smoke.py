@@ -131,6 +131,20 @@ Wilson path's lattice and links, twisted mass (mu 0.05, cg_solve, 25
 iterations) and staggered (adjoint_operator; K1 (1,1,3,3) checked and
 timed).
 
+Clover even-odd path (``models.clover_eo``, after the clover path), run
+twice: at 24x24x24x48 x 8 rhs, then at the lattice and columns of the
+benchmark's cell ``cls-d200.clover-eo.prop-12rhs`` (32x32x32x64 x 12,
+read from its files), on links made on the card by ``benchmark/gen.py``:
+the packed operator (A_oo^-1 inverted in complex128 on the card), one
+``apply_schur`` and its K1 launches by route (two ``tiled`` with
+``packed_parity``, two ``site16``), timed on CUDA events beside the bytes
+bound, and ``eo_solve_clover_soa`` to 1e-5, every iteration on the fused
+CG kernels, 4 it + 4 launches of each route.  The port's operator is then
+freed, and the apply and the full solution are held against the
+benchmark's plain reference (``benchmark/reference/clover_eo.py``,
+complex128, a few columns a call): the apply within 2e-6 of max |y|, the
+solution's residual under the reference's D.
+
 Fused CG kernels (``ops/cg_update.py``, before the family paths):
 ``cg_dot``, ``cg_xr`` and ``cg_p`` against their plain versions on random
 fields of the clover and Moebius paths' shapes, the fields and the ratio
@@ -223,6 +237,7 @@ import collections
 import contextlib
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -241,9 +256,11 @@ from superbblas_tpu_torch import (ContractionPlan, aot, bsr, context, cplx, dens
 from superbblas_tpu_torch.cplx import CArray
 from superbblas_tpu_torch.models import (adjoint_operator, apply_clover, apply_coarse,
                                          apply_domain_wall, apply_hopping_packed_soa,
-                                         apply_staggered, apply_wilson, cb_pack_soa,
-                                         cg_solve, cg_step, coarse_operator, domain_wall_operator,
-                                         eo_solve, eo_solve_packed, eo_solve_packed_soa,
+                                         apply_schur, apply_staggered, apply_wilson,
+                                         cb_pack_soa, cb_unpack_soa, cg_solve, cg_step,
+                                         clover_eo_operator, coarse_operator,
+                                         domain_wall_operator, eo_solve, eo_solve_clover_soa,
+                                         eo_solve_packed, eo_solve_packed_soa,
                                          gamma_matrices, hopping_packed_soa,
                                          mobius_operator, multigrid, random_su3_links,
                                          staggered_operator, twisted_mass_operator,
@@ -2013,6 +2030,118 @@ def clover_path(gen, profile: bool):
         profile_run("clover cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
                                                         maxiter=CLOVER_MAXITER))
     return applies, err, ms, bd_, cl.blocks
+
+
+#: the clover even-odd path: the seed of its links (``benchmark/gen.py``);
+#: apply_schur against the complex128 reference, of the largest magnitude
+#: (f32 sums over four launches: the CPU tests read 2.6e-7; TF32 some 1e-4)
+CLOVER_EO_SEED, CLOVER_EO_TOL = 19, 2e-6
+#: the benchmark cell whose lattice and columns the path runs second
+CLOVER_EO_CELL = "cls-d200.clover-eo.prop-12rhs"
+#: columns a call of the complex128 reference takes at a time
+CLOVER_EO_REF_COLS = 4
+
+
+def bench_harness():
+    """``benchmark/harness.py``, which loads the benchmark's modules (its
+    folder on the path for its own imports)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark")
+    if d not in sys.path:
+        sys.path.append(d)
+    import harness
+    return harness
+
+
+def clover_eo_path(gen, lat, ncols):
+    """The even-odd preconditioned clover operator at ``lat`` x ``ncols``
+    (the module docstring's clover even-odd path).  The port's operator is
+    freed before the complex128 reference runs, a few columns a call."""
+    harness = bench_harness()
+    ref = harness.module("reference", "clover_eo")
+    cfg = {"mass": CLOVER_MASS, "c_sw": CLOVER_CSW}
+    label = f"clover eo path {lat} x {ncols}"
+    t0 = time.perf_counter()
+    links = harness.gen.links(CLOVER_EO_SEED, range(lat[0]), lat[1:], "cuda")
+    op = wilson_clover_operator(lat, links=links, layout="soa", device="cuda", **cfg)
+    eo = clover_eo_operator(op)
+    del op
+    torch.cuda.synchronize()
+    print(f"{label}: links, operator and packing (A_oo^-1 in complex128) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    v = randn_c((ncols, 12) + lat, gen)
+    v_e = cb_pack_soa(v, 0)
+    reset_counts()
+    y = apply_schur(eo, v_e)
+    torch.cuda.synchronize()
+    apply_routes = dict(stencil_matvec_soa.by_route)
+    ms, _ = event_ms(lambda: apply_schur(eo, v_e), 5)
+    half = v_e.re.shape[2:].numel()
+    nbytes = half * (2 * (2 * 8 * 9 * 4 + 2 * 144 * 4)
+                     + 4 * 2 * 2 * ncols * 12 * 4 + 3 * 2 * ncols * 12 * 4)
+    del v_e
+    b = randn_c((ncols, 12) + lat, gen)
+    clear_plans()
+    reset_counts()
+    t0 = time.perf_counter()
+    x, _, it = eo_solve_clover_soa(eo, b, tol=FAMILY_TOL, maxiter=CLOVER_MAXITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = read_counts(), dict(stencil_matvec_soa.by_route)
+    del eo
+    torch.cuda.empty_cache()
+    schur = ref.schur(links, cfg)
+    zero = CArray(torch.zeros_like(y.re), torch.zeros_like(y.im))
+    y = cb_unpack_soa(y, zero)
+    del zero
+    diff = top = 0.0
+    for k in range(0, ncols, CLOVER_EO_REF_COLS):
+        cols = slice(k, k + CLOVER_EO_REF_COLS)
+        want = schur(torch.complex(v.re[cols], v.im[cols]).to(torch.complex128))
+        got = torch.complex(y.re[cols], y.im[cols]).to(torch.complex128)
+        diff = max(diff, float((got - want).abs().max()))
+        top = max(top, float(want.abs().max()))
+        del want, got
+    err = diff / top
+    del schur, v, y
+    print(f"{label}: apply_schur against the plain reference (complex128) {err:.3e} of max "
+          f"|y| (<= {CLOVER_EO_TOL}); launches by route {apply_routes}; {ms:.4f} ms (bytes "
+          f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms: blocks once, each launch's x and "
+          "y, the subtraction)", flush=True)
+    if err > CLOVER_EO_TOL or apply_routes != {"tiled": 2, "site16": 2}:
+        raise AssertionError(f"{label}: apply_schur error {err}, routes {apply_routes}")
+    D = ref.Operator(links, cfg)
+    res2 = bn2 = normal2 = nbn2 = 0.0
+    for k in range(0, ncols, CLOVER_EO_REF_COLS):
+        cols = slice(k, k + CLOVER_EO_REF_COLS)
+        bc = torch.complex(b.re[cols], b.im[cols]).to(torch.complex128)
+        r = D.apply(torch.complex(x.re[cols], x.im[cols]).to(torch.complex128)) - bc
+        res2 += float(r.norm()) ** 2
+        bn2 += float(bc.norm()) ** 2
+        normal2 += float(D.adjoint(r).norm()) ** 2
+        nbn2 += float(D.adjoint(bc).norm()) ** 2
+        del bc, r
+    res, normal = math.sqrt(res2 / bn2), math.sqrt(normal2 / nbn2)
+    del D, links, x, b
+    torch.cuda.empty_cache()
+    print(f"{label}: eo_solve_clover_soa {it} iterations to {FAMILY_TOL}, {wall:.3f} s; under "
+          f"the reference's D |D x - b|/|b| {res:.3e} (<= {UNSQUARED_TOL}), normal "
+          f"{normal:.3e}; launches by route {routes}", flush=True)
+    if not (it < CLOVER_MAXITER and res <= UNSQUARED_TOL):
+        raise AssertionError(f"{label}: the solve did not converge")
+    if routes != {"tiled": 4 * it + 4, "site16": 4 * it + 4}:
+        raise AssertionError(f"{label}: launches {routes}, expected {4 * it + 4} of each "
+                             "route")
+    expect_fused(label, counts, it)
+
+
+def clover_eo_paths(gen):
+    """The clover even-odd path at the clover path's shape, then at the
+    lattice and columns of the benchmark's even-odd cell."""
+    clover_eo_path(gen, CLOVER_LAT, MAIN_COLS)
+    _w, cfg, traffic = bench_harness().cell(CLOVER_EO_CELL)
+    if (cfg["mass"], cfg["c_sw"]) != (CLOVER_MASS, CLOVER_CSW):
+        raise AssertionError(f"{CLOVER_EO_CELL}: mass and c_sw differ from the smoke's")
+    clover_eo_path(gen, tuple(cfg["lattice"]), traffic["rhs"])
 
 
 def moebius_path(gen, profile: bool):
@@ -3966,6 +4095,7 @@ def main():
     dc_launches, dc_err = default_call_path(gen)
     cg_upd = cg_update_checks(gen, rate)
     clover = clover_path(gen, args.profile)
+    clover_eo_paths(gen)
     dense_walls = dense_solve_path(clover[4], rate)
     clover = clover[:4]
     moebius = moebius_path(gen, args.profile)

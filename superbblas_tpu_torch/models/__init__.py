@@ -1,5 +1,6 @@
-"""Lattice operators (Wilson, twisted mass, staggered, clover, domain wall
-and Moebius, coarse), their solves and multigrid."""
+"""Lattice operators (Wilson, twisted mass, staggered, clover and its
+even-odd Schur form, domain wall and Moebius, coarse), their solves and
+multigrid."""
 
 from .wilson import (adjoint_operator, apply_wilson, apply_wilson_dagger,
                      cg_solve, cg_step, gamma_matrices, random_su3_links,
@@ -12,6 +13,8 @@ from .even_odd import checkerboard_masks, eo_solve, schur_cg, schur_matvec  # no
 from .eo_packed import (apply_hopping_packed, apply_hopping_packed_soa, cb_pack, cb_pack_soa,
                         cb_unpack, cb_unpack_soa, eo_solve_packed, eo_solve_packed_soa,
                         hopping_packed, hopping_packed_soa)
+from .clover_eo import (CloverEOOperator, apply_schur, clover_eo_operator, eo_prepare,
+                        eo_reconstruct, eo_solve_clover_soa)
 from .coarse import apply_coarse, coarse_operator
 from . import multigrid
 from .multigrid import (build_hierarchy, build_prolongator, chebyshev_smoother,
@@ -31,6 +34,8 @@ __all__ = ["gamma_matrices", "random_su3_links", "wilson_offsets",
            "cb_pack", "cb_unpack", "hopping_packed", "apply_hopping_packed",
            "eo_solve_packed", "cb_pack_soa", "cb_unpack_soa", "hopping_packed_soa",
            "apply_hopping_packed_soa", "eo_solve_packed_soa",
+           "CloverEOOperator", "clover_eo_operator", "apply_schur", "eo_prepare",
+           "eo_reconstruct", "eo_solve_clover_soa",
            "coarse_operator", "apply_coarse", "multigrid",
            "build_prolongator", "build_hierarchy", "chebyshev_smoother",
            "vcycle_preconditioner", "coarse_matrix", "coarse_bsr_operator",
