@@ -126,7 +126,13 @@ c_sw 1.0, key 0; A^H = gamma5 A gamma5; its (1,1,12,12) term checked and
 timed beside ``torch.einsum("ijs,njs->nis")`` on complex64, every launch
 of it in the solve on the block-streaming kernel's 16-byte form); Moebius at 16x16x16x32 x Ls 16 x 4 rhs (M5 1.4, m_f 0.3, b5 1.5,
 c5 0.5; A^H = (Gamma5 R5) D_left (Gamma5 R5), the adjoint identity
-first; K1 at the 64 kernel columns checked and timed); and, on the
+first; K1 at the 64 kernel columns checked and timed; the s5 pass of
+``ops/dw_s5.py`` held against its plain version bit for bit, each of its
+four passes at the path's field in f32 and f64 and at the Moebius cell's
+(16^3x32 x Ls 12 x 1, ``rbc-64i.mobius.prop-1rhs``), an iteration's three
+passes timed beside the plain versions and the 16-plane bound at the
+cell's field; in the solve the passes right_pre and right_post once an
+iteration and left once more, by form); and, on the
 Wilson path's lattice and links, twisted mass (mu 0.05, cg_solve, 25
 iterations) and staggered (adjoint_operator; K1 (1,1,3,3) checked and
 timed).
@@ -158,9 +164,11 @@ before it; the ``cols=True`` solves (coarse, MG) none.
 
 P2 path (fault P2): a default-dtype (complex128) SoA ``mobius_operator``
 at 8^3x16, Ls 8, and a complex128 SoA ``wilson_operator`` on the main
-lattice and links, applied through K1's f64 route, and the Wilson blocks
-cast to f32 applied to bf16 fields (K1's f32-block/bf16-field pair), each
-against the plain version on the card; K1 timed at both pairs.
+lattice and links, applied through K1's f64 route (the Moebius apply's
+s5 terms through the s5 kernel's f64 form, right_pre and right_post once
+each), and the Wilson blocks cast to f32 applied to bf16 fields (K1's
+f32-block/bf16-field pair), each against the plain version on the card;
+K1 timed at both pairs.
 
 AoS even-odd paths: ``eo_solve_packed`` on the main lattice's Wilson
 operator in the "aos" layout (main links and right-hand sides, EO_ITERS
@@ -273,6 +281,9 @@ from superbblas_tpu_torch.ops import batched_gemm as gemm_ops
 from superbblas_tpu_torch.ops.cg_update import (cg_dot, cg_dot_reference, cg_p,
                                                 cg_p_reference, cg_xr, cg_xr_reference)
 from superbblas_tpu_torch.ops.cg_update import workspace as cg_workspace
+from superbblas_tpu_torch.ops import dw_s5 as dw_s5_ops
+from superbblas_tpu_torch.ops.dw_s5 import PASSES as DW_S5_PASSES
+from superbblas_tpu_torch.ops.dw_s5 import dw_s5, dw_s5_reference
 from superbblas_tpu_torch.ops.batched_gemm import (batched_gemm_route, batched_gemm_rowpack,
                                                    batched_small_gemm,
                                                    batched_small_gemm_reference)
@@ -451,7 +462,7 @@ def same_as_rt(blocks, kron, x, offsets, label, bi=3, bd=3):
 CG_KERNELS = (cg_dot, cg_xr, cg_p)
 COUNTED = (stencil_matvec_soa, stencil_matvec_soa_rt, stencil_matvec_soa_xin,
            stencil_matvec_soa_stream, permute_4d, permute_4d_tiled, batched_small_gemm,
-           batched_gemm_rowpack, roll_add) + CG_KERNELS
+           batched_gemm_rowpack, roll_add, dw_s5) + CG_KERNELS
 
 
 def reset_counts():
@@ -465,6 +476,8 @@ def reset_counts():
     roll_add.by_variant_form.clear()
     for fn in CG_KERNELS:
         fn.by_form.clear()
+    dw_s5.by_pass.clear()
+    dw_s5.by_form.clear()
     stencil_matvec_soa.plan_builds = 0
     stencil_matvec_soa.kron_reads = 0
 
@@ -1635,6 +1648,8 @@ AOS_LAT, AOS_LS, AOS_COLS, AOS_TOL = (4, 4, 8, 8), 4, 2, 1e-5
 #: links; fault P3's default call: mobius_operator(DEFAULT_LAT), AoS at
 #: complex128 (J = 324: E1 at f64), against its SoA twin
 P2_LAT, P2_LS, P2_COLS, DEFAULT_LAT = (8, 8, 8, 16), 8, 2, (4, 4, 4, 8)
+#: the s5 pass's launches of fault P2's Moebius apply (right projectors)
+P2_S5_PASSES = {"right_pre": 1, "right_post": 1}
 #: E2 shapes: the probe's and one that resolves on the card; E3's: the
 #: probe's 64^4 f32
 E2_SHAPES = ((256, 32, 256), (4096, 32, 256))
@@ -1953,7 +1968,8 @@ def family_solve(label, A, Ah, b, maxiter, plans):
     residuals in f64: the normal one against SOLVE_RES_TOL, the unsquared
     one against UNSQUARED_TOL, and ``plans`` plans built (one per operator
     with spin factors), and every iteration on the fused CG kernels.
-    Returns (iterations, {route: launches by shape})."""
+    Returns (iterations, {route: launches by shape, and the s5 pass's
+    launches by pass and by form})."""
     torch.cuda.reset_peak_memory_stats()
     clear_plans()
     reset_counts()
@@ -1964,7 +1980,8 @@ def family_solve(label, A, Ah, b, maxiter, plans):
     counts = read_counts()
     shapes = {"k1": dict(stencil_matvec_soa.by_shape),
               "routes": dict(stencil_matvec_soa.by_route),
-              "runtime": dict(stencil_matvec_soa_rt.by_shape)}
+              "runtime": dict(stencil_matvec_soa_rt.by_shape),
+              "dw_s5": dict(dw_s5.by_pass), "dw_s5_forms": dict(dw_s5.by_form)}
     peak = torch.cuda.max_memory_allocated()
     ax = A(x)
     r = CArray(ax.re - b.re, ax.im - b.im)
@@ -2188,16 +2205,82 @@ def moebius_path(gen, profile: bool):
     ms, bd_ = time_stencil(w.blocks, w.kron, xf, w.offsets, 3, 3, 5,
                            f"K1 (4,4,3,3) {MOEBIUS_LAT} {ncols} columns (Moebius)")
     del xf, u
+    dw_s5_checks(Dr, gen)
     # two plans: the Wilson operators of both projector sides
     it, shapes = family_solve(f"moebius path {MOEBIUS_LAT} Ls {MOEBIUS_LS} x {MOEBIUS_COLS} "
                               "rhs", A, Ah, b, MOEBIUS_MAXITER, plans=2)
     applies = 1 + 2 * it
     if shapes["k1"] != {(4, 4, 3, 3): applies}:
         raise AssertionError(f"moebius path launches {shapes}, expected {applies}")
+    passes = {"right_pre": it, "right_post": it, "left": it + 1}
+    DW_S5["launches_by_pass"], DW_S5["launches_by_form"] = shapes["dw_s5"], shapes["dw_s5_forms"]
+    print(f"moebius path s5 pass launches in the solve by pass {shapes['dw_s5']} (expected "
+          f"{passes}), by form {shapes['dw_s5_forms']}", flush=True)
+    if shapes["dw_s5"] != passes:
+        raise AssertionError("moebius path: an apply's s5 terms ran off the kernel")
     if profile:
         profile_run("moebius cgne", lambda: solvers.cgne(A, Ah, b, tol=FAMILY_TOL,
                                                          maxiter=MOEBIUS_MAXITER))
     return applies, err, ms, bd_
+
+
+#: the s5 pass's checks: (shape, dtype) of the Moebius path's field in f32
+#: and f64 and of the Moebius cell's (16^3x32 x Ls 12 x 1); the planes each
+#: pass reads and writes, and an iteration's passes (A: right_pre,
+#: right_post; A^H: left)
+DW_S5_SHAPES = {"path": ((MOEBIUS_COLS, MOEBIUS_LS, 12) + MOEBIUS_LAT, torch.float32),
+                "path f64": ((MOEBIUS_COLS, MOEBIUS_LS, 12) + MOEBIUS_LAT, torch.float64),
+                "cell": ((1, 12, 12) + MOEBIUS_LAT, torch.float32)}
+DW_S5_PLANES = {"right_pre": 4, "right_post": 6, "left": 6, "shamir": 6}
+DW_S5_ITERATION = ("right_pre", "right_post", "left")
+#: the s5 pass's results for the kernels line
+DW_S5 = {}
+
+
+def dw_s5_checks(op, gen):
+    """The s5 pass (``ops/dw_s5.py``) against its plain version on random
+    fields at each DW_S5_SHAPES shape, every pass with the Moebius
+    operator ``op``'s weights and scalars (Shamir's walls for "shamir"),
+    bit for bit (the max |kernel - plain| over every pass and shape kept
+    as ``max_abs_err``); then an iteration's three passes timed beside the
+    plain versions at the cell's shape, against the 16-plane bound at the
+    data sheet's rate.  Kept in DW_S5."""
+    wp, wm = op.pm_diag, op.pp_diag
+    DW_S5["max_abs_err"] = 0.0
+    for label, (shape, dtype) in DW_S5_SHAPES.items():
+        x, y = randn_c(shape, gen, dtype), randn_c(shape, gen, dtype)
+
+        def args(kind):
+            bulk, wall = (-1.0, op.m_f) if kind == "shamir" else (1.0, -op.m_f)
+            return (kind, x, None if kind == "right_pre" else y, wp, wm, bulk, wall, op.b5,
+                    op.c5)
+
+        forms, same = dw_s5.by_form.copy(), {}
+        for kind in DW_S5_PASSES:
+            pairs = list(zip(dw_s5(*args(kind)), dw_s5_reference(*args(kind))))
+            same[kind] = all(torch.equal(a, c) for a, c in pairs)
+            DW_S5["max_abs_err"] = max([DW_S5["max_abs_err"]] + [
+                float((a.double() - c.double()).abs().max()) for a, c in pairs])
+            del pairs
+        torch.cuda.synchronize()
+        print(f"dw_s5 {label} {shape} {dtype}: bit for bit against the plain version {same}, "
+              f"forms {dict(dw_s5.by_form - forms)}, max |kernel - plain| so far "
+              f"{DW_S5['max_abs_err']:.3e}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"dw_s5 {label}: a pass differs from its plain version")
+        if label == "cell":
+            t = time_turns({
+                "kernel": lambda: [dw_s5(*args(k)) for k in DW_S5_ITERATION],
+                "plain": lambda: [dw_s5_reference(*args(k)) for k in DW_S5_ITERATION]}, 11)
+            nbytes = sum(DW_S5_PLANES[k] for k in DW_S5_ITERATION) * 4 * x.re.numel()
+            DW_S5.update(ms=t["kernel"], plain_ms=t["plain"],
+                         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+            print(f"dw_s5 {label}: an iteration's three passes median {t['kernel']:.4f} ms "
+                  f"({nbytes / t['kernel'] / 1e9:.3f} TB/s over 16 planes), plain versions "
+                  f"{t['plain']:.4f} ms, over 11 in turns; bound {DW_S5['bound_ms']:.4f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+        del x, y
+    torch.cuda.empty_cache()
 
 
 def staggered_path(links, gen):
@@ -2286,6 +2369,18 @@ def plain_stencil():
         bsr.stencil_matvec_soa = inner
 
 
+@contextlib.contextmanager
+def plain_dw_s5():
+    """Runs the domain-wall applies' s5 passes through the plain version
+    while active."""
+    inner = dw_s5_ops.dw_s5
+    dw_s5_ops.dw_s5 = dw_s5_reference
+    try:
+        yield
+    finally:
+        dw_s5_ops.dw_s5 = inner
+
+
 def max_rel(got: CArray, want: CArray, tol: float, label: str) -> float:
     """max |got - want| over both parts, in f64; raises above ``tol`` of
     max |want|; returns the max abs error."""
@@ -2327,11 +2422,16 @@ def p2_path(links, b, gen):
         ys.append(apply(o, v))
         torch.cuda.synchronize()
         launches.append(read_counts()["stencil_matvec_soa"])
+        if apply is apply_domain_wall:
+            s5 = dict(dw_s5.by_pass)
     print(f"p2 path: K1 launches of the Moebius f64, Wilson f64 and f32/bf16 applies "
-          f"{launches}", flush=True)
+          f"{launches}; s5 pass launches of the Moebius f64 apply {s5} (expected "
+          f"{P2_S5_PASSES})", flush=True)
     if launches != [1, 1, 1] or ys[0].re.dtype != torch.float64 or ys[2].re.dtype != b16.re.dtype:
         raise AssertionError("an f64 or f32/bf16 apply did not launch K1 once")
-    with plain_stencil():
+    if s5 != P2_S5_PASSES:
+        raise AssertionError("the f64 Moebius apply's s5 terms ran off the kernel")
+    with plain_stencil(), plain_dw_s5():
         want = apply_domain_wall(dw, xd)
     e_m = max_rel(ys[0], want, TOL[torch.float64],
                   f"Moebius {P2_LAT} Ls {P2_LS} complex128 SoA apply vs plain")
@@ -4262,7 +4362,11 @@ def main():
         "launches_dist_b_per_rank": [r["cg_fused"] for r in dist_b],
         "max_sum_units": cg_upd["max_sum_units"], "ms": cg_upd["ms"],
         "plain_ms": cg_upd["plain_ms"], "bound_ms": cg_upd["bound_ms"], "bound_by": "bytes",
-        "copy_rate_ms": cg_upd["copy_rate_ms"], "library_ms": None}]}))
+        "copy_rate_ms": cg_upd["copy_rate_ms"], "library_ms": None}] + [{
+        "name": "dw_s5[right_pre, right_post, left]", "route": "cuda",
+        "source": "superbblas_tpu_torch/csrc/dw_s5.cu", "replaces": None,
+        "launches": sum(DW_S5["launches_by_pass"].values()), **DW_S5,
+        "bound_by": "bytes", "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

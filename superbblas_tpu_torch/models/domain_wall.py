@@ -19,7 +19,8 @@ Two layouts:
   folds into the stencil kernel's columns (fields [ncols, Ls, 12, *lat]
   reshaped to [ncols*Ls, 12, *lat], K1 at (4, 4, 3, 3)); the s5 terms are
   elementwise, the projectors being diagonal in the chiral basis
-  (gamma5 = diag(1, 1, -1, -1)).
+  (gamma5 = diag(1, 1, -1, -1)): one pass over the field each
+  (``ops/dw_s5.py``, a CUDA kernel on the card).
 * AoS (the default, as in the JAX package): a 5-D stencil on (s, x, y,
   z, t) with full 12x12 blocks, Shamir
   with 11 offsets (one batched product of J = 132: E1), Moebius with 27,
@@ -43,6 +44,7 @@ from .. import cplx
 from ..bsr import BSROperator, apply_stencil_soa, bsr_from_stencil, bsr_krylov
 from ..cplx import CArray
 from ..labels import volume
+from ..ops import dw_s5 as S5
 from ..ops._guard import is_sharded
 from ..utils import tracker
 from .wilson import NC, NS, _seed_from_key, gamma5, gamma_matrices, random_su3_links, \
@@ -293,7 +295,9 @@ def apply_domain_wall(op, x):
     complex), one ``bsr_krylov`` at lattice rank 5.  SoA operators
     (DomainWallSoAOperator): x a CArray [ncols, Ls, 12, X, Y, Z, T]; the
     hopping runs the stencil kernel with s folded into the columns, the s5
-    projector terms are elementwise with the mass walls at the s wrap."""
+    projector terms, with the mass walls at the s wrap, one pass of
+    ``ops/dw_s5.py`` before K1 and one after (Moebius right), or one after
+    (Moebius left, Shamir)."""
     if not isinstance(op, DomainWallSoAOperator):
         return bsr_krylov(1.0, op, x, "sxyztSCn")
     if is_sharded(x):
@@ -335,44 +339,20 @@ def _apply_dw_sharded(op, x):
 
 def _apply_dw_soa(op, x, W5):
     """The SoA apply on x [n, Ls, 12, *lat] with the hopping ``W5`` of
-    [n, Ls, 12, *lat] fields."""
-    n, Ls = x.re.shape[0], op.Ls
-    if x.re.shape[1] != Ls:
-        raise ValueError(f"field has {x.re.shape[1]} s-slices, the operator Ls = {Ls}")
-    rest = tuple(x.re.shape[2:])
-    dt, dev = x.re.dtype, x.re.device
-    shape_c = (1, Ls, 1) + (1,) * (len(rest) - 1)
-    shape_f = (1, 1, rest[0]) + (1,) * (len(rest) - 1)
+    [n, Ls, 12, *lat] fields; the s5 terms are ``ops/dw_s5.py``'s passes
+    (its kernel on the card, its plain version on the CPU)."""
+    if x.re.shape[1] != op.Ls:
+        raise ValueError(f"field has {x.re.shape[1]} s-slices, the operator Ls = {op.Ls}")
+    wp, wm = op.pm_diag, op.pp_diag             # weights of x_{s+1}, x_{s-1}
+    # Moebius: H psi|_s = P_- psi_{s+1} + P_+ psi_{s-1}, x -m_f across the s
+    # wrap; Shamir: y_s -= P_- psi_{s+1} + P_+ psi_{s-1}, x -m_f across it
+    bulk, wall = (1.0, -op.m_f) if op.mobius else (-1.0, op.m_f)
 
-    def wall(at, v_wall, v_bulk):
-        """[Ls] factors, v_bulk but v_wall at s = at, in the field's dtype"""
-        w = torch.full((Ls,), v_bulk, dtype=dt, device=dev)
-        w[at] = v_wall
-        return w.reshape(shape_c)
+    def s5(kind, y=None):
+        return S5.dw_s5(kind, x, y, wp, wm, bulk, wall, op.b5, op.c5)
 
-    wp = op.pm_diag.to(dt).reshape(shape_f)       # weights of x_{s+1}
-    wm = op.pp_diag.to(dt).reshape(shape_f)       # weights of x_{s-1}
-    if op.mobius:
-        # H psi|_s = P_- psi_{s+1} + P_+ psi_{s-1}, walls x -m_f
-        hp, hm = wall(Ls - 1, -op.m_f, 1.0) * wp, wall(0, -op.m_f, 1.0) * wm
-
-        def H(a):
-            return hp * torch.roll(a, -1, dims=1) + hm * torch.roll(a, 1, dims=1)
-
-        if op.projector_side == "right":
-            Hx = CArray(H(x.re), H(x.im))
-            y = W5(CArray(op.b5 * x.re + op.c5 * Hx.re, op.b5 * x.im + op.c5 * Hx.im))
-            return CArray(y.re + x.re - Hx.re, y.im + x.im - Hx.im)
-        u = W5(x)                       # left: D_M x = b5 u + x + H(c5 u - x)
-        return CArray(op.b5 * u.re + x.re + H(op.c5 * u.re - x.re),
-                      op.b5 * u.im + x.im + H(op.c5 * u.im - x.im))
-
-    y = W5(x)
-    # y_s += c+_s (P- x_{s+1}) + c-_s (P+ x_{s-1}); c+ = -1 except m_f at the
-    # s = Ls-1 wall (wrap to 0), c- = -1 except m_f at the s = 0 wall
-    cp, cm = wall(Ls - 1, op.m_f, -1.0) * wp, wall(0, op.m_f, -1.0) * wm
-
-    def term(a):
-        return cp * torch.roll(a, -1, dims=1) + cm * torch.roll(a, 1, dims=1)
-
-    return CArray(y.re + term(x.re), y.im + term(x.im))
+    if not op.mobius:
+        return s5("shamir", W5(x))
+    if op.projector_side == "right":         # D_M x = D_W(b5 x + c5 H x) + x - H x
+        return s5("right_post", W5(s5("right_pre")))
+    return s5("left", W5(x))                 # D_M x = b5 u + x + H(c5 u - x), u = D_W x

@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("stencil_soa.cu", "stencil_rt.cu", "stencil_tiled.cu", "stencil_site.cu",
            "stencil_schedules.cu", "permute.cu", "batched_gemm.cu", "roll_add.cu",
-           "cg_update.cu")
+           "cg_update.cu", "dw_s5.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("stencil_soa.cuh", "stencil_plan.cuh", "kernel_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -144,6 +144,10 @@ def library() -> ctypes.CDLL:
     lib.sbt_cg_xr.argtypes = [i, i64] + [p] * 15 + [i, p, p]
     lib.sbt_cg_p.argtypes = [i, i64] + [p] * 10 + [i, p]
     lib.sbt_cg_dot.restype = lib.sbt_cg_xr.restype = lib.sbt_cg_p.restype = i
+    # (pass, f64, form, n, Ls, V, x, y and out planes, wp, wm, b5, c5, bulk,
+    # wall, cap, stream)
+    lib.sbt_dw_s5.argtypes = [i] * 5 + [i64] + [p] * 8 + [ctypes.c_double] * 4 + [i, p]
+    lib.sbt_dw_s5.restype = i
     # (f64, V, I, J, N, tile, sites) as ops/batched_gemm.py picks them + b,
     # x, y, stream
     for name in ("sbt_batched_gemm_small", "sbt_batched_gemm_rowpack"):

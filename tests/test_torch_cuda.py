@@ -30,7 +30,10 @@ checkpoint) and on two gloo ranks sharing the card (the halo exchange and
 one sharded apply against the unsharded K1 apply); CG's fused updates
 (``ops/cg_update.py``) against their plain version at the benchmark's
 plane sizes, with a tail and on a 4-byte offset view, their reductions
-bit for bit twice, and a clover CGNE at 16^3x32 on them.  The kernels at
+bit for bit twice, and a clover CGNE at 16^3x32 on them; the domain-wall
+s5 pass (``ops/dw_s5.py``) against its plain version bit for bit, every
+pass in both forms in f32 and f64 and on strided fields, and a Moebius
+CGNE on it in both.  The kernels at
 the main path's shapes are checked by ``chip_smoke.py``.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -54,6 +57,7 @@ from superbblas_tpu_torch.models import eo_packed as E
 from superbblas_tpu_torch.models import wilson as W
 from superbblas_tpu_torch.ops import batched_gemm as G
 from superbblas_tpu_torch.ops import cg_update as U
+from superbblas_tpu_torch.ops import dw_s5 as D5
 from superbblas_tpu_torch.ops import permute as P
 from superbblas_tpu_torch.ops import roll_add as R
 from superbblas_tpu_torch.ops import stencil as S
@@ -1501,4 +1505,115 @@ def test_clover_cgne_on_the_fused_kernels(cuda_device, monkeypatch):
     scale = float(x_ops.re.abs().max())
     for a, w in zip(x, x_ops):
         assert float((a - w).abs().max()) <= 1e-4 * scale
+    assert abs(float(rs) - float(rs_ops)) <= 0.05 * float(rs_ops)
+
+
+#: the s5 pass's shapes [n, Ls, 12, *lat]: the Moebius cell's field
+#: (16^3x32 x Ls 12 x 1: the 16-byte form), one whose sites a plane are no
+#: multiple of 4 or 2, and one at Ls 1 whose planes start one element into
+#: their buffers (both one element a step)
+DW_S5_SHAPES = {"cell": ((1, 12, 12, 16, 16, 16, 32), 0), "ragged": ((3, 5, 12, 3, 3, 3, 5), 0),
+                "offset": ((2, 1, 12, 4, 4, 4, 8), 1)}
+
+
+def _dw_s5_field(shape, offset, gen, dtype=torch.float32):
+    n = int(np.prod(shape))
+    return CArray(*(torch.randn(n + offset, generator=gen, device=gen.device, dtype=dtype)[offset:]
+                    .view(shape) for _ in range(2)))
+
+
+def _dw_s5_args(kind, x, y, device, dtype=torch.float32):
+    """A pass's arguments with the chiral weights and the walls of the
+    Moebius (bulk 1, wall -m_f) and Shamir (-1, m_f) operators."""
+    wp = torch.tensor((0.0,) * 6 + (1.0,) * 6, device=device, dtype=dtype)
+    bulk, wall = (-1.0, 0.000678) if kind == "shamir" else (1.0, -0.000678)
+    return (kind, x, None if kind == "right_pre" else y, wp, 1.0 - wp, bulk, wall, 1.5, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(DW_S5_SHAPES))
+@pytest.mark.parametrize("kind", D5.PASSES)
+def test_dw_s5_kernel_matches_plain_version(cuda_device, kind, case, dtype):
+    """Each pass of the s5 kernel against its plain version, bit for bit
+    (the same roundings), out of place, in the form its operands take;
+    its bytes counted."""
+    from superbblas_tpu_torch.utils import tracker
+
+    shape, offset = DW_S5_SHAPES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(len(shape) + shape[1])
+    x, y = (_dw_s5_field(shape, offset, gen, dtype) for _ in range(2))
+    args = _dw_s5_args(kind, x, y, cuda_device, dtype)
+    forms, passes = D5.dw_s5.by_form.copy(), D5.dw_s5.by_pass.copy()
+    nbytes = tracker.counters().get("dw_s5.bytes", 0)
+    got = D5.dw_s5(*args)
+    want = D5.dw_s5_reference(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+    assert D5.dw_s5.by_form - forms == {("vec16" if case == "cell" else "elem"): 1}
+    assert D5.dw_s5.by_pass - passes == {kind: 1}
+    planes = 4 if kind == "right_pre" else 6
+    assert tracker.counters()["dw_s5.bytes"] - nbytes == planes * x.re.numel() * x.re.element_size()
+
+
+@pytest.mark.cuda
+def test_dw_s5_kernel_takes_strided_fields_and_other_weights(cuda_device):
+    """Transposed views and f32 weights beside f64 fields: the wrapper
+    makes the planes contiguous and casts the weights, and the kernel
+    equals the plain version on the same views."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    shape = (2, 4, 12, 4, 4, 4, 8)
+    x, y = (CArray(*(t.transpose(3, 6) for t in _dw_s5_field(shape, 0, gen, torch.float64)))
+            for _ in range(2))
+    args = list(_dw_s5_args("left", x, y, cuda_device))
+    assert not x.re.is_contiguous() and args[3].dtype == torch.float32
+    got = D5.dw_s5(*args)
+    want = D5.dw_s5_reference(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["f32", "f64"])
+def test_moebius_cgne_on_the_s5_kernel(cuda_device, monkeypatch, dtype):
+    """A Moebius CGNE (A^H = (Gamma5 R5) D_left (Gamma5 R5)) at 8^3x16 x
+    Ls 12 runs the s5 terms of every apply on the kernel: right_pre and
+    right_post once an iteration, left once more for A^H b.  The plain
+    version's solve takes the same iterations to the same solution within
+    the fields' rounding."""
+    from superbblas_tpu_torch.models import domain_wall as DW
+
+    lat, Ls = (8, 8, 8, 16), 12
+    real = torch.float32 if dtype == torch.complex64 else torch.float64
+    links = W.random_su3_links(np.random.default_rng(2), lat)
+    kw = dict(Ls=Ls, M5=1.8, m_f=0.05, b5=1.5, c5=0.5, links=links, dtype=dtype,
+              layout="soa", device=cuda_device)
+    Dr = DW.mobius_operator(lat, **kw)
+    Dl = DW.mobius_operator(lat, projector_side="left", **kw)
+    b = crand((1, Ls, 12) + lat, 6, cuda_device, real)
+    signs = torch.tensor((1.0,) * 6 + (-1.0,) * 6, device=cuda_device, dtype=real).reshape(
+        1, 1, 12, 1, 1, 1, 1)
+
+    def r5g5(v):
+        return CArray(*(a.flip(1) * signs for a in v))
+
+    def solve():
+        return solvers.cgne(lambda v: DW.apply_domain_wall(Dr, v),
+                            lambda v: r5g5(DW.apply_domain_wall(Dl, r5g5(v))), b, tol=1e-5,
+                            maxiter=1000)
+
+    passes = D5.dw_s5.by_pass.copy()
+    x, rs, k = solve()
+    assert D5.dw_s5.by_pass - passes == {"right_pre": k, "right_post": k, "left": k + 1}
+    kernel, launches = D5.dw_s5, D5.dw_s5.launches
+    monkeypatch.setattr(D5, "dw_s5", D5.dw_s5_reference)
+    x_ops, rs_ops, k_ops = solve()
+    assert kernel.launches == launches
+    assert k == k_ops > 10
+    scale = float(x_ops.re.abs().max())
+    for a, w in zip(x, x_ops):
+        assert a.dtype == real and float((a - w).abs().max()) <= 1e-4 * scale
     assert abs(float(rs) - float(rs_ops)) <= 0.05 * float(rs_ops)

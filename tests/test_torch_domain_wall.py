@@ -39,22 +39,25 @@ def builders(kind, side="right"):
         M5=1.8, m_f=0.1, b5=1.5, c5=0.5, projector_side=side)
 
 
-def field(layout, lat, dtype, seed, n=2):
-    shape = (n, LS, 12) + lat if layout == "soa" else (LS,) + lat + (4, 3, n)
+def field(layout, lat, dtype, seed, n=2, Ls=LS):
+    shape = (n, Ls, 12) + lat if layout == "soa" else (Ls,) + lat + (4, 3, n)
     return both(crand_np(shape, seed, dtype))
 
 
+@pytest.mark.parametrize("Ls", [1, LS, 12])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("layout", ["aos", "soa"])
 @pytest.mark.parametrize("kind,side", [("shamir", "right"), ("mobius", "right"),
                                        ("mobius", "left")])
-def test_matches_jax(kind, side, layout, dtype):
+def test_matches_jax(kind, side, layout, dtype, Ls):
+    """The s wrap's mass walls at s = 0 and s = Ls-1 included; at Ls 1 the
+    two walls meet in one slice."""
     lat = LATS[layout]
     links = JW.random_su3_links(np.random.default_rng(9), lat)
     jb, tb, kw = builders(kind, side)
     jdt, tdt = DTYPES[dtype]
-    jop = jb(lat, Ls=LS, links=links, dtype=jdt, layout=layout, **kw)
-    top = tb(lat, Ls=LS, links=links, dtype=tdt, layout=layout, device="cpu", **kw)
+    jop = jb(lat, Ls=Ls, links=links, dtype=jdt, layout=layout, **kw)
+    top = tb(lat, Ls=Ls, links=links, dtype=tdt, layout=layout, device="cpu", **kw)
     if layout == "aos":
         assert top.ndir == {"shamir": 11, "mobius": 27}[kind]
         assert_parity(top.blocks, jop.blocks, np.float64)
@@ -63,7 +66,7 @@ def test_matches_jax(kind, side, layout, dtype):
         assert top.flops_per_matvec(2) == jop.flops_per_matvec(2)
         for a, b in ((top.pp_diag, jop.pp_diag), (top.pm_diag, jop.pm_diag)):
             np.testing.assert_array_equal(to_np(a), to_np(b))
-    jx, tx = field(layout, lat, dtype, 1)
+    jx, tx = field(layout, lat, dtype, 1, Ls=Ls)
     assert_parity(TD.apply_domain_wall(top, tx), JD.apply_domain_wall(jop, jx), dtype,
                   RTOL[dtype])
 
@@ -76,14 +79,15 @@ def to_aos(v):
                     for p in v))
 
 
+@pytest.mark.parametrize("Ls", [1, LS, 12])
 @pytest.mark.parametrize("kind,side", [("shamir", "right"), ("mobius", "right"),
                                        ("mobius", "left")])
-def test_soa_matches_aos(kind, side):
+def test_soa_matches_aos(kind, side, Ls):
     lat = (2, 2, 4, 4)
     links = TW.random_su3_links(np.random.default_rng(10), lat)
     _, tb, kw = builders(kind, side)
-    kw.update(Ls=LS, links=links, device="cpu")
-    _, x = field("soa", lat, np.float64, 2, n=3)
+    kw.update(Ls=Ls, links=links, device="cpu")
+    _, x = field("soa", lat, np.float64, 2, n=3, Ls=Ls)
     assert_parity(to_aos(TD.apply_domain_wall(tb(lat, layout="soa", **kw), x)),
                   TD.apply_domain_wall(tb(lat, layout="aos", **kw), to_aos(x)),
                   np.float64)

@@ -1,12 +1,13 @@
 """Time the clover term's K1, the permute kernel K2, the stencil's
 X-inside and X-streaming schedules beside K1, K1's runtime-shape route,
 the transpose tile sweep E3, the bf16 roll-plus-add E2 and the gather
-applies (with K3 at the kron gather's colour stage) and CG's fused
-updates of two or more checkouts of the port in turns, on one card.
+applies (with K3 at the kron gather's colour stage), CG's fused updates
+and the domain-wall s5 pass of two or more checkouts of the port in
+turns, on one card.
 
     python tools/kernel_turns.py [--trees DIR ...] [--rounds N] [--reps R] [--no-solve]
                                  [--only clover permute schedules runtime sweep e2 gather
-                                         host cg_update]
+                                         host cg_update dw_s5]
 
 Each tree (a directory holding ``superbblas_tpu_torch/``; default: this
 checkout) is run in a process of its own, which builds that tree's kernels
@@ -73,6 +74,15 @@ calls), ms:
   ``solvers.cg`` (78 planes), and ``<plane>_bound`` the 22 planes at
   ``copy_rate_gbs``, this process's device-to-device copy rate of a GiB
   (read and write counted);
+- ``dw_s5`` (a dict, ``--only dw_s5``): the s5 pass (``ops/dw_s5.py``)
+  alone at the Moebius cell's field (1 x Ls 12 x 12 x 16^3x32, 75.5 MB a
+  plane), the chiral weights and the cell's b5, c5 and m_f, on fresh
+  outputs: ``right_pre``, ``right_post``, ``left``, ``shamir`` (ms) and
+  their GB/s (4, 6, 6 and 6 planes moved), ``iteration`` the three passes
+  of a Moebius CGNE iteration (right_pre, right_post, left) in a row
+  against ``plain``, the same three as the plain version's PyTorch ops,
+  and ``bound`` the 16 planes at ``copy_rate_gbs``, this process's
+  device-to-device copy rate of a GiB;
 - ``clover_cgne_s`` (unless ``--no-solve``): the wall of the clover CGNE of
   ``chip_smoke.py`` (24x24x24x48, 8 right-hand sides, mass 0.1, c_sw 1.0,
   key 0, to 1e-5), one warm solve after one untimed one.
@@ -85,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -303,6 +314,35 @@ def worker(reps: int, solve: bool, only) -> dict:
             res[f"{label}_bound"] = 22 * 4 * n / rate * 1e3
             del x, p, r, q
         out["cg_update"] = res
+    if "dw_s5" in only:
+        from superbblas_tpu_torch.ops import dw_s5 as D5
+
+        a = torch.empty(2 ** 28, device="cuda")
+        c = torch.empty_like(a)
+        rate = 2 * 2 ** 30 / (median_ms(lambda: c.copy_(a)) * 1e-3)
+        del a, c
+        res = {"copy_rate_gbs": rate / 1e9}
+        shape = (1, 12, 12, 16, 16, 16, 32)
+        n = math.prod(shape)
+        x, y = randn_c(shape), randn_c(shape)
+        wp = torch.tensor((0.0,) * 6 + (1.0,) * 6, device="cuda")
+        wm = 1.0 - wp
+        planes = {"right_pre": 4, "right_post": 6, "left": 6, "shamir": 6}
+
+        def args(kind):
+            bulk, wall = (-1.0, 0.000678) if kind == "shamir" else (1.0, -0.000678)
+            return (kind, x, None if kind == "right_pre" else y, wp, wm, bulk, wall, 1.5, 0.5)
+
+        for kind in D5.PASSES:
+            ms = median_ms(lambda: D5.dw_s5(*args(kind)))
+            res[kind] = ms
+            res[f"{kind}_gbs"] = planes[kind] * 4 * n / (ms * 1e-3) / 1e9
+        iteration = ("right_pre", "right_post", "left")
+        res["iteration"] = median_ms(lambda: [D5.dw_s5(*args(k)) for k in iteration])
+        res["plain"] = median_ms(lambda: [D5.dw_s5_reference(*args(k)) for k in iteration])
+        res["bound"] = 16 * 4 * n / rate * 1e3
+        del x, y
+        out["dw_s5"] = res
     if solve:
         lat = (24, 24, 24, 48)
         op = wilson_clover_operator(lat, mass=0.1, c_sw=1.0, key=0, layout="soa",
@@ -336,7 +376,7 @@ def main():
     parser.add_argument("--no-solve", action="store_true")
     parser.add_argument("--only", nargs="+", default=["clover", "permute", "schedules"],
                         choices=["clover", "permute", "schedules", "runtime", "sweep", "e2",
-                                 "gather", "host", "cg_update"])
+                                 "gather", "host", "cg_update", "dw_s5"])
     parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
