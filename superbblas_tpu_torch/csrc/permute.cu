@@ -25,7 +25,7 @@
 //    stream through a ring of kVecStages = 3 stages in shared memory, so
 //    the loads of the next two items are in flight while this one is
 //    stored (two blocks of 256 threads an SM); the tile's shape and the
-//    ring were chosen by tools/kernel_variants.py (PERF.md);
+//    ring were chosen by its bring-up sweep (PERF.md section 6);
 //  * loads are 16-byte cp.async along T (a warp reads one 512-byte row),
 //    stores 16-byte words along X (a warp writes four 128-byte rows);
 //  * the stage holds the tile as read, row x, its 32 four-word chunks
@@ -87,24 +87,12 @@ namespace {
 constexpr int kTile = 32;  // tile edge, in words
 constexpr int kRows = 8;   // threadIdx.y extent: each thread moves kTile/kRows words
 constexpr int64_t kMaxGridYZ = 65535;
-// The 16-byte route's design, set by -D in tools/kernel_variants.py: a
-// tile of SBT_K2_EX X rows x SBT_K2_ET T words (multiples of 32), a ring of
-// SBT_K2_STAGES tiles, SBT_K2_THREADS threads a block.
-#ifndef SBT_K2_EX
-#define SBT_K2_EX 64
-#endif
-#ifndef SBT_K2_ET
-#define SBT_K2_ET 128
-#endif
-#ifndef SBT_K2_STAGES
-#define SBT_K2_STAGES 3
-#endif
-#ifndef SBT_K2_THREADS
-#define SBT_K2_THREADS 256
-#endif
-constexpr int kVecEX = SBT_K2_EX, kVecET = SBT_K2_ET;
-constexpr int kVecThreads = SBT_K2_THREADS;
-constexpr int kVecStages = SBT_K2_STAGES;
+// The 16-byte route's design, as its bring-up sweep chose it (PERF.md
+// section 6): a tile of kVecEX X rows x kVecET T words (multiples of 32), a ring
+// of kVecStages tiles, kVecThreads threads a block.
+constexpr int kVecEX = 64, kVecET = 128;
+constexpr int kVecThreads = 256;
+constexpr int kVecStages = 3;
 
 // the items of the 16-byte forms: (y, z) plane slowest, then the X tile,
 // then the T tile; fewer than 2^31 (vec_grid checks)

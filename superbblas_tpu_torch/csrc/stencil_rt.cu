@@ -78,31 +78,20 @@ namespace {
 
 __host__ __device__ constexpr int log2_of(int v) { return v > 1 ? 1 + log2_of(v / 2) : 0; }
 
-// The design, set by -D in tools/kernel_variants.py: most threads a block,
-// the launch bound's blocks an SM at the f32-summed pairs (one at f64).
-// The tile, the directions a stage holds and the ring's depth are the
-// host picker's (ops/stencil.py rt_tile), arguments of the call.
-#ifndef SBT_RT_THREADS
-#define SBT_RT_THREADS 256
-#endif
-#ifndef SBT_RT_MIN_BLOCKS
-#define SBT_RT_MIN_BLOCKS 2
-#endif
-// Ablations for tools/kernel_variants.py (wrong results, timed only): 1
-// skips the sums, 2 every copy, 3 the copies of x, 4 those of the blocks;
-// 5, 6 and 7 skip the sums and, as 3, 4 and 2, copies.
-#ifndef SBT_RT_ABLATE
-#define SBT_RT_ABLATE 0
-#endif
-constexpr int kThreads = SBT_RT_THREADS;
+// The design, as its bring-up sweep chose it (PERF.md section 6): most
+// threads a block, and the launch bound's blocks an SM at the f32-summed
+// pairs (one at f64).  The tile, the directions a stage holds and the
+// ring's depth are the host picker's (ops/stencil.py rt_tile), arguments
+// of the call.
+constexpr int kThreads = 256;
 constexpr int kMaxStages = 8;
 constexpr int kRowThreads = 32;   // most threads a (site, column) of the rowwise split
 // columns a thread sums, each block entry it reads from shared memory
-// serving both (one column a thread ran 5-40% slower, tools/kernel_variants.py)
+// serving both (one column a thread ran 5-40% slower, PERF.md section 6)
 constexpr int kCols = 2;
 
 template <typename ST, typename FT> constexpr int kMinBlocks =
-    sizeof(acc_t<ST, FT>) == 8 ? 1 : SBT_RT_MIN_BLOCKS;
+    sizeof(acc_t<ST, FT>) == 8 ? 1 : 2;
 
 // The launch: shape, tile and shared-memory layout; every index the kernel
 // decodes is below 2^31 (sbt_stencil_soa_rt checks).
@@ -192,8 +181,7 @@ __device__ __forceinline__ void copy_dir(unsigned char* slot, const RtGrid& g, c
     ST* sb = reinterpret_cast<ST*>(slot);
     const ST* bre = b_re + (int64_t)d * g.NE * V + s0;
     const ST* bim = b_im + (int64_t)d * g.NE * V + s0;
-    if (SBT_RT_ABLATE == 2 || SBT_RT_ABLATE == 4 || SBT_RT_ABLATE == 6 || SBT_RT_ABLATE == 7) {
-    } else if (g.wide_b) {
+    if (g.wide_b) {
         constexpr int kVec = 16 / sizeof(ST);
         const int cbits = g.sbits - log2_of(kVec);   // chunks of a row: 2^cbits
         for (int q = tid; q < (2 * g.NE) << cbits; q += nthreads) {
@@ -239,8 +227,7 @@ __device__ __forceinline__ void copy_dir(unsigned char* slot, const RtGrid& g, c
         *src = (part ? x_im : x_re) + ((int64_t)(c0 + col) * g.F + f) * V;
         return c0 + col < n;
     };
-    if (SBT_RT_ABLATE == 2 || SBT_RT_ABLATE == 3 || SBT_RT_ABLATE == 5 || SBT_RT_ABLATE == 7) {
-    } else if (wide) {
+    if (wide) {
         const int cbits = g.sbits - log2_of(kVec);
         for (int q = tid; q < (2 * rows) << cbits; q += nthreads) {
             const int c = (q & ((1 << cbits) - 1)) * kVec;
@@ -397,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, (kMinBlocks<ST, FT>)) stencil_rt_ker
         copy_wait_upto(g.stages - 2);
         __syncthreads();
         issue(k + g.stages - 1);   // into the stage item k - 1 used: every thread is past it
-        if (live && (SBT_RT_ABLATE == 0 || (SBT_RT_ABLATE >= 2 && SBT_RT_ABLATE <= 4))) {
+        if (live) {
             const unsigned char* stage = ring + (k % g.stages) * stage_bytes;
             const int d0 = step * g.D, dn = min(g.D, ndir - d0);
             for (int q = 0; q < dn; ++q) {
@@ -651,7 +638,7 @@ extern "C" {
 // K1's runtime-shape route: any shape with ki*kd*bi*bd <= 256 and any n >= 1,
 // at the tile ops/stencil.py rt_tile picks: S sites, C columns, R outputs
 // and two columns a thread (S * ceil(C / 2) * G threads, at most
-// SBT_RT_THREADS), D directions a stage, a ring of ``stages`` (2 to 8); every value of
+// kThreads), D directions a stage, a ring of ``stages`` (2 to 8); every value of
 // a column's field and of a direction's blocks below 2^31; pair: the kPair;
 // offsets: host [ndir, 4]; packed_parity 0, 1 or -1 (none).
 int sbt_stencil_soa_rt(int ki, int kd, int bi, int bd, int pair, const void* b_re,

@@ -25,7 +25,7 @@
 // one group of C columns in shared memory, so +-x wrap inside the block.
 // Two stages: group g + 1's lines load with 16-byte cp.async while group g
 // is summed, one barrier a group (one stage where one group covers the
-// columns).  A block walks two groups (SBT_XIN_GROUPS); the blocks of a
+// columns).  A block walks two groups (kXinGroups); the blocks of a
 // tile are adjacent in the grid, so they run together and read the tile's
 // links from L2 where one block walking all the groups read them from
 // device memory again for each (1.3x slower at 32^3x64 x 8 f32).
@@ -55,9 +55,9 @@
 //    tile's sites on adjacent lanes and the columns of a group in other
 //    warps of the block, as in K1: a warp's loads from device memory touch
 //    one or two lines, and the columns' link loads meet in L1.  A site's
-//    columns on adjacent lanes (SBT_SCHED_COLS_FASTEST) make a link load
-//    one request but spread the other loads over C lines, and K4a's
-//    warps over several X planes: measured slower (tools/kernel_variants.py);
+//    columns on adjacent lanes make a link load one request but spread
+//    the other loads over C lines, and K4a's warps over several X planes:
+//    measured slower (PERF.md section 6);
 //  * 16-byte cp.async copies where a row of the tile is 16-byte aligned
 //    in device memory (the wrapper's wide flag), element copies through
 //    registers otherwise, as stencil_site.cu's two forms;
@@ -79,44 +79,23 @@
 
 namespace {
 
-// The design's constants; tools/kernel_variants.py sets them with -D to
-// build and time a variant, the package builds the defaults.
-#ifndef SBT_SCHED_UNROLL
-#define SBT_SCHED_UNROLL 1    // unroll of the direction loop
-#endif
-#ifndef SBT_XIN_GROUPS
-#define SBT_XIN_GROUPS 2      // column groups a K4a block walks (0: all of them)
-#endif
-#ifndef SBT_STREAM_THREADS
-#define SBT_STREAM_THREADS 128   // threads a block of the X-streaming kernel
-#endif
-#ifndef SBT_XIN_THREADS
-#define SBT_XIN_THREADS 512   // threads a block of the X-inside kernel (256 at f64)
-#endif
-#ifndef SBT_STREAM_PREFETCH
-#define SBT_STREAM_PREFETCH 1   // K4b's links into L2: 0 never, 1 an item's before its sums
-#endif
-#ifndef SBT_SCHED_COLS_FASTEST
-#define SBT_SCHED_COLS_FASTEST 0   // 1: a site's columns on adjacent lanes; 0: sites
-#endif
-#define SBT_PRAGMA(x) _Pragma(#x)
-#define SBT_UNROLL(n) SBT_PRAGMA(unroll n)
-
-constexpr int kStreamThreads = SBT_STREAM_THREADS;
+// The design's constants, as their bring-up sweep chose them (PERF.md
+// section 6), with the direction loop not unrolled and K4b's links prefetched
+// into L2: threads a block of the X-streaming kernel, column groups a
+// K4a block walks
+constexpr int kStreamThreads = 128;
+constexpr int kXinGroups = 2;
 constexpr int kRing = 4;         // K4b's ring: x - 1, x, x + 1 and x + 2 in flight
 constexpr int kStreamWaves = 4;  // blocks an SM below which K4b splits its X walk
-// threads a block of K4a: the design's at the f32-summed pairs, 256 at f64
-// (its sums take twice the registers: 512 threads would spill)
+// threads a block of K4a: 512 at the f32-summed pairs, 256 at f64 (its
+// sums take twice the registers: 512 threads would spill)
 template <typename ST, typename FT> constexpr int kXinThreads =
-    sizeof(acc_t<ST, FT>) == 8 ? 256 : SBT_XIN_THREADS;
-// blocks an SM the launch bounds ask for: K4a's 16 warps (one block of 512
-// threads, two of 256); K4b's four blocks of 128 threads (up to 128
-// registers), three for the dense plan at (4, 4, 3, 3) (164 registers);
-// one at f64
-template <typename ST, typename FT> constexpr int kXinMinB =
-    sizeof(acc_t<ST, FT>) == 8 ? 1 : 512 / SBT_XIN_THREADS;
+    sizeof(acc_t<ST, FT>) == 8 ? 256 : 512;
+// blocks an SM the launch bounds ask for: K4a's one block; K4b's four
+// blocks of 128 threads (up to 128 registers), three for the dense plan
+// at (4, 4, 3, 3) (164 registers); one at f64
 template <int KI, bool kSparse, typename ST, typename FT> constexpr int kStreamMinB =
-    sizeof(acc_t<ST, FT>) == 8 ? 1 : (KI == 4 && !kSparse ? 3 : 4) * 128 / kStreamThreads;
+    sizeof(acc_t<ST, FT>) == 8 ? 1 : KI == 4 && !kSparse ? 3 : 4;
 
 // a schedule's launch: lattice, shape, tile and form
 struct Sched {
@@ -176,7 +155,7 @@ __device__ __forceinline__ void planned_item(const ST* __restrict__ b_re,
     A acc_re[KO], acc_im[KO];
 #pragma unroll
     for (int o = 0; o < KO; ++o) acc_re[o] = acc_im[o] = A(0);
-    SBT_UNROLL(SBT_SCHED_UNROLL)
+#pragma unroll 1
     for (int d = 0; d < ndir; ++d) {
         A br[NB], bi[NB];
         const ST* bdr = b_re + (int64_t)d * NB * V + site;
@@ -243,7 +222,7 @@ __device__ __forceinline__ Nb<FT> from_device(const Hops& h, int d, int site, in
 
 // K4a.  blockIdx.x: the tile; the block walks the column groups.
 template <int KI, int KD, int BI, int BD, bool kSparse, typename ST, typename FT>
-__global__ void __launch_bounds__(kXinThreads<ST, FT>, kXinMinB<ST, FT>)
+__global__ void __launch_bounds__(kXinThreads<ST, FT>, 1)
 stencil_xin_kernel(
     const ST* __restrict__ b_re, const ST* __restrict__ b_im,
     const PlanDir<acc_t<ST, FT>>* __restrict__ plan, const acc_t<ST, FT>* __restrict__ k_re,
@@ -298,13 +277,8 @@ stencil_xin_kernel(
         for (int w = tid; w < g.items; w += kThreads) {
             const int o = KI ? 0 : g.dsite.div(w);
             const int r = w - o * (g.X * g.S * g.C);
-#if SBT_SCHED_COLS_FASTEST
-            const int rc = g.dC.div(r), c = r - rc * g.C;
-            const int x = g.dS.div(rc), s = rc - x * g.S;
-#else
             const int rs = g.dS.div(r), s = r - rs * g.S;
             const int x = g.dC.div(rs), c = rs - x * g.C;
-#endif
             const int col = grp * g.C + c, p = p0 + s;
             if (col >= g.n || p >= g.Vp) continue;
             const int q1 = g.dT.div(p), ct = p - q1 * g.T;
@@ -411,13 +385,8 @@ stencil_stream_kernel(
         for (int w = tid; w < g.items; w += kStreamThreads) {
             const int o = KI ? 0 : g.dsite.div(w);
             const int u = w - o * (g.R * g.S * g.C);
-#if SBT_SCHED_COLS_FASTEST
-            const int rc = g.dC.div(u), c = u - rc * g.C;
-            const int r = g.dS.div(rc), s = rc - r * g.S;
-#else
             const int rs = g.dS.div(u), s = u - rs * g.S;
             const int r = g.dC.div(rs), c = rs - r * g.C;
-#endif
             const int col = cg * g.C + c, yz = row0 + r;
             if (col >= g.n || yz >= rows_yz || s >= len) continue;
             const int cy = g.dZ.div(yz), cz = yz - cy * g.Z, ct = t0 + s;
@@ -436,8 +405,7 @@ stencil_stream_kernel(
             FT* yr = y_re + (int64_t)col * KO * g.V;
             FT* yi = y_im + (int64_t)col * KO * g.V;
             if constexpr (KI != 0) {
-                if constexpr (SBT_STREAM_PREFETCH == 1)
-                    prefetch_links<BI * BD>(b_re, b_im, hops.ndir, g.V, site, c, g.C);
+                prefetch_links<BI * BD>(b_re, b_im, hops.ndir, g.V, site, c, g.C);
                 planned_item<KI, BI, BD, kSparse>(b_re, b_im, plan, hops.ndir, g.V, site, where,
                                                   yr, yi);
             }
@@ -481,7 +449,7 @@ struct SchedArgs {
 // covers the columns) or the ring (K4b)
 template <typename FT> size_t smem_of(const SchedArgs& a) {
     const size_t F = (size_t)a.kd * a.bd;
-    const size_t stages = a.n > a.C && SBT_XIN_GROUPS != 1 ? 2 : 1;
+    const size_t stages = a.n > a.C ? 2 : 1;
     return a.stream ? sizeof(FT) * kRing * (2 * F * a.R * a.C * a.rs + 16 / sizeof(FT))
                     : sizeof(FT) * stages * 2 * F * a.X * a.C * a.rs;
 }
@@ -532,7 +500,7 @@ template <typename FT> bool plan_launch(const SchedArgs& a, int sms, dim3* grid,
         if (a.rs < a.S || (a.wide && (a.S % kVec || Vp % kVec || a.rs % kVec))) return false;
         s.R = 1;
         s.ngroups = (a.n + a.C - 1) / a.C;
-        s.gpb = SBT_XIN_GROUPS > 0 && SBT_XIN_GROUPS < s.ngroups ? SBT_XIN_GROUPS : s.ngroups;
+        s.gpb = kXinGroups < s.ngroups ? kXinGroups : s.ngroups;
         const int bpt = (s.ngroups + s.gpb - 1) / s.gpb;   // blocks a tile
         s.per = a.wide ? a.S / kVec : a.S;
         const int64_t tiles = (Vp + a.S - 1) / a.S;

@@ -35,7 +35,7 @@
 //    stages (36 KB each at f32: three blocks of 128 threads an SM), so
 //    the next item's copies are in flight while this one is summed; a
 //    third stage, or fewer warps with more stages, measured no faster
-//    (tools/kernel_variants.py); above 8 columns a block makes column
+//    (PERF.md section 6); above 8 columns a block makes column
 //    passes over a tile, the later ones reading its blocks from L2;
 //  * the items are decoded in 32 bits with divisors fixed at launch
 //    (FastDiv: volumes below 2^31 sites);
@@ -56,24 +56,15 @@
 
 namespace {
 
-// The design, set by -D in tools/kernel_variants.py: stages of the ring,
-// column groups (warps) a block at most, the launch bound's blocks an SM.
-#ifndef SBT_SITE_STAGES
-#define SBT_SITE_STAGES 2
-#endif
-#ifndef SBT_SITE_GROUPS
-#define SBT_SITE_GROUPS 4
-#endif
-#ifndef SBT_SITE_MIN_BLOCKS
-#define SBT_SITE_MIN_BLOCKS 3
-#endif
-
 constexpr int kSites = 32;      // sites of a tile: one warp, T-fastest flat index
 constexpr int kEntries = 144;   // entries of a 12 x 12 block
 constexpr int kFeat = 12;       // features of a site and column
 constexpr int kCols = 2;        // columns a thread
-constexpr int kMaxGroups = SBT_SITE_GROUPS;   // column groups a block (threadIdx.y)
-constexpr int kStages = SBT_SITE_STAGES;      // the ring of stages
+// the design, as its bring-up sweep chose it (PERF.md section 6): column
+// groups (warps) a block at most, stages of the ring, and three blocks an
+// SM in the launch bounds
+constexpr int kMaxGroups = 4;   // column groups a block (threadIdx.y)
+constexpr int kStages = 2;      // the ring of stages
 
 constexpr int kStageElems = 2 * kEntries * kSites;   // a stage: [re|im][entry][site]
 
@@ -118,7 +109,7 @@ struct SiteGrid {
 };
 
 template <typename ST, typename FT, bool kWide>
-__global__ void __launch_bounds__(kSites * kMaxGroups, SBT_SITE_MIN_BLOCKS) stencil_site_kernel(
+__global__ void __launch_bounds__(kSites * kMaxGroups, 3) stencil_site_kernel(
     const ST* __restrict__ b_re, const ST* __restrict__ b_im, const float* __restrict__ k_re,
     const float* __restrict__ k_im, const FT* __restrict__ x_re, const FT* __restrict__ x_im,
     FT* __restrict__ y_re, FT* __restrict__ y_im, int n, int X, int Y, int Z, int T,

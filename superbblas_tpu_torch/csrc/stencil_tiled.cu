@@ -52,13 +52,13 @@
 //  * every direction's links are prefetched into L2 when the thread
 //    starts, and at (4, 4, 3, 3) the direction loop is unrolled by two,
 //    so two directions' x and link loads are in flight before their sums
-//    (at (1, 1, 3, 3) the unroll loses, tools/k1_ablation.py); the
+//    (at (1, 1, 3, 3) the unroll loses, PERF.md section 6); the
 //    f32 forms fit in 128 registers (80 at (1, 1, 3, 3)) so that two
 //    (three) blocks of 256 threads share an SM (__launch_bounds__; f64
 //    takes one);
 //  * no shared memory and no barrier: x's reuse between the tile's sites
-//    is left to L1 and L2.  Staging was measured and loses
-//    (tools/k1_variants.cu, timed by tools/k1_ablation.py): an X-walk
+//    is left to L1 and L2.  Staging was measured and loses (PERF.md
+//    section 6; the variants are in git history): an X-walk
 //    block with a four-slot ring of x lines and the plane's links in
 //    shared memory holds one block of 256 threads an SM (160 KB) and runs
 //    1.4x this kernel's time; the links alone staged by cp.async, or
@@ -84,57 +84,20 @@ struct Tile {
     int sY, sX;   // site strides of Y and X (Z*T, Y*Z*T)
 };
 
-// The design's constants.  Each is a macro that tools/k1_ablation.py sets
-// with -D to build and time a variant (tools/k1_variants.cu holds the
-// variants that change more than a constant); the package builds the
-// defaults.
-#ifndef SBT_K1_COL_GROUPS
-#define SBT_K1_COL_GROUPS 8   // column groups a block (at most)
-#endif
-#ifndef SBT_K1_STAG_COLS
-#define SBT_K1_STAG_COLS 2    // columns a thread at (1, 1, 3, 3)
-#endif
-#ifndef SBT_K1_MINB_W
-#define SBT_K1_MINB_W 2       // blocks of 256 threads an SM at (4, 4, 3, 3), f32 sums
-#endif
-#ifndef SBT_K1_MINB_S
-#define SBT_K1_MINB_S 3       // the same at (1, 1, 3, 3)
-#endif
-#ifndef SBT_K1_PREFETCH
-#define SBT_K1_PREFETCH 2     // links prefetched into L2: 0 never, 1 at (4, 4, 3, 3), 2 always
-#endif
-#ifndef SBT_K1_LDCS
-#define SBT_K1_LDCS 0         // 1: links loaded with the streaming hint (__ldcs)
-#endif
-#ifndef SBT_K1_UNROLL_W
-#define SBT_K1_UNROLL_W 2     // unroll of the direction loop at (4, 4, 3, 3)
-#endif
-#ifndef SBT_K1_UNROLL_S
-#define SBT_K1_UNROLL_S 1     // the same at (1, 1, 3, 3)
-#endif
-#define SBT_PRAGMA(x) _Pragma(#x)
-#define SBT_UNROLL(n) SBT_PRAGMA(unroll n)
-
+// The design's constants, as the bring-up sweep chose them (PERF.md
+// section 6), with the links' L2 prefetch and the direction loop's unroll in the
+// kernel: column groups a block (at most)
+constexpr int kColGroups = 8;
 // columns a thread takes: one at (4, 4, 3, 3) (24 sums), two at
 // (1, 1, 3, 3), which share each direction's nine link entries
-template <int KI> constexpr int kCols = KI == 1 ? SBT_K1_STAG_COLS : 1;
+template <int KI> constexpr int kCols = KI == 1 ? 2 : 1;
 // blocks of 256 threads an SM should hold: two at (4, 4, 3, 3) in f32
 // (128 registers), three at (1, 1, 3, 3) (85), one in f64
 template <int KI, typename A> constexpr int kMinBlocks =
-    sizeof(A) == 8 ? 1 : KI == 1 ? SBT_K1_MINB_S : SBT_K1_MINB_W;
+    sizeof(A) == 8 ? 1 : KI == 1 ? 3 : 2;
 
 // a launch's directions as site steps on its tile's lattice
 Hops hops_of(const Dirs& dirs, const Tile& g) { return make_hops(dirs, g.X, g.Y, g.Z, g.T); }
-
-// a link value: through the read-only path, or streaming (SBT_K1_LDCS)
-template <typename ST> __device__ __forceinline__ auto load_link(const ST* p) {
-#if SBT_K1_LDCS
-    if constexpr (sizeof(ST) == 2) return __bfloat162float(__ldcs(p));
-    else return __ldcs(p);
-#else
-    return load_f(p);
-#endif
-}
 
 template <int KI, int KD, int BI, int BD, bool kSparse, typename ST, typename FT>
 __global__ void __launch_bounds__(256, kMinBlocks<KI, acc_t<ST, FT>>) stencil_tiled_kernel(
@@ -159,16 +122,14 @@ __global__ void __launch_bounds__(256, kMinBlocks<KI, acc_t<ST, FT>>) stencil_ti
     if (ct >= g.T || cz >= g.Z || col0 >= g.n) return;
     const int ncols = g.n - col0 < CT ? g.n - col0 : CT;
 
-    if constexpr (SBT_K1_PREFETCH == 2 || (SBT_K1_PREFETCH == 1 && KI != 1)) {
-        // every direction's links of the site into L2 first, shared out
-        // among the block's column groups: the loads of each direction then
-        // wait on L2 rather than on device memory
-        for (int d = threadIdx.y; d < hops.ndir; d += blockDim.y)
-            for (int ij = 0; ij < NB; ++ij) {
-                prefetch_l2(b_re + (int64_t)d * NB * V + (s + ij * V));
-                prefetch_l2(b_im + (int64_t)d * NB * V + (s + ij * V));
-            }
-    }
+    // every direction's links of the site into L2 first, shared out among
+    // the block's column groups: the loads of each direction then wait on
+    // L2 rather than on device memory
+    for (int d = threadIdx.y; d < hops.ndir; d += blockDim.y)
+        for (int ij = 0; ij < NB; ++ij) {
+            prefetch_l2(b_re + (int64_t)d * NB * V + (s + ij * V));
+            prefetch_l2(b_im + (int64_t)d * NB * V + (s + ij * V));
+        }
 
     A acc_re[CT][KO], acc_im[CT][KO];
 #pragma unroll
@@ -197,8 +158,8 @@ __global__ void __launch_bounds__(256, kMinBlocks<KI, acc_t<ST, FT>>) stencil_ti
         const ST* bdi = b_im + (int64_t)d * NB * V + s;
 #pragma unroll
         for (int ij = 0; ij < NB; ++ij) {
-            br[ij] = load_link(bdr + ij * V);
-            bi[ij] = load_link(bdi + ij * V);
+            br[ij] = load_f(bdr + ij * V);
+            bi[ij] = load_f(bdi + ij * V);
         }
 #pragma unroll
         for (int c = 0; c < CT; ++c) {
@@ -209,11 +170,12 @@ __global__ void __launch_bounds__(256, kMinBlocks<KI, acc_t<ST, FT>>) stencil_ti
                                                   acc_im[c]);
         }
     };
+    // the direction loop unrolled by two at (4, 4, 3, 3) only
     if constexpr (KI == 1) {
-        SBT_UNROLL(SBT_K1_UNROLL_S)
+#pragma unroll 1
         for (int d = 0; d < hops.ndir; ++d) step(d);
     } else {
-        SBT_UNROLL(SBT_K1_UNROLL_W)
+#pragma unroll 2
         for (int d = 0; d < hops.ndir; ++d) step(d);
     }
 #pragma unroll
@@ -255,7 +217,7 @@ bool tiling(int n, int X, int Y, int Z, int T, int yc, dim3* grid, dim3* block, 
     if ((int64_t)X * Y * Z * T * kPlanes<KI, KD, BI, BD> > INT32_MAX) return false;
     constexpr int CT = kCols<KI>;
     const int groups = (n + CT - 1) / CT;
-    const int cg = groups < SBT_K1_COL_GROUPS ? groups : SBT_K1_COL_GROUPS;
+    const int cg = groups < kColGroups ? groups : kColGroups;
     int sites = 256 / cg / 32 * 32;                      // column groups x sites a block
     if (sites < 32) sites = 32;
     if (sites > max_sites) sites = max_sites;

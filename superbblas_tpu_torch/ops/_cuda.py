@@ -7,11 +7,15 @@ shared library with a plain C interface, at first use, into
 counts in the tracker's ``kernels.builds``.  Nothing is
 built or loaded at import, so the package imports on machines without
 CUDA; on a machine with a card but no ``nvcc`` the build raises.
+
+The kernel wrappers of ``ops`` launch through this module alone:
+``on_card`` sends CPU operands to their plain versions and CUDA ones to a
+kernel, ``launch`` calls a C entry on the device's current stream, and
+``grid_cap`` sizes a persistent grid.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -53,15 +57,44 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def on_device(dev):
-    """A context that makes ``dev`` current for a launch: a no-op where it
-    is current already (entering ``torch.cuda.device`` costs microseconds
-    of host time a launch)."""
+def on_card(name: str, *tensors) -> bool:
+    """Whether a wrapper's operands go to its kernel: False where they are
+    all CPU tensors (the plain version's case), True where the first is a
+    CUDA tensor; ValueError for any other device.  Builds nothing."""
+    dev = tensors[0].device
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu" and all(t.device.type == "cpu" for t in tensors[1:]):
+        return False
+    raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+@functools.lru_cache(maxsize=None)
+def grid_cap(device, blocks_per_sm: int) -> int:
+    """The most blocks a persistent grid takes on CUDA ``device``: its SMs
+    times ``blocks_per_sm``, the blocks the kernel's launch bounds keep
+    resident (one wave)."""
     import torch
 
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
+    return torch.cuda.get_device_properties(device).multi_processor_count * blocks_per_sm
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call C entry ``entry`` of :func:`library` with ``args`` and the
+    handle of ``device``'s current stream, making ``device`` current only
+    where it is not (entering ``torch.cuda.device`` costs microseconds of
+    host time a launch); RuntimeError on the cudaError it returns."""
+    import torch
+
+    fn = getattr(library(), entry)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
 
 
 @functools.cache

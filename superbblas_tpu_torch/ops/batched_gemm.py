@@ -166,14 +166,6 @@ def _check(b: torch.Tensor, x: torch.Tensor, name: str) -> str:
     return batched_gemm_route(b.shape[1], b.shape[2], b.dtype)
 
 
-def _on_cpu(b: torch.Tensor, name: str) -> bool:
-    if b.device.type == "cpu":
-        return True
-    if b.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {b.device}")
-    return False
-
-
 def _empty(b: torch.Tensor, x: torch.Tensor) -> bool:
     """No output to compute (V or N is 0): the wrappers launch nothing."""
     return b.shape[0] == 0 or x.shape[2] == 0
@@ -182,24 +174,14 @@ def _empty(b: torch.Tensor, x: torch.Tensor) -> bool:
 def _launch(entry: str, b: torch.Tensor, x: torch.Tensor, cfg: int,
             sites: int) -> torch.Tensor:
     """One launch of the C entry ``entry`` at tile ``cfg``, ``sites`` a
-    block, on b's device and its current stream; the device is switched
-    only when it is not the current one."""
+    block, on b's device."""
     if not (b.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{entry}: the kernel needs contiguous b and x")
     V, I, J = b.shape
     N = x.shape[2]
     y = b.new_empty((V, I, N))
-    args = (int(b.dtype == torch.float64), V, I, J, N, cfg, sites, b.data_ptr(),
-            x.data_ptr(), y.data_ptr())
-    fn = getattr(_cuda.library(), entry)
-    dev = b.device.index
-    if dev == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    _cuda.launch(entry, b.device, int(b.dtype == torch.float64), V, I, J, N, cfg, sites,
+                 b.data_ptr(), x.data_ptr(), y.data_ptr())
     return y
 
 
@@ -224,7 +206,7 @@ def batched_gemm_rowpack(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (``batched_gemm_rowpack.launches`` counts its launches) or raise."""
     refuse_dtensor("batched_gemm_rowpack", _SHARDED, b, x)
     _check(b, x, "batched_gemm_rowpack")
-    if _on_cpu(b, "batched_gemm_rowpack"):
+    if not _cuda.on_card("batched_gemm_rowpack", b):
         return batched_small_gemm_reference(b, x)
     if torch.compiler.is_compiling():
         return torch.ops.sbt.batched_gemm_rowpack(b, x)
@@ -244,7 +226,7 @@ def batched_small_gemm(b: torch.Tensor, x: torch.Tensor, interpret: bool = False
     accepted and unused: the card always runs its kernels."""
     refuse_dtensor("batched_small_gemm", _SHARDED, b, x)
     route = _check(b, x, "batched_small_gemm")
-    if _on_cpu(b, "batched_small_gemm"):
+    if not _cuda.on_card("batched_small_gemm", b):
         return batched_small_gemm_reference(b, x)
     if torch.compiler.is_compiling():
         return torch.ops.sbt.batched_small_gemm(b, x)

@@ -22,11 +22,11 @@ block into a ``workspace`` that the calls of one solve share.
 from __future__ import annotations
 
 import collections
-import functools
 
 import torch
 
 from ..cplx import CArray
+from . import _cuda
 from ._guard import refuse_dtensor
 
 __all__ = ["cg_dot", "cg_xr", "cg_p", "cg_dot_reference", "cg_xr_reference",
@@ -64,11 +64,6 @@ def cg_p_reference(r: CArray, p: CArray, rs_new: torch.Tensor, rs: torch.Tensor,
     return rs_new / bs
 
 
-@functools.lru_cache(maxsize=None)
-def _cap(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count * BLOCKS_PER_SM
-
-
 def workspace(like: torch.Tensor):
     """The scratch the reductions of one solve share on ``like``'s device:
     a float a block and the ticket of the last block, zero between
@@ -76,7 +71,8 @@ def workspace(like: torch.Tensor):
     one run in order on one stream."""
     if like.device.type != "cuda":
         return None
-    return torch.zeros(_cap(like.device.index) + 1, dtype=torch.int32, device=like.device)
+    return torch.zeros(_cuda.grid_cap(like.device, BLOCKS_PER_SM) + 1, dtype=torch.int32,
+                       device=like.device)
 
 
 def form(*planes: torch.Tensor) -> str:
@@ -86,10 +82,11 @@ def form(*planes: torch.Tensor) -> str:
 
 
 def _check(name: str, fields, scalars) -> tuple:
-    """The planes of ``fields`` (CArrays) and the device, after the checks
-    every kernel makes: contiguous f32 planes of one size on one device
-    (no DTensor: ``solvers.cg`` hands the kernels local shards), f32 0-dim
-    scalars there."""
+    """The planes of ``fields`` (CArrays) and whether they go to the
+    kernel (``_cuda.on_card``), after the checks every kernel makes:
+    contiguous f32 planes of one size on one device (no DTensor:
+    ``solvers.cg`` hands the kernels local shards), f32 0-dim scalars
+    there."""
     planes = [t for f in fields for t in (f.re, f.im)]
     refuse_dtensor(name, "solvers.cg", *planes)
     ref = planes[0]
@@ -105,14 +102,10 @@ def _check(name: str, fields, scalars) -> tuple:
         if s.dtype != torch.float32 or s.dim() != 0 or s.device != ref.device:
             raise ValueError(f"{name}: 0-dim f32 scalars on {ref.device}, got {s.dtype} "
                              f"{tuple(s.shape)} on {s.device}")
-    if ref.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {ref.device}")
-    return planes, ref.device
+    return planes, _cuda.on_card(name, ref)
 
 
-def _launched(fn, f: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError {err}")
+def _launched(fn, f: str) -> None:
     fn.launches += 1
     fn.by_form[f] += 1
 
@@ -124,19 +117,16 @@ def _ptrs(ts):
 def cg_dot(p: CArray, q: CArray, ws=None) -> torch.Tensor:
     """Re<p, q> as a 0-dim tensor (this rank's part for shards).  ``ws``:
     a :func:`workspace` of the device (a new one where None)."""
-    planes, dev = _check("cg_dot", (p, q), ())
-    if dev.type == "cpu":
+    planes, card = _check("cg_dot", (p, q), ())
+    if not card:
         return cg_dot_reference(p, q)
-    from . import _cuda
-
+    dev = p.re.device
     ws = workspace(p.re) if ws is None else ws
     out = torch.empty((), dtype=torch.float32, device=dev)
     f = form(*planes)
-    with _cuda.on_device(dev):
-        err = _cuda.library().sbt_cg_dot(FORMS.index(f), planes[0].numel(), *_ptrs(planes),
-                                         ws.data_ptr(), ws.numel() - 1, out.data_ptr(),
-                                         torch.cuda.current_stream(dev).cuda_stream)
-    _launched(cg_dot, f, err)
+    _cuda.launch("sbt_cg_dot", dev, FORMS.index(f), planes[0].numel(), *_ptrs(planes),
+                 ws.data_ptr(), ws.numel() - 1, out.data_ptr())
+    _launched(cg_dot, f)
     return out
 
 
@@ -145,20 +135,16 @@ def cg_xr(x: CArray, p: CArray, r: CArray, q: CArray, rs: torch.Tensor, pap: tor
     """Writes x + alpha p into ``x_out`` and r - alpha q into ``r_out``,
     alpha = rs / max(pap, 1e-30), and returns |r_out|^2 (this rank's part
     for shards) as a 0-dim tensor.  ``ws``: as :func:`cg_dot`'s."""
-    planes, dev = _check("cg_xr", (x, p, r, q, x_out, r_out), (rs, pap))
-    if dev.type == "cpu":
+    planes, card = _check("cg_xr", (x, p, r, q, x_out, r_out), (rs, pap))
+    if not card:
         return cg_xr_reference(x, p, r, q, rs, pap, x_out, r_out)
-    from . import _cuda
-
+    dev = x.re.device
     ws = workspace(x.re) if ws is None else ws
     out = torch.empty((), dtype=torch.float32, device=dev)
     f = form(*planes)
-    with _cuda.on_device(dev):
-        err = _cuda.library().sbt_cg_xr(FORMS.index(f), planes[0].numel(), *_ptrs(planes),
-                                        rs.data_ptr(), pap.data_ptr(), ws.data_ptr(),
-                                        ws.numel() - 1, out.data_ptr(),
-                                        torch.cuda.current_stream(dev).cuda_stream)
-    _launched(cg_xr, f, err)
+    _cuda.launch("sbt_cg_xr", dev, FORMS.index(f), planes[0].numel(), *_ptrs(planes),
+                 rs.data_ptr(), pap.data_ptr(), ws.data_ptr(), ws.numel() - 1, out.data_ptr())
+    _launched(cg_xr, f)
     return out
 
 
@@ -167,19 +153,16 @@ def cg_p(r: CArray, p: CArray, rs_new: torch.Tensor, rs: torch.Tensor, bs: torch
     """Writes r + beta p into ``p_out``, beta = rs_new / max(rs, 1e-30),
     and returns rs_new / bs (the convergence test's ratio) as a 0-dim
     tensor."""
-    planes, dev = _check("cg_p", (r, p, p_out), (rs_new, rs, bs))
-    if dev.type == "cpu":
+    planes, card = _check("cg_p", (r, p, p_out), (rs_new, rs, bs))
+    if not card:
         return cg_p_reference(r, p, rs_new, rs, bs, p_out)
-    from . import _cuda
-
+    dev = r.re.device
     ratio = torch.empty((), dtype=torch.float32, device=dev)
     f = form(*planes)
-    with _cuda.on_device(dev):
-        err = _cuda.library().sbt_cg_p(FORMS.index(f), planes[0].numel(), *_ptrs(planes),
-                                       rs_new.data_ptr(), rs.data_ptr(), bs.data_ptr(),
-                                       ratio.data_ptr(), _cap(dev.index),
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    _launched(cg_p, f, err)
+    _cuda.launch("sbt_cg_p", dev, FORMS.index(f), planes[0].numel(), *_ptrs(planes),
+                 rs_new.data_ptr(), rs.data_ptr(), bs.data_ptr(), ratio.data_ptr(),
+                 _cuda.grid_cap(dev, BLOCKS_PER_SM))
+    _launched(cg_p, f)
     return ratio
 
 

@@ -25,7 +25,6 @@ reads and writes to the tracker's ``dw_s5.bytes``.
 from __future__ import annotations
 
 import collections
-import functools
 import math
 from typing import Optional
 
@@ -33,6 +32,7 @@ import torch
 
 from ..cplx import CArray
 from ..utils import tracker
+from . import _cuda
 from ._guard import refuse_dtensor
 
 __all__ = ["dw_s5", "dw_s5_reference", "form", "PASSES", "FORMS", "DTYPES"]
@@ -100,8 +100,6 @@ def _problem(kind, x, y, wp, wm) -> Optional[str]:
     for w in (wp, wm):
         if tuple(w.shape) != (FEATURES,) or w.device != ref.device:
             return f"weights [12] on {ref.device}, got {tuple(w.shape)} on {w.device}"
-    if ref.device.type not in ("cpu", "cuda"):
-        return f"no kernel for device {ref.device}"
     return None
 
 
@@ -113,11 +111,6 @@ def form(V: int, *planes: torch.Tensor) -> str:
     return "vec16" if V % per == 0 and all(t.data_ptr() % 16 == 0 for t in planes) else "elem"
 
 
-@functools.lru_cache(maxsize=None)
-def _cap(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count * BLOCKS_PER_SM
-
-
 def dw_s5(kind: str, x: CArray, y: Optional[CArray], wp: torch.Tensor, wm: torch.Tensor,
           bulk: float, wall: float, b5: float = 1.0, c5: float = 0.0) -> CArray:
     """One s5 pass ``kind`` (:data:`PASSES`) of x [n, Ls, 12, *lat] (and
@@ -127,11 +120,9 @@ def dw_s5(kind: str, x: CArray, y: Optional[CArray], wp: torch.Tensor, wm: torch
     problem = _problem(kind, x, y, wp, wm)
     if problem is not None:
         raise ValueError(f"dw_s5: {problem}")
-    dev, dt = x.re.device, x.re.dtype
-    if dev.type == "cpu":
+    if not _cuda.on_card("dw_s5", x.re):
         return dw_s5_reference(kind, x, y, wp, wm, bulk, wall, b5, c5)
-    from . import _cuda
-
+    dev, dt = x.re.device, x.re.dtype
     x = CArray(*(t.contiguous() for t in x))
     y = None if y is None else CArray(*(t.contiguous() for t in y))
     wp, wm = (w.to(dt).contiguous() for w in (wp, wm))
@@ -141,14 +132,10 @@ def dw_s5(kind: str, x: CArray, y: Optional[CArray], wp: torch.Tensor, wm: torch
     planes = [*x, *out] + ([] if y is None else [*y])
     f = form(V, *planes)
     yp = (None, None) if y is None else (y.re.data_ptr(), y.im.data_ptr())
-    with _cuda.on_device(dev):
-        err = _cuda.library().sbt_dw_s5(
-            PASSES.index(kind), int(dt == torch.float64), FORMS.index(f), n, Ls, V,
-            x.re.data_ptr(), x.im.data_ptr(), *yp, out.re.data_ptr(), out.im.data_ptr(),
-            wp.data_ptr(), wm.data_ptr(), b5, c5, bulk, wall, _cap(dev.index),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dw_s5 kernel launch failed: cudaError {err}")
+    _cuda.launch("sbt_dw_s5", dev, PASSES.index(kind), int(dt == torch.float64),
+                 FORMS.index(f), n, Ls, V, x.re.data_ptr(), x.im.data_ptr(), *yp,
+                 out.re.data_ptr(), out.im.data_ptr(), wp.data_ptr(), wm.data_ptr(), b5, c5,
+                 bulk, wall, _cuda.grid_cap(dev, BLOCKS_PER_SM))
     dw_s5.launches += 1
     dw_s5.by_pass[kind] += 1
     dw_s5.by_form[f] += 1

@@ -30,6 +30,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from . import _cuda
 from ._guard import refuse_dtensor
 
 __all__ = ["permute_eligible", "permute_route", "permute_4d", "permute_4d_reference",
@@ -82,17 +83,10 @@ def permute_4d_reference(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, perm: Tuple[int, ...]) -> Tuple[torch.Tensor, str]:
-    from . import _cuda
-
     out = torch.empty(tuple(x.shape[p] for p in perm), dtype=x.dtype, device=x.device)
     route = permute_route(tuple(x.shape), x.stride(), x.data_ptr(), out.data_ptr())
-    entry = getattr(_cuda.library(), "sbt_permute_4d_vec" if route == "vec16"
-                    else "sbt_permute_4d")
-    with _cuda.on_device(x.device):
-        err = entry(int(SUPPORTED[perm]), *x.shape, *x.stride(), x.data_ptr(),
-                    out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"permute_4d kernel launch failed ({route}): cudaError {err}")
+    _cuda.launch("sbt_permute_4d_vec" if route == "vec16" else "sbt_permute_4d", x.device,
+                 int(SUPPORTED[perm]), *x.shape, *x.stride(), x.data_ptr(), out.data_ptr())
     return out, route
 
 
@@ -105,10 +99,8 @@ def permute_4d(x: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     when the kernel does not take the case."""
     refuse_dtensor("permute_4d", "parallel.copy (or local_permute on the local shard)", x)
     perm = tuple(int(p) for p in perm)
-    if x.device.type == "cpu":
+    if not _cuda.on_card("permute_4d", x):
         return permute_4d_reference(x, perm)
-    if x.device.type != "cuda":
-        raise ValueError(f"permute_4d: no kernel for device {x.device}")
     if not permute_eligible(tuple(x.shape), perm, x.dtype):
         raise ValueError(
             f"permute_4d: shape {tuple(x.shape)} {x.dtype} perm {perm}: the kernel "
@@ -190,28 +182,20 @@ def permute_4d_tiled(x: torch.Tensor, perm: Sequence[int], tile: Tuple) -> torch
         raise ValueError(f"permute_4d_tiled: design point {tile} is not one of {TILES}")
     if torch.compiler.is_compiling():
         return torch.ops.sbt.permute_4d_tiled(x, list(perm), tile[0], list(tile[1:]))
-    if x.device.type == "cpu":
+    if not _cuda.on_card("permute_4d_tiled", x):
         return permute_4d_reference(x, perm)
-    if x.device.type != "cuda":
-        raise ValueError(f"permute_4d_tiled: no kernel for device {x.device}")
     if not permute_eligible(tuple(x.shape), perm, x.dtype):
         raise ValueError(
             f"permute_4d_tiled: shape {tuple(x.shape)} {x.dtype} perm {perm}: the kernel "
             f"takes 4-D perms {tuple(SUPPORTED)} of 4-byte data with X, T > 1")
-    from . import _cuda
-
     out = torch.empty(tuple(x.shape[p] for p in perm), dtype=x.dtype, device=x.device)
     if not sweep_takes(tuple(x.shape), x.stride(), x.data_ptr(), out.data_ptr()):
         raise ValueError(
             f"permute_4d_tiled: view {tuple(x.shape)} strides {x.stride()}: the sweep's "
             "16-byte forms take T's stride 1, X, T and the other strides in whole 16 bytes "
             "and 16-byte aligned pointers (permute_4d's word route takes the rest)")
-    with _cuda.on_device(x.device):
-        err = _cuda.library().sbt_permute_4d_tiled(
-            FORMS[tile[0]], *tile[1:], int(SUPPORTED[perm]), *x.shape, *x.stride(),
-            x.data_ptr(), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"permute_4d_tiled kernel launch failed at {tile}: cudaError {err}")
+    _cuda.launch("sbt_permute_4d_tiled", x.device, FORMS[tile[0]], *tile[1:],
+                 int(SUPPORTED[perm]), *x.shape, *x.stride(), x.data_ptr(), out.data_ptr())
     permute_4d_tiled.launches += 1
     return out
 

@@ -18,9 +18,10 @@ package calls it.
 from __future__ import annotations
 
 import collections
-import functools
 
 import torch
+
+from . import _cuda
 
 __all__ = ["roll_add", "roll_add_reference", "roll_add_form", "VARIANTS", "FORMS"]
 
@@ -51,11 +52,6 @@ def roll_add_form(T: int, x_ptr: int, y_ptr: int, variant: str = "f32") -> str:
     return "elem"
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
     """``roll(x, 1, -1) + x`` of a bf16 tensor.  CPU tensors run the plain
     version; CUDA tensors the kernel's ``variant`` in the form
@@ -69,27 +65,19 @@ def roll_add(x: torch.Tensor, variant: str = "f32") -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if torch.compiler.is_compiling():
         return torch.ops.sbt.roll_add(x, variant)
-    if x.device.type == "cpu":
+    if not _cuda.on_card("roll_add", x):
         return roll_add_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"roll_add: no kernel for device {x.device}")
     T = x.shape[-1]
     if variant == "bf16x2" and T % 2:
         raise ValueError(f"roll_add: the bf16x2 variant loads pairs and takes an even "
                          f"last axis, got {T}")
     if not x.is_contiguous():
         raise ValueError("roll_add: the kernel takes a contiguous tensor")
-    from . import _cuda
-
     y = torch.empty_like(x)
     form = roll_add_form(T, x.data_ptr(), y.data_ptr(), variant)
-    with torch.cuda.device(x.device):
-        err = _cuda.library().sbt_roll_add(int(variant == "bf16x2"), FORMS.index(form),
-                                           x.numel() // T, T, x.data_ptr(), y.data_ptr(),
-                                           _sms(x.device.index),
-                                           torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"roll_add kernel launch failed: cudaError {err}")
+    # the entry takes the SM count and caps its grid at its own blocks an SM
+    _cuda.launch("sbt_roll_add", x.device, int(variant == "bf16x2"), FORMS.index(form),
+                 x.numel() // T, T, x.data_ptr(), y.data_ptr(), _cuda.grid_cap(x.device, 1))
     roll_add.launches += 1
     roll_add.by_form[form] += 1
     roll_add.by_variant_form[variant, form] += 1

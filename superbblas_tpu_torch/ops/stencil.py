@@ -57,6 +57,7 @@ import torch
 from .. import cplx
 from ..cplx import CArray
 from ..utils import tracker
+from . import _cuda
 from ._guard import refuse_dtensor
 
 __all__ = ["stencil_matvec_soa", "stencil_matvec_soa_reference", "stencil_matvec_soa_rt",
@@ -112,7 +113,7 @@ STREAM_RING_BYTES = (233472 - 4 * 1024) // 4
 #: threads a block of the X-streaming kernel (csrc/stencil_schedules.cu)
 STREAM_THREADS = 128
 #: most threads a block of the runtime-shape route (csrc/stencil_rt.cu
-#: SBT_RT_THREADS) and most stages of its ring (kMaxStages); what
+#: kThreads) and most stages of its ring (kMaxStages); what
 #: ``rt_tile`` aims a stage and the ring at: a stage of 48 KB holds the next
 #: directions' copies in flight, a ring of 112 KB leaves room for two blocks
 #: an SM
@@ -123,7 +124,7 @@ RT_STAGE_BYTES, RT_RING_BYTES = 48 << 10, 112 << 10
 RT_COLS = 2
 #: block bytes a site and direction up to which a tile of the runtime-shape
 #: route takes at most 16 sites (else 32): narrow shapes ran faster in more,
-#: smaller blocks (tools/kernel_variants.py)
+#: smaller blocks (PERF.md section 6)
 RT_NARROW_BYTES = 64
 
 
@@ -519,9 +520,9 @@ def check_block(KI: int, KD: int, bi: int, bd: int) -> None:
 def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                       offsets, bi: int, bd: int,
                       packed_parity: Optional[int] = None) -> Tuple[int, int]:
-    """Raise unless the CUDA stencil kernels take these operands (device
-    aside): any shape within MAX_BLOCK, every pair of KERNEL_DTYPES;
-    returns (KI, KD)."""
+    """Raise unless the CUDA stencil kernels take these operands: any shape
+    within MAX_BLOCK, every pair of KERNEL_DTYPES, every part on x's
+    device; returns (KI, KD)."""
     if packed_parity not in (None, 0, 1):
         raise ValueError(f"packed_parity={packed_parity!r}: a checkerboard parity is "
                          "None, 0 or 1")
@@ -548,6 +549,9 @@ def check_kernel_case(blocks: CArray, kron: Optional[CArray], x: CArray,
                              f"{c.re.dtype}/{c.im.dtype}, expected {shape}")
         if not (c.re.is_contiguous() and c.im.is_contiguous()):
             raise ValueError(f"{name}: the CUDA stencil kernel needs contiguous parts")
+        if c.re.device != x.re.device or c.im.device != x.re.device:
+            raise ValueError(f"{name}: parts on {c.re.device}/{c.im.device}, x on "
+                             f"{x.re.device}")
     if n < 1 or n > 2 ** 31 - 1 or any(v > 2 ** 31 - 1 for v in lat):
         raise ValueError(f"{n} columns on lattice {lat}: outside the kernels' 32-bit "
                          "extents")
@@ -770,37 +774,24 @@ def _kron_ptrs(kron: Optional[CArray]) -> tuple:
 
 
 def _launch(entry: str, blocks, kptrs: tuple, x, offsets, bi, bd, KI, KD, *extra) -> CArray:
-    """Run C entry ``entry`` on the operands with its kron or plan
-    arguments ``kptrs``; returns y."""
-    from . import _cuda
-
-    dev = x.device
-    if blocks.re.device != dev or blocks.im.device != dev:
-        raise ValueError(f"operands on {blocks.re.device}/{blocks.im.device} and {dev}")
+    """Run C entry ``entry`` on operands ``check_kernel_case`` took, with
+    its kron or plan arguments ``kptrs``; returns y."""
     n = x.shape[0]
     lat = tuple(x.shape[2:])
     y = CArray(x.re.new_empty((n, KI * bi) + lat), x.re.new_empty((n, KI * bi) + lat))
     key = _offsets_key(offsets)
-    with _cuda.on_device(dev):
-        err = getattr(_cuda.library(), entry)(
-            KI, KD, bi, bd, KERNEL_DTYPES.index((blocks.dtype, x.dtype)),
-            blocks.re.data_ptr(), blocks.im.data_ptr(), *kptrs,
-            x.re.data_ptr(), x.im.data_ptr(), y.re.data_ptr(), y.im.data_ptr(),
-            n, *lat, len(key), _offsets_array(key), *extra,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    _cuda.launch(entry, x.device, KI, KD, bi, bd, KERNEL_DTYPES.index((blocks.dtype, x.dtype)),
+                 blocks.re.data_ptr(), blocks.im.data_ptr(), *kptrs,
+                 x.re.data_ptr(), x.im.data_ptr(), y.re.data_ptr(), y.im.data_ptr(),
+                 n, *lat, len(key), _offsets_array(key), *extra)
     return y
 
 
 def _kron_for(kron: Optional[CArray], x: CArray) -> Optional[CArray]:
     """``kron`` in the sum type of x's kernels but the tiled one (a no-op
-    where it is that type already); None stays None; raises on another
-    device."""
+    where it is that type already); None stays None."""
     if kron is None:
         return None
-    if kron.re.device != x.device or kron.im.device != x.device:
-        raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
     kdt = _sum_dtype(x)
     return cplx.cmap(lambda v: v.to(kdt).contiguous(), kron)
 
@@ -811,16 +802,6 @@ def tiled_site_bytes(blocks: CArray, x: CArray, KI: int, bi: int) -> int:
     ndir, nb = blocks.shape[0], blocks.shape[1]
     return 2 * (ndir * nb * blocks.re.element_size()
                 + x.shape[0] * (x.shape[1] + KI * bi) * x.re.element_size())
-
-
-def _on_cpu(blocks: CArray, x: CArray, name: str) -> bool:
-    """True for CPU operands (the plain version's case), False for CUDA
-    ones; raises for any other device."""
-    if x.re.device.type == "cpu" and blocks.re.device.type == "cpu":
-        return True
-    if x.re.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.re.device}")
-    return False
 
 
 @tracker.spanned("k1", events=False)
@@ -845,19 +826,20 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
     refuse_dtensor("stencil_matvec_soa", "parallel.apply_stencil_soa_sharded",
                    tuple(blocks), tuple(x))
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
-    check_block(KI, KD, bi, bd)
     if chunks is not None:
         nc, Yc = chunks
         if x.shape[0] % nc or blocks.shape[3] % Yc:
             raise ValueError(f"chunks {chunks} must divide (n={x.shape[0]}, "
                              f"Y={blocks.shape[3]})")
     if torch.compiler.is_compiling():
+        check_block(KI, KD, bi, bd)
         kre, kim = (None, None) if kron is None else (kron.re, kron.im)
         return CArray(*torch.ops.sbt.stencil_matvec_soa(
             blocks.re, blocks.im, kre, kim, x.re, x.im,
             [int(v) for off in offsets for v in off], bi, bd,
             -1 if packed_parity is None else int(packed_parity)))
-    if _on_cpu(blocks, x, "stencil_matvec_soa"):
+    if not _cuda.on_card("stencil_matvec_soa", x.re, blocks.re):
+        check_block(KI, KD, bi, bd)
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                             packed_parity=packed_parity)
     if (KI, KD, bi, bd) not in KERNEL_SHAPES:
@@ -871,8 +853,6 @@ def stencil_matvec_soa(blocks: CArray, kron: Optional[CArray], x: CArray,
                      (blocks.re.data_ptr(), blocks.im.data_ptr()))
     if route == "tiled":
         X, Y, Z, T = x.shape[2:]
-        if kron is not None and (kron.re.device != x.device or kron.im.device != x.device):
-            raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
         p = None if kron is None else spin_plan(kron, _sum_dtype(x))
         table, sparse = (None, 0) if p is None else (p.table.data_ptr(), int(p.sparse))
         yc = x_chunk(Y, Z, T, tiled_site_bytes(blocks, x, KI, bi))
@@ -932,7 +912,7 @@ def stencil_matvec_soa_rt(blocks: CArray, kron: Optional[CArray], x: CArray,
     if torch.compiler.is_compiling():
         return _traced("stencil_matvec_soa_rt", blocks, kron, x, offsets, bi, bd,
                        -1 if packed_parity is None else int(packed_parity))
-    if _on_cpu(blocks, x, "stencil_matvec_soa_rt"):
+    if not _cuda.on_card("stencil_matvec_soa_rt", x.re, blocks.re):
         KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
         check_block(KI, KD, bi, bd)
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
@@ -1034,8 +1014,6 @@ def _schedule(entry: str, blocks: CArray, kron: Optional[CArray], x: CArray, off
     check_kernel_case(blocks, kron, x, offsets, bi, bd)
     check_32bit(KI, KD, bi, bd, x, "stencil schedule")
     if (KI, KD, bi, bd) in TILED_SHAPES:
-        if kron is not None and (kron.re.device != x.device or kron.im.device != x.device):
-            raise ValueError(f"operands on {kron.re.device}/{kron.im.device} and {x.device}")
         p = None if kron is None else spin_plan(kron, _sum_dtype(x))
         kptrs = (None if p is None else p.table.data_ptr(), None, None)
         sparse = 0 if p is None else int(p.sparse)
@@ -1065,7 +1043,7 @@ def stencil_matvec_soa_xin(blocks: CArray, kron: Optional[CArray], x: CArray,
     S, C, rs = xin_tile(n, X, KD * bd, elem)
     if torch.compiler.is_compiling():
         return _traced("stencil_matvec_soa_xin", blocks, kron, x, offsets, bi, bd)
-    if _on_cpu(blocks, x, "stencil_matvec_soa_xin"):
+    if not _cuda.on_card("stencil_matvec_soa_xin", x.re, blocks.re):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
     fits16 = S * elem % 16 == 0 and x.shape[3:].numel() * elem % 16 == 0
     y = _schedule("sbt_stencil_soa_xin", blocks, kron, x, offsets, bi, bd, KI, KD,
@@ -1094,7 +1072,7 @@ def stencil_matvec_soa_stream(blocks: CArray, kron: Optional[CArray], x: CArray,
     if torch.compiler.is_compiling():
         return _traced("stencil_matvec_soa_stream", blocks, kron, x, offsets, bi, bd,
                        -1 if nc is None else int(nc))
-    if _on_cpu(blocks, x, "stencil_matvec_soa_stream"):
+    if not _cuda.on_card("stencil_matvec_soa_stream", x.re, blocks.re):
         return stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd)
     KI, KD = (1, 1) if kron is None else (kron.shape[1], kron.shape[2])
     _, Y, Z, T = x.shape[2:]
@@ -1115,8 +1093,6 @@ def schedule_attrs(schedule: str, shape: Sequence[int], storage, field, n: int,
     ``lat`` at (KI, KD, BI, BD) ``shape`` and the (storage, field) dtypes,
     from cudaFuncGetAttributes and the occupancy at the tile's shared
     memory."""
-    from . import _cuda
-
     ki, kd, bi, bd = shape
     X, Y, Z, T = lat
     elem = torch.empty((), dtype=field).element_size()
@@ -1139,8 +1115,6 @@ def rt_attrs(shape: Sequence[int], storage, field, n: int, ndir: int) -> list:
     route's kernel on n columns and ndir directions at (KI, KD, BI, BD)
     ``shape`` and the (storage, field) dtypes, at ``rt_tile``'s tile, from
     cudaFuncGetAttributes and the occupancy at its shared memory."""
-    from . import _cuda
-
     ki, kd, bi, bd = shape
     S, C, R, _, D, stages = rt_tile(ki, kd, bi, bd, n, ndir, storage.itemsize, field.itemsize)
     out = (ctypes.c_int * 4)()

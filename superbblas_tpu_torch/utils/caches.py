@@ -10,7 +10,7 @@ and ``reportCacheUsage`` (performance.h:436-454).  The port's caches are:
     the stencil wrappers (offsets checks, runtime-route tiles, offsets
     arguments);
   * the batched-GEMM tile choice by shape (``ops.batched_gemm._tile``)
-    and the SM counts of ``ops.roll_add``;
+    and the persistent grids' caps by device (``ops._cuda.grid_cap``);
   * the distributed layer's redistribution plans
     (``parallel.redistribute.make_plan``: a byte-budget LRU under
     SBT_CACHEGB, the reference's plan cache, dist.h:2303-2349) and the
@@ -27,9 +27,9 @@ __all__ = ["clear_caches", "report_cache_usage"]
 
 
 def _lru_caches() -> dict:
-    from ..ops import batched_gemm, roll_add, stencil
+    from ..ops import _cuda, batched_gemm, stencil
 
-    return {"gemm_tiles": batched_gemm._tile, "roll_add_sms": roll_add._sms,
+    return {"gemm_tiles": batched_gemm._tile, "grid_caps": _cuda.grid_cap,
             "stencil_offsets_ok": stencil._offsets_ok,
             "stencil_offsets_args": stencil._offsets_array,
             "stencil_rt_tiles": stencil.rt_tile}

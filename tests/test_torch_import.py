@@ -1,10 +1,15 @@
-"""superbblas_tpu_torch stands apart from JAX, and chip_smoke.py refuses to
-run without a GPU."""
+"""superbblas_tpu_torch stands apart from JAX, chip_smoke.py refuses to
+run without a GPU, and the kernel layer builds one design of each kernel
+and launches it through ``ops/_cuda.py`` (CPU checks, no card needed)."""
 
 import os
+import re
 import subprocess
 import sys
+import types
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -89,3 +94,99 @@ def test_native_loader_never_opens_the_jax_package(tmp_path):
         "assert not any(m.split('.')[0] in ('jax', 'superbblas_tpu') for m in sys.modules)\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_sources_build_one_design():
+    """Every kernel is built at one design: no preprocessor test of an
+    ``SBT_`` macro in csrc/, and no ``-D`` among the build's flags."""
+    from superbblas_tpu_torch.ops import _cuda
+
+    test = re.compile(r"^\s*#\s*(if|ifdef|ifndef|elif)\b.*\bSBT_")
+    for path in sorted(_cuda.CSRC.glob("*.cu")) + sorted(_cuda.CSRC.glob("*.cuh")):
+        for no, line in enumerate(path.read_text().splitlines(), 1):
+            assert not test.match(line), f"{path.name}:{no}: {line}"
+    assert not any(f.startswith("-D") for f in _cuda.NVCC_FLAGS), _cuda.NVCC_FLAGS
+
+
+def test_on_card_sends_cpu_to_the_plain_version_and_refuses_other_devices(monkeypatch):
+    """``_cuda.on_card``: False for CPU tensors, True for a CUDA first
+    operand, ValueError naming the wrapper for another device; it never
+    builds or loads the library."""
+    import torch
+
+    from superbblas_tpu_torch.ops import _cuda
+
+    def no_library():
+        raise AssertionError("on_card loaded the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    cpu = torch.zeros(2)
+    assert _cuda.on_card("op", cpu) is False
+    assert _cuda.on_card("op", cpu, torch.ones(3)) is False
+    with pytest.raises(ValueError, match="op: no kernel for device meta"):
+        _cuda.on_card("op", cpu.to("meta"))
+    with pytest.raises(ValueError, match="op: no kernel for device cpu"):
+        _cuda.on_card("op", cpu, cpu.to("meta"))
+    with torch._subclasses.fake_tensor.FakeTensorMode():
+        assert _cuda.on_card("op", torch.empty(2, device="cuda")) is True
+
+
+def test_grid_cap_reads_each_device_once(monkeypatch):
+    """``_cuda.grid_cap``: SMs x blocks an SM, the device's properties read
+    once per (device, blocks an SM)."""
+    import torch
+
+    from superbblas_tpu_torch.ops import _cuda
+
+    reads = []
+
+    def properties(device):
+        reads.append(device)
+        return types.SimpleNamespace(multi_processor_count=132 if device.index == 0 else 114)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
+    _cuda.grid_cap.cache_clear()
+    try:
+        d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+        assert [_cuda.grid_cap(d0, 4), _cuda.grid_cap(d0, 4), _cuda.grid_cap(d0, 2),
+                _cuda.grid_cap(d1, 2), _cuda.grid_cap(d1, 2)] == [528, 528, 264, 228, 228]
+        assert reads == [d0, d0, d1]
+    finally:
+        _cuda.grid_cap.cache_clear()
+
+
+def test_launch_appends_the_stream_and_raises_on_a_cuda_error(monkeypatch):
+    """``_cuda.launch`` calls the C entry with the device's current stream
+    last and raises RuntimeError naming the entry on a nonzero cudaError;
+    it enters the device only where it is not current."""
+    import torch
+
+    from superbblas_tpu_torch.ops import _cuda
+
+    calls, entered = [], []
+
+    class Device:
+        def __init__(self, dev):
+            entered.append(dev)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def entry(*args):
+        calls.append(args)
+        return args[0]
+
+    monkeypatch.setattr(_cuda, "library", lambda: types.SimpleNamespace(sbt_k=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=100 + dev.index))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    _cuda.launch("sbt_k", torch.device("cuda", 0), 0, 7)
+    _cuda.launch("sbt_k", torch.device("cuda", 1), 0, 8)
+    assert calls == [(0, 7, 100), (0, 8, 101)]
+    assert entered == [torch.device("cuda", 1)]
+    with pytest.raises(RuntimeError, match="sbt_k kernel launch failed: cudaError 9"):
+        _cuda.launch("sbt_k", torch.device("cuda", 0), 9)

@@ -111,7 +111,8 @@ def test_all_ones_gives_neighbour_count(with_kron):
 
 @pytest.mark.parametrize("case", ["kron_2x2", "block_4x4", "packed_parity",
                                   "f64", "f32_blocks_bf16_field", "f16", "offset_2",
-                                  "wrong_x_shape", "non_contiguous"])
+                                  "wrong_x_shape", "non_contiguous", "kron_on_another_device",
+                                  "blocks_on_another_device"])
 def test_kernel_rejects_what_it_does_not_take(case):
     """K1 and the X-inside and X-streaming schedules take the five pairs of
     KERNEL_DTYPES (f64 and f32 blocks with bf16 fields among them) and
@@ -144,10 +145,15 @@ def test_kernel_rejects_what_it_does_not_take(case):
         kw["offsets"] = WILSON_OFFSETS[:-1] + [(0, 0, 0, 2)]
     elif case == "wrong_x_shape":
         kw["x"] = CArray(tx.re[:, :11], tx.im[:, :11])
+    elif case in ("kron_on_another_device", "blocks_on_another_device"):
+        name = case.split("_")[0]
+        kw[name] = CArray(*(t.to("meta") for t in kw[name]))
     else:
         # right shape, columns not innermost-contiguous
         kw["x"] = CArray(*(p.transpose(0, 1).contiguous().transpose(0, 1) for p in tx))
-    match = {"kron_2x2": "256", "block_4x4": "expected", "f16": "takes"}.get(case)
+    match = {"kron_2x2": "256", "block_4x4": "expected", "f16": "takes",
+             "kron_on_another_device": "kron: parts on meta",
+             "blocks_on_another_device": "blocks: parts on meta"}.get(case)
     with pytest.raises(ValueError, match=match):
         TS.check_kernel_case(**kw)
 
