@@ -17,20 +17,35 @@ returns a handle whose ``wait()`` gives the halos, for the overlap path.
 Each ``extend_local`` call is a ``halo.extend`` span of the tracker
 (``utils/tracker.py``, host time), so that a profile ties the packing,
 the exchange and the concatenation it launches to this module.
+
+``extend_held`` extends an operator's blocks and a field as
+``extend_local`` does, but holds the extended blocks, made at the first
+call, for the calls after it: those extend, and exchange the edges of,
+the field alone.  The tracker's counters ``halo.block_builds`` and
+``halo.block_reuses`` count the two cases.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Sequence
 
 import torch
 
 from .. import cplx
 from ..utils import tracker
-from ._local import c_strides
+from ._local import c_strides, local, local_slab
 from .mesh import axis_size
 
-__all__ = ["exchange_halos", "crop_halos", "extend_local", "post_halos", "roll_local"]
+__all__ = ["exchange_halos", "crop_halos", "extend_local", "extend_held", "post_halos",
+           "roll_local"]
+
+#: the halo-extended blocks ``extend_held`` holds: key (the ids of the
+#: source tensors, the slab cut, the mesh, the sharded axes, the widths)
+#: -> (the sources' versions, the extended blocks).  An entry holds no
+#: reference to its sources and dies with them (weakref.finalize).
+_HELD: dict = {}
+_FINALIZER_KEYS: set = set()
 
 
 def _edge(a: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
@@ -143,6 +158,53 @@ def extend_local(a, ax_names: Dict[int, str], widths: Dict[int, int], mesh):
             out.append(flat[k])
             k += 1
     return out if many else out[0]
+
+
+def _evict(key):
+    _HELD.pop(key, None)
+    _FINALIZER_KEYS.discard(key)
+
+
+def extend_held(src, cut: Dict[int, str], x, ax_names: Dict[int, str],
+                widths: Dict[int, int], mesh):
+    """``extend_local([blocks, x], ax_names, widths, mesh)`` for operator
+    blocks that do not change between calls, ``blocks`` being this rank's
+    slab along ``cut`` (array axis -> mesh axis) of ``src``, the tensors
+    the operator holds (DTensors sharded as x, or plain tensors every
+    rank holds whole).  The first call extends both in one exchange an
+    axis and holds the extended blocks; a later call with the same
+    ``src``, ``cut``, mesh, axes and widths takes them and extends ``x``
+    alone, so only the field's edges travel.  A change of the version of
+    a source tensor or of its local shard (an in-place write through the
+    DTensor bumps the DTensor's alone, one on the shard the shard's)
+    rebuilds the entry.  Nothing is held where no axis is extended, nor
+    for inference tensors, which keep no version."""
+    srcs = _flat(src)
+    if not ax_names or any(local(t).is_inference() for t in srcs):
+        return extend_local([local_slab(src, mesh, cut), x], ax_names, widths, mesh)
+    key = (tuple(id(t) for t in srcs), tuple(sorted(cut.items())), mesh,
+           tuple(sorted(ax_names.items())), tuple(sorted(widths.items())))
+    versions = tuple((t._version, local(t)._version) for t in srcs)
+    hit = _HELD.get(key)
+    if hit is not None and hit[0] == versions:
+        tracker.count("halo.block_reuses")
+        return hit[1], extend_local(x, ax_names, widths, mesh)
+    _HELD.pop(key, None)          # a stale entry goes before the build
+    blocks_e, x_e = extend_local([local_slab(src, mesh, cut), x], ax_names, widths, mesh)
+    _HELD[key] = (versions, blocks_e)
+    if key not in _FINALIZER_KEYS:
+        _FINALIZER_KEYS.add(key)
+        for t in srcs:
+            weakref.finalize(t, _evict, key)
+    tracker.count("halo.block_builds")
+    return blocks_e, x_e
+
+
+def held_usage() -> dict:
+    """Entries and bytes of the extended blocks ``extend_held`` holds."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, b in _HELD.values() for t in _flat(b))
+    return {"entries": len(_HELD), "bytes": nbytes}
 
 
 def exchange_halos(x, mesh, spec, widths: Dict[int, int]):

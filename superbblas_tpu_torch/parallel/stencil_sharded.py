@@ -5,7 +5,9 @@ The SoA kernel (K1) does not partition itself, so the multi-rank path is
 explicit: on each rank
 
   1. one exchange per sharded lattice axis moves a halo shell of width
-     ``power`` x the stencil radius, for the blocks and x together;
+     ``power`` x the stencil radius of x, and at an operator's first
+     apply of its blocks too (``halo.extend_held``: the extended blocks
+     are held for the applies after it);
   2. K1 runs on the locally extended block (``bsr.apply_stencil_soa``):
      its internal toroidal wraps are wrong only in the outermost shell,
      which is exactly the halo (the shell-contamination argument of
@@ -14,9 +16,11 @@ explicit: on each rank
   3. the exact core is cropped and returned as a DTensor with the input's
      sharding.
 
-The blocks are halo-extended on every call, as in the JAX package.
-Blocks every rank holds whole (plain tensors) are cut to the rank's slab
-first; blocks that are DTensors shard the lattice as x does.  A sharded
+The JAX package extends the blocks on every call; here they are
+extended once for each operator, mesh axis and halo width, and rebuilt
+after an in-place change.  Blocks every rank holds whole (plain tensors)
+are cut to the rank's slab first, and held by the tensor they are cut
+from; blocks that are DTensors shard the lattice as x does.  A sharded
 column axis (x's first) needs no exchange: K1 runs on the local columns.
 With ``packed_parity`` the field holds one checkerboard parity, X halved:
 K1 reads a site's parity from its coordinates in the extended block, so
@@ -34,8 +38,8 @@ from typing import Dict, Optional
 
 from .. import cplx
 from ..bsr import BSROperator, apply_stencil_soa
-from ._local import from_local, local, local_slab, mesh_axes
-from .halo import crop_halos, extend_local as _extend
+from ._local import from_local, local, mesh_axes
+from .halo import crop_halos, extend_held
 from .mesh import axis_size
 
 __all__ = ["apply_stencil_soa_sharded"]
@@ -78,8 +82,7 @@ def _soa_local(op: BSROperator, xl, mesh, axes: Dict[str, Optional[str]], power:
     for k, nm in cut.items():
         if k not in widths and k > 2:
             origin_par += mesh.get_local_rank(nm) * (op.dim_d[k - 2] // axis_size(mesh, nm))
-    blocks = local_slab(op.blocks, mesh, cut)
-    blocks_e, x_e = _extend([blocks, xl], ax_names, widths, mesh)
+    blocks_e, x_e = extend_held(op.blocks, cut, xl, ax_names, widths, mesh)
     loc_dim = tuple(x_e.re.shape[2:])
     lop = op.replace(blocks=blocks_e, kron=local(op.kron), dim=loc_dim)
     parity = None if packed_parity is None else (int(packed_parity) + origin_par) % 2

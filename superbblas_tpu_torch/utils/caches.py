@@ -13,8 +13,10 @@ and ``reportCacheUsage`` (performance.h:436-454).  The port's caches are:
     and the persistent grids' caps by device (``ops._cuda.grid_cap``);
   * the distributed layer's redistribution plans
     (``parallel.redistribute.make_plan``: a byte-budget LRU under
-    SBT_CACHEGB, the reference's plan cache, dist.h:2303-2349) and the
-    sharded gather's halo plans (``parallel.gather_sharded``);
+    SBT_CACHEGB, the reference's plan cache, dist.h:2303-2349), the
+    sharded gather's halo plans (``parallel.gather_sharded``) and the
+    halo-extended blocks of sharded SoA operators (``parallel.halo``'s
+    ``extend_held``);
   * the CUDA caching allocator's reserved blocks (the reference's buffer
     cache), returned to the driver by ``torch.cuda.empty_cache``.
 """
@@ -37,14 +39,16 @@ def _lru_caches() -> dict:
 
 def clear_caches() -> None:
     """Drop every library-level cache (clearCaches, alloc.h:440): the
-    spin plans, the redistribution and gather halo plans, the lru caches
-    and the allocator's unused reserved blocks."""
+    spin plans, the redistribution and gather halo plans, the held
+    halo-extended blocks, the lru caches and the allocator's unused
+    reserved blocks."""
     from ..ops import stencil
-    from ..parallel import gather_sharded, redistribute
+    from ..parallel import gather_sharded, halo, redistribute
 
     stencil.clear_plans()
     redistribute.make_plan.cache_clear()
     gather_sharded._GATHER_CACHE.clear()
+    halo._HELD.clear()
     for fn in _lru_caches().values():
         fn.cache_clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -53,13 +57,13 @@ def clear_caches() -> None:
 
 def report_cache_usage(out=None) -> dict:
     """Print + return cache statistics: the spin plans kept (entries and
-    the bytes of their device tables), each lru cache's entries, hits and
-    misses, and the CUDA allocator's reserved bytes against the
-    SBT_CACHEGB budget (reportCacheUsage, performance.h:436-454 +
-    cache.h:238-265)."""
+    the bytes of their device tables), the held halo-extended blocks
+    (entries and bytes), each lru cache's entries, hits and misses, and
+    the CUDA allocator's reserved bytes against the SBT_CACHEGB budget
+    (reportCacheUsage, performance.h:436-454 + cache.h:238-265)."""
     from .. import flags
     from ..ops import stencil
-    from ..parallel import gather_sharded, redistribute
+    from ..parallel import gather_sharded, halo, redistribute
 
     plans = list(stencil._PLANS.values())
     stats = {
@@ -76,6 +80,7 @@ def report_cache_usage(out=None) -> dict:
                                      "bytes": info.bytes}
     stats["gather_halo_plans"] = {"entries": len(gather_sharded._GATHER_CACHE),
                                   "max_entries": gather_sharded._GATHER_CACHE_MAX}
+    stats["held_halo_blocks"] = halo.held_usage()
     for name, fn in _lru_caches().items():
         info = fn.cache_info()
         stats[name] = {"entries": info.currsize, "hits": info.hits,
@@ -95,6 +100,8 @@ def report_cache_usage(out=None) -> dict:
                  f"{rp['bytes']} bytes, {rp['hits']} hits / {rp['misses']} misses")
     gp = stats["gather_halo_plans"]
     lines.append(f"  gather halo plans: {gp['entries']}/{gp['max_entries']} entries")
+    hb = stats["held_halo_blocks"]
+    lines.append(f"  held halo-extended blocks: {hb['entries']} entries, {hb['bytes']} bytes")
     for name in _lru_caches():
         c = stats[name]
         lines.append(f"  {name}: {c['entries']} entries, {c['hits']} hits / "

@@ -10,6 +10,7 @@ each case ({name: {key: numpy array}}, or {"error": traceback})."""
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import sys
@@ -315,6 +316,108 @@ def k_sharded_solve(p):
         ((0,) * 6, (0,) * 6) for _ in range(len(uneven.boxes) - 1)))
     om = par.redistribute_auto(un, uneven, master, order=order)
     out["master"] = local(om)
+    return out
+
+
+def _fresh_apply(op, xs, m, axes, power=1):
+    """The sharded SoA apply as it was before the blocks were held: the
+    rank's blocks and field halo-extended together (one exchange an axis)
+    on every call, then K1 ``power`` times and the core cropped."""
+    from superbblas_tpu_torch import bsr
+    from superbblas_tpu_torch.parallel import _local as L, halo
+
+    lat = {2 + k: axes[c] for k, c in enumerate(op.lat_d) if c in axes}
+    wd = {k: power for k in lat}
+    be, xe = halo.extend_local([L.local_slab(op.blocks, m, lat), L.local(xs)], lat, wd, m)
+    lop = op.replace(blocks=be, kron=L.local(op.kron), dim=tuple(xe.re.shape[2:]))
+    for _ in range(power):
+        xe = bsr.apply_stencil_soa(lop, xe)
+    return halo.crop_halos(xe, wd)
+
+
+def k_held_blocks(p):
+    """The held halo-extended blocks of the sharded SoA apply
+    (``parallel.halo.extend_held``) on an X-sharded Wilson-clover
+    operator: each apply against ``_fresh_apply``, bit for bit, with the
+    build and reuse counters and the memo's entries around every step."""
+    import gc
+
+    from superbblas_tpu_torch import bsr
+    from superbblas_tpu_torch.models import clover as C
+    from superbblas_tpu_torch.parallel import _local as L, halo
+    from superbblas_tpu_torch.utils import caches, tracker
+
+    m = mesh(*p["mesh"])
+    spec, axes = p["spec"], p["axes"]
+    op = C.wilson_clover_operator(tuple(p["lat"]), mass=p["mass"], c_sw=p["c_sw"],
+                                  key=p["key"], dtype=torch.complex64, layout="soa",
+                                  device="cpu")
+    ops = C.CloverOperator(hop=_shard_op(op.hop, m, spec), clover=_shard_op(op.clover, m, spec),
+                           c_sw=op.c_sw)
+    xs = [shard(tuple(a.astype(np.float32) for a in x), m, spec) for x in p["xs"]]
+    out = {}
+    last = dict(builds=0, reuses=0)
+
+    def step():
+        """(builds, reuses, entries) since the last step."""
+        c = tracker.counters()
+        b, r = c.get("halo.block_builds", 0), c.get("halo.block_reuses", 0)
+        d = (b - last["builds"], r - last["reuses"], halo.held_usage()["entries"])
+        last.update(builds=b, reuses=r)
+        return d
+
+    def same(y, want):
+        return all(torch.equal(a, b) for a, b in zip(L.local(y), want))
+
+    def clover_fresh(o, x):
+        lcl = o.clover.replace(blocks=L.local(o.clover.blocks))
+        return cplx.add(_fresh_apply(o.hop, x, m, axes), bsr.apply_stencil_soa(lcl, L.local(x)))
+
+    halo._HELD.clear()
+    step()
+    out["applies"] = [same(C.apply_clover(ops, x), clover_fresh(ops, x)) for x in xs]
+    out["after_applies"] = step()
+    usage = halo.held_usage()
+    out["bytes"] = usage["bytes"]
+    out["report"] = caches.report_cache_usage(io.StringIO())["held_halo_blocks"]
+    # the clover term alone: radius 0, nothing to extend, nothing held
+    y = bsr.apply_stencil_soa(ops.clover, xs[0])
+    out["clover_term"] = (same(y, bsr.apply_stencil_soa(
+        ops.clover.replace(blocks=L.local(ops.clover.blocks)), L.local(xs[0]))),) + step()
+    # an operator rebuilt around the same blocks takes the held ones
+    again = ops.hop.replace(offsets=ops.hop.offsets)
+    out["same_blocks"] = (same(bsr.apply_stencil_soa(again, xs[1]),
+                               _fresh_apply(again, xs[1], m, axes)),) + step()
+    # an in-place change of the blocks (through the DTensor) builds again
+    ops.hop.blocks_re.mul_(0.5)
+    out["inplace"] = (same(bsr.apply_stencil_soa(ops.hop, xs[0]),
+                           _fresh_apply(ops.hop, xs[0], m, axes)),) + step()
+    # and so does one made on the rank's shard
+    L.local(ops.hop.blocks_im).mul_(2.0)
+    out["inplace_local"] = (same(bsr.apply_stencil_soa(ops.hop, xs[1]),
+                                 _fresh_apply(ops.hop, xs[1], m, axes)),) + step()
+    # another power builds again, and is held beside the first
+    y2 = par.apply_stencil_soa_sharded(ops.hop, xs[2], m, axes, power=2)
+    out["power"] = (same(y2, _fresh_apply(ops.hop, xs[2], m, axes, power=2)),) + step()
+    # a new operator builds again; its entry goes when it is deleted
+    new = ops.hop.replace(blocks=cplx.cmap(lambda a: a * 1.0, ops.hop.blocks))
+    out["new_op"] = (same(bsr.apply_stencil_soa(new, xs[1]),
+                          _fresh_apply(new, xs[1], m, axes)),) + step()
+    del new
+    gc.collect()
+    out["deleted"] = step()
+    # blocks every rank holds whole are held by the tensor they are cut from
+    out["plain"] = [same(bsr.apply_stencil_soa(op.hop, x), _fresh_apply(op.hop, x, m, axes))
+                    for x in xs[:2]] + list(step())
+    # inference tensors keep no version: extended on every call, never held
+    with torch.inference_mode():
+        inf = op.hop.replace(blocks=cplx.cmap(torch.clone, op.hop.blocks))
+    out["inference"] = [same(bsr.apply_stencil_soa(inf, x), _fresh_apply(inf, x, m, axes))
+                        for x in xs[:2]] + list(step())
+    caches.clear_caches()
+    out["cleared"] = step()
+    out["after_clear"] = (same(bsr.apply_stencil_soa(ops.hop, xs[1]),
+                               _fresh_apply(ops.hop, xs[1], m, axes)),) + step()
     return out
 
 

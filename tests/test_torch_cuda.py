@@ -1323,6 +1323,7 @@ import sys, torch
 from superbblas_tpu_torch import parallel as par, cplx, bsr
 from superbblas_tpu_torch.models import wilson as W
 from superbblas_tpu_torch.ops import stencil as S
+from superbblas_tpu_torch.utils import tracker
 rank, port = int(sys.argv[1]), sys.argv[2]
 torch.cuda.set_device(0)
 par.initialize_distributed(f"localhost:{port}", 2, rank, device="cpu")
@@ -1338,14 +1339,19 @@ xs = par.reshard(x, sh)
 ext = par.exchange_halos(xs, mesh, spec, {2: 1})
 rows = [(rank * 4 + i) % 8 for i in range(-1, 5)]
 assert torch.equal(ext.re.to_local(), x.re[:, :, rows]), "halo"
+ops = op.replace(blocks=par.reshard(op.blocks, sh))
 before = S.stencil_matvec_soa.launches
-y = par.apply_stencil_soa_sharded(op.replace(blocks=par.reshard(op.blocks, sh)), xs, mesh,
-                                  {"x": "X"})
+y = par.apply_stencil_soa_sharded(ops, xs, mesh, {"x": "X"})
 assert S.stencil_matvec_soa.launches == before + 1, "one K1 launch"
 want = S.stencil_matvec_soa(op.blocks, op.kron, x, op.offsets, 3, 3)
 sl = slice(rank * 4, rank * 4 + 4)
 assert torch.equal(y.re.to_local(), want.re[:, :, sl]), "apply re"
 assert torch.equal(y.im.to_local(), want.im[:, :, sl]), "apply im"
+y2 = par.apply_stencil_soa_sharded(ops, xs, mesh, {"x": "X"})
+assert torch.equal(y2.re.to_local(), y.re.to_local()), "held apply re"
+assert torch.equal(y2.im.to_local(), y.im.to_local()), "held apply im"
+c = tracker.counters()
+assert c.get("halo.block_builds") == 1 and c.get("halo.block_reuses") == 1, c
 print("GLOO_RANK_OK", rank, flush=True)
 '''
 
@@ -1353,9 +1359,10 @@ print("GLOO_RANK_OK", rank, flush=True)
 @pytest.mark.cuda
 def test_dist_gloo_two_ranks_on_one_card_halo_and_apply(cuda_device, tmp_path):
     """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one GPU): the
-    halo exchange gives each rank its neighbours' edge planes, and one
+    halo exchange gives each rank its neighbours' edge planes, one
     sharded apply equals the unsharded K1 apply on that rank's slab, bit
-    for bit."""
+    for bit, and a second apply, from the held halo-extended blocks,
+    equals the first bit for bit after one build of them."""
     import os
     import socket
     import subprocess

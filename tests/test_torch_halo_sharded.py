@@ -36,6 +36,7 @@ XY = ((2, 2), ("X", "Y"))
 LAT = (4, 4, 8, 128)     # the JAX package's SoA layout takes Z % 8 == 0, T % 128 == 0
 SPEC6 = (None, None, "X", "Y", None, None)
 ITERS = (2, 5)
+HELD_LAT = (8, 4, 4, 4)  # X split 4 ways: 2 planes a rank, room for power 2's halo
 
 
 def jmesh(m):
@@ -69,6 +70,12 @@ def _cases(tmp):
         spec=(None, None, "X", None, None, None), axes={"x": "X"},
         x=(np.random.default_rng(3).standard_normal((1, 12, 8, 2, 8, 128)),
            np.random.default_rng(4).standard_normal((1, 12, 8, 2, 8, 128))))))
+    rng = np.random.default_rng(11)
+    c.append(("held-blocks", "held_blocks", dict(
+        mesh=((4,), ("X",)), lat=HELD_LAT, mass=0.2, c_sw=1.0, key=3,
+        spec=(None, None, "X", None, None, None), axes={"x": "X"},
+        xs=[tuple(rng.standard_normal((1, 12) + HELD_LAT) for _ in range(2))
+            for _ in range(3)])))
     c.append(("refusal", "refusal", dict(mesh=XY, lat=LAT, mass=0.2, key=1, spec=SPEC6,
                                          x=fields(9, 1))))
     dim = (1, 12) + LAT
@@ -206,3 +213,84 @@ def test_kernel_wrappers_refuse_dtensors_and_inner_products_reduce(group):
         assert got["entry"] == "(Shard(dim=2), Shard(dim=3))"
         np.testing.assert_allclose(got["inner"], want, rtol=1e-12)
         assert abs(got["local_inner"] - want) > 1e-3 * want
+
+
+def _held(group):
+    res, params = group
+    return res.case("held-blocks"), params["held-blocks"]
+
+
+def test_held_blocks_three_applies_bit_for_bit(group):
+    """Three applies of an X-sharded Wilson-clover operator, each equal
+    bit for bit to the apply that extends blocks and field afresh (what
+    every apply did before the blocks were held)."""
+    outs, _ = _held(group)
+    for r, got in enumerate(outs):
+        assert got["applies"] == [True, True, True], f"rank {r}"
+
+
+def test_held_blocks_build_once_then_reuse(group):
+    """The three applies build the hop's extended blocks once and take
+    them twice; the memo holds one entry of the extended slab's bytes,
+    which ``report_cache_usage`` reports."""
+    outs, p = _held(group)
+    X, Y, Z, T = p["lat"]
+    # 9 directions x 3x3 colour blocks (the spin factors ride the kron),
+    # re and im, f32, on the rank's 2 x-planes and a halo plane a side
+    want = 2 * 9 * 9 * (X // 4 + 2) * Y * Z * T * 4
+    for r, got in enumerate(outs):
+        assert got["after_applies"] == (1, 2, 1), f"rank {r}"
+        assert got["bytes"] == want, f"rank {r}"
+        assert got["report"] == {"entries": 1, "bytes": want}, f"rank {r}"
+
+
+@pytest.mark.parametrize("what", ["inplace", "inplace_local", "power", "new_op",
+                                  "after_clear"])
+def test_held_blocks_build_again(group, what):
+    """An in-place change of the blocks (through the DTensor, or on the
+    rank's shard), another ``power``, a new operator's blocks, or
+    ``clear_caches`` before the apply: one build, no reuse, and the result
+    still equals the fresh extension's bit for bit."""
+    outs, _ = _held(group)
+    entries = {"inplace": 1, "inplace_local": 1, "power": 2, "new_op": 3,
+               "after_clear": 1}[what]
+    for r, got in enumerate(outs):
+        assert got[what] == (True, 1, 0, entries), f"rank {r}"
+
+
+def test_held_blocks_same_blocks_reuse(group):
+    """An operator rebuilt with ``replace`` around the same blocks takes
+    the held extension: the memo is keyed on the blocks, not the
+    operator."""
+    outs, _ = _held(group)
+    for r, got in enumerate(outs):
+        assert got["same_blocks"] == (True, 0, 1, 1), f"rank {r}"
+
+
+def test_held_blocks_radius_zero_builds_nothing(group):
+    """The clover term (radius 0 on every axis) extends nothing and holds
+    nothing."""
+    outs, _ = _held(group)
+    for r, got in enumerate(outs):
+        assert got["clover_term"] == (True, 0, 0, 1), f"rank {r}"
+
+
+def test_held_blocks_lifetime_and_clear(group):
+    """The entry of a deleted operator's blocks goes with them (the memo
+    holds no reference to them); ``clear_caches`` drops every entry."""
+    outs, _ = _held(group)
+    for r, got in enumerate(outs):
+        assert got["deleted"] == (0, 0, 2), f"rank {r}"
+        assert got["cleared"] == (0, 0, 0), f"rank {r}"
+
+
+@pytest.mark.parametrize("what", ["plain", "inference"])
+def test_held_blocks_plain_and_inference_blocks(group, what):
+    """Blocks every rank holds whole are cut to the rank's slab and held by
+    the tensor they are cut from (one build, one reuse); inference tensors
+    keep no version, so they are extended on every apply and never
+    held."""
+    outs, _ = _held(group)
+    want = {"plain": [True, True, 1, 1, 3], "inference": [True, True, 0, 0, 3]}[what]
+    for r, got in enumerate(outs):
+        assert got[what] == want, f"rank {r}"
