@@ -17,7 +17,9 @@ Three storage modes:
   ``row_counts [voli]``.  ``_apply_gather`` gathers the operand rows and
   runs ONE batched product [voli, BI, nnz*BD] @ [voli, nnz*BD, N] through
   ``ops/batched_gemm.py``, on blocks stored in that product's layout
-  (``blocks`` reads them back as the reference's view, without a copy);
+  (``blocks`` reads them back as the reference's view, without a copy),
+  the blocks' two Gauss sums made at the first apply and held on the
+  operator (the multigrid's coarse operators are applied many times);
   ``_apply_gather_kron`` contracts colour for each (site, slot) as one
   batched product, then the spin factors.
 
@@ -614,9 +616,34 @@ def _apply_gather(op: BSROperator, xc):
     xdt = xc.dtype
     acc = _acc_dtype(torch.promote_types(op.blocks_re.dtype, xdt))
     xg = _reshape(_gather_rows(xc, op, (BD, N)), (voli, nnz * BD, N))
-    b = op.blocks_re if op.blocks_im is None else CArray(op.blocks_re, op.blocks_im)
-    y = cplx.cbilinear(lambda bb, xx: batched_small_gemm(bb.to(acc), xx.to(acc)), b, xg)
+
+    def f(bb, xx):
+        return batched_small_gemm(bb.to(acc), xx.to(acc))
+
+    if op.blocks_im is not None and cplx.is_carray(xg):
+        # cbilinear's three Gauss products, the blocks' sums held
+        s, d = _gauss_blocks(op)
+        k1 = f(op.blocks_re, xg.re + xg.im)
+        y = CArray(k1 - f(s, xg.im), k1 + f(d, xg.re))
+    else:
+        b = op.blocks_re if op.blocks_im is None else CArray(op.blocks_re, op.blocks_im)
+        y = cplx.cbilinear(f, b, xg)
     return _astype(_reshape(y, tuple(op.dim_i) + (BI, N)), xdt)
+
+
+def _gauss_blocks(op: BSROperator):
+    """(re + im, im - re) of a gather operator's blocks, the two sums
+    ``cplx.cbilinear`` forms on every product: made at the first apply and
+    held on the operator, made again after an in-place change of its
+    blocks (the key holds the block tensors themselves and their
+    versions)."""
+    re, im = op.blocks_re, op.blocks_im
+    held = op.__dict__.get("_gauss")
+    if held is None or held[0] is not re or held[1] is not im \
+            or held[2] != (re._version, im._version):
+        held = (re, im, (re._version, im._version), re + im, im - re)
+        op.__dict__["_gauss"] = held
+    return held[3], held[4]
 
 
 def _apply_gather_kron(op: BSROperator, xc):

@@ -7,7 +7,9 @@ large dense blocks (N_c = 2 x the number of near-null vectors, typically
 ``bsr.py``: the ndir shifted operands stacked into one batched product
 with J = ndir * N_c per site, on the batched-GEMM kernels of
 ``ops/batched_gemm.py`` (three launches an apply, the split-complex Gauss
-products).
+products).  A Galerkin operator of the clover multigrid
+(``multigrid.galerkin_coarse_operator``) is held in mode "gather", its
+blocks already in that product's layout.
 
 The generated operator is Hermitian (A_{-mu}(s + mu) = A_{+mu}(s)^H) with
 the mass on the diagonal, the property coarse operators inherit from
@@ -23,6 +25,7 @@ import torch
 
 from ..bsr import BSROperator, bsr_from_stencil, bsr_krylov
 from ..cplx import CArray
+from ..utils import tracker
 from .wilson import _seed_from_key
 
 __all__ = ["coarse_operator", "apply_coarse"]
@@ -83,7 +86,9 @@ def coarse_operator(
     )
 
 
+@tracker.spanned("coarse.apply")
 def apply_coarse(op: BSROperator, x):
-    """y = A x; x: [*lat, N_c, ncols] (CArray or complex)."""
+    """y = A x; x: [*lat, N_c, ncols] (CArray or complex).  Each call is a
+    ``coarse.apply`` span of the tracker."""
     nd = len(op.dim_d)
     return bsr_krylov(1.0, op, x, "xyzt"[:nd] + "Cn")

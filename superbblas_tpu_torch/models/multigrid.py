@@ -20,12 +20,30 @@ are applied through the stencil kernel with AoS<->SoA conversion at the
 boundary.  Random draws come from numpy seeded as in the JAX package and
 are moved to the operator's device.  The JAX package's ``jit``/``fori_loop``
 programs are Python loops here.
+
+The SoA Wilson-clover operator has a two-level multigrid of its own, with
+no JAX counterpart (:func:`clover_mg_setup`, :func:`mg_cycle`,
+:func:`mg_solve_clover`): the fine level stays in the SoA layout [n, 12,
+*lat] and is applied by ``apply_clover``; the test vectors are made
+near-null by inverse iterations (GCR on D, then the built cycle), split
+by chirality and block-orthonormalised on the aggregates; the Galerkin
+operator P^H D P is probed into a coarse BSR operator (mode "gather",
+one 2K x 2K block a coarse site and offset) on the operator's device,
+with no dense A_c; the cycle smooths by a few GCR steps on D and solves
+the coarse system by a few GCR steps on that operator's batched-GEMM
+apply, neither reading the device.  Its spans
+``mg.cycle`` and ``mg.coarse`` and counters ``mg.cycles`` and
+``mg.coarse_iterations`` go to the tracker; the coarse and smoothing
+iterations never count as ``solver.iterations``.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import Callable, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,13 +54,18 @@ from ..cplx import CArray
 from ..labels import volume
 from ..ops.stencil import aos_to_soa, soa_to_aos
 from ..solvers import fgcr, power_iteration
+from ..utils import tracker
+from .clover import CloverOperator, apply_clover
+from .coarse import apply_coarse
 from .wilson import _inner, adjoint_operator
 
 __all__ = ["build_prolongator", "coarse_matrix", "coarse_bsr_operator",
            "two_grid_preconditioner", "symmetric_two_grid_preconditioner",
            "two_grid_error_contraction", "chebyshev_smoother",
            "build_hierarchy", "vcycle_preconditioner",
-           "build_prolongator_chiral", "mg_preconditioner_d"]
+           "build_prolongator_chiral", "mg_preconditioner_d",
+           "CloverMG", "clover_mg_setup", "galerkin_coarse_operator", "mg_cycle",
+           "mg_solve_clover"]
 
 
 def _blk_shape(op: BSROperator) -> Tuple[int, ...]:
@@ -67,7 +90,10 @@ def _level_apply(op, x, normal: bool = True, op_h: Optional[BSROperator] = None)
     at the fine level (``normal=True``; ``op_h`` is D's adjoint, built when
     None); Galerkin coarse operators are applied directly
     (``normal=False``).  SoA operators run the stencil kernel with
-    AoS<->SoA conversion at the boundary, so the whole cycle rides it."""
+    AoS<->SoA conversion at the boundary, so the whole cycle rides it;
+    so does an SoA ``CloverOperator`` (``apply_clover``, D^H = g5 D g5)."""
+    if isinstance(op, CloverOperator):
+        return _clover_level_apply(op, x, normal)
     blk = _blk_shape(op)
     squeeze = x.ndim == 4 + len(blk)
     if squeeze:
@@ -86,6 +112,29 @@ def _level_apply(op, x, normal: bool = True, op_h: Optional[BSROperator] = None)
         y = _apply_stencil(op, x)
         if normal:
             y = _apply_stencil(op_h, y)
+    return cplx.cmap(lambda a: a[..., 0], y) if squeeze else y
+
+
+def _g5(v: CArray) -> CArray:
+    """g5 = diag(1, 1, -1, -1) on the spins of SoA fields [n, 12, *lat]."""
+    sign = torch.ones(12, dtype=v.re.dtype, device=v.re.device)
+    sign[6:] = -1.0
+    sign = sign.reshape((1, 12) + (1,) * (v.re.ndim - 2))
+    return cplx.cmap(lambda a: a * sign, v)
+
+
+def _clover_level_apply(op: CloverOperator, x, normal: bool):
+    """``_level_apply`` of an SoA clover operator on canonical fields
+    [*lat, 4, 3(, N)]."""
+    if op.hop.mode != "stencil_soa":
+        raise ValueError("the clover multigrid level needs layout='soa'")
+    squeeze = x.ndim == 6
+    if squeeze:
+        x = cplx.cmap(lambda a: a[..., None], x)
+    y = apply_clover(op, aos_to_soa(x, 4))
+    if normal:
+        y = _g5(apply_clover(op, _g5(y)))
+    y = soa_to_aos(y, 4, 4, 3)
     return cplx.cmap(lambda a: a[..., 0], y) if squeeze else y
 
 
@@ -550,3 +599,287 @@ def vcycle_preconditioner(hierarchy, omegas=None, cheby_degree: Optional[int] = 
         return prec
 
     return make(0)
+
+
+# ---------------------------------------------------------------------------
+# Two-level multigrid of the SoA Wilson-clover operator (no JAX counterpart)
+# ---------------------------------------------------------------------------
+
+
+def _chiral_blocks(parts: Sequence[torch.Tensor], block) -> torch.Tensor:
+    """SoA field parts [n_i, 12, *lat] as aggregate blocks [*clat, 2, D,
+    sum n_i]: each coarse site's two chiralities apart (spins 0-1 and 2-3,
+    g5 = diag(1, 1, -1, -1) in the DeGrand-Rossi basis), D = 2 spins x 3
+    colours x the aggregate's sites, the parts' columns side by side (one
+    copy a part)."""
+    lat = tuple(parts[0].shape[2:])
+    c = tuple(d // b for d, b in zip(lat, block))
+    perm = (3, 5, 7, 9, 1, 2, 4, 6, 8, 10, 0)
+    cols = [a.shape[0] for a in parts]
+    out = parts[0].new_empty(c + (2, 6) + tuple(block) + (sum(cols),))
+    at = 0
+    for a, n in zip(parts, cols):
+        split = (n, 2, 6) + tuple(v for cb in zip(c, block) for v in cb)
+        out[..., at:at + n].copy_(a.reshape(split).permute(perm))
+        at += n
+    return out.reshape(c + (2, 6 * volume(block), sum(cols)))
+
+
+def _chiral_fields(v: torch.Tensor, block) -> torch.Tensor:
+    """The inverse of :func:`_chiral_blocks` for one part: [*clat, 2, D, n]
+    -> [n, 12, *lat]."""
+    c, n = tuple(v.shape[:4]), v.shape[-1]
+    v = v.reshape(c + (2, 6) + tuple(block) + (n,)).permute(10, 4, 5, 0, 6, 1, 7, 2, 8, 3, 9)
+    return v.reshape((n, 12) + tuple(ci * b for ci, b in zip(c, block)))
+
+
+def _restrict_chiral(P: CArray, x: CArray, block) -> CArray:
+    """P^H x: SoA fine fields [n, 12, *lat] -> coarse [*clat, 2K, n]
+    (chirality-major), one product a part of P over both parts of x."""
+    n = x.re.shape[0]
+    xb = _chiral_blocks([x.re, x.im], block)
+    with cplx._full_f32():
+        a = torch.matmul(P.re.transpose(-1, -2), xb)      # [*clat, 2, K, 2n]
+        b = torch.matmul(P.im.transpose(-1, -2), xb)
+    shape = tuple(P.shape[:4]) + (2 * P.shape[-1], n)
+    return CArray((a[..., :n] + b[..., n:]).reshape(shape),
+                  (a[..., n:] - b[..., :n]).reshape(shape))
+
+
+def _prolong_chiral(P: CArray, c: CArray, block) -> CArray:
+    """P c: coarse [*clat, 2K, n] -> SoA fine fields [n, 12, *lat]."""
+    clat, K, n = tuple(P.shape[:4]), P.shape[-1], c.re.shape[-1]
+    cc = torch.cat([c.re, c.im], -1).reshape(clat + (2, K, 2 * n))
+    with cplx._full_f32():
+        a = torch.matmul(P.re, cc)                        # [*clat, 2, D, 2n]
+        b = torch.matmul(P.im, cc)
+    return CArray(_chiral_fields(a[..., :n] - b[..., n:], block),
+                  _chiral_fields(a[..., n:] + b[..., :n], block))
+
+
+def _coarse_offsets(clat: Sequence[int]) -> list:
+    """The coarse site itself and its nearest neighbours, one offset each
+    (on an extent of 2 the two neighbours are one site; on 1, none)."""
+    offs = [(0, 0, 0, 0)]
+    for mu in range(4):
+        for s in (1, -1):
+            if clat[mu] > 2 or (clat[mu] == 2 and s == 1):
+                d = [0, 0, 0, 0]
+                d[mu] = s
+                offs.append(tuple(d))
+    return offs
+
+
+def _colouring(clat: Sequence[int], offsets) -> Tuple[int, np.ndarray]:
+    """A distance-2 colouring of the coarse torus: (number of colours,
+    the colour of each site in row-major order).  No site has two
+    neighbours (``offsets``, itself included) of one colour, so a probe
+    summed over one colour's aggregates meets each coarse site through
+    one offset at most.  Linear, sum_mu w_mu c_mu mod m, where one exists
+    with m <= 32 (16 colours at 8^3x16); else c_mu mod k_mu in each
+    direction (k_mu the extent up to 4, or its least divisor from 3)."""
+    lat = np.array(clat)
+    diffs = {tuple((np.array(a) - np.array(b)) % lat) for a in offsets for b in offsets}
+    diffs = np.array(sorted(diffs - {(0, 0, 0, 0)}), dtype=np.int64).reshape(-1, 4)
+    coords = np.indices(tuple(clat)).reshape(4, -1).T
+    for m in range(len(offsets), 33):
+        steps = [m // math.gcd(m, int(L)) for L in clat]   # w L = 0 mod m
+        for w in itertools.product(*[range(0, m, s) for s in steps]):
+            if np.all((diffs @ np.array(w)) % m):
+                return m, (coords @ np.array(w)) % m
+    k = [L if L <= 4 else next(d for d in range(3, L + 1) if L % d == 0) for L in clat]
+    return int(np.prod(k)), np.ravel_multi_index(tuple((coords % k).T), k)
+
+
+#: coarse columns a probe of :func:`galerkin_coarse_operator` takes at once
+#: (its fine fields hold that many columns of the lattice: memory, not the
+#: result)
+PROBE_COLUMNS = 8
+
+
+def galerkin_coarse_operator(op: CloverOperator, P: CArray, block) -> BSROperator:
+    """The Galerkin operator P^H D P of an SoA clover operator as a coarse
+    BSR operator in mode "gather" (blocks [V_c, 2K, nnz*2K] in the batched
+    product's layout, ``jj_flat`` the neighbours' flat sites), built on
+    P's device with no dense coarse matrix: for each colour of
+    :func:`_colouring`, ``PROBE_COLUMNS`` coarse columns at a time, the prolonged
+    probe (the columns of P summed over that colour's aggregates) goes
+    through ``apply_clover`` once and is restricted; each coarse site
+    reads the block of the one offset that reaches that colour."""
+    clat, K = tuple(P.shape[:4]), P.shape[-1]
+    nc, V = 2 * K, volume(clat)
+    dev, dt = P.re.device, P.re.dtype
+    offs = _coarse_offsets(clat)
+    nnz = len(offs)
+    m, col = _colouring(clat, offs)
+    colour = torch.as_tensor(col, device=dev).reshape(clat)
+    site = torch.arange(V, device=dev).reshape(clat)
+
+    def at_offsets(t):                                    # [V, nnz]: t(c + offset)
+        return torch.stack([torch.roll(t, tuple(-o for o in off), (0, 1, 2, 3)).reshape(-1)
+                            for off in offs], 1)
+
+    near, jj = at_offsets(colour), at_offsets(site)
+    bre = torch.zeros((V, nc, nnz, nc), dtype=dt, device=dev)
+    bim = torch.zeros_like(bre)
+    for k in range(m):
+        hit = near == k
+        rows = hit.any(1).nonzero().squeeze(1)
+        if rows.numel() == 0:
+            continue
+        o = hit[rows].to(torch.uint8).argmax(1)
+        mask = (colour == k).to(dt)
+        for j0 in range(0, nc, PROBE_COLUMNS):
+            nj = min(PROBE_COLUMNS, nc - j0)
+            j = torch.arange(nj, device=dev)
+            e = torch.zeros(clat + (nc, nj), dtype=dt, device=dev)
+            e[..., j0 + j, j] = mask[..., None].expand(clat + (nj,))
+            y = apply_clover(op, _prolong_chiral(P, CArray(e, torch.zeros_like(e)), block))
+            r = _restrict_chiral(P, y, block)
+            bre[rows, :, o, j0:j0 + nj] = r.re.reshape(V, nc, nj)[rows]
+            bim[rows, :, o, j0:j0 + nj] = r.im.reshape(V, nc, nj)[rows]
+            del e, y, r
+
+    def lay(a):                                           # a view as [*clat, nnz, 2K, 2K]
+        return a.permute(0, 2, 1, 3).reshape(clat + (nnz, nc, nc))
+
+    return BSROperator(CArray(lay(bre), lay(bim)), None, (), clat, bi=(nc,), bd=(nc,),
+                       oim="xyztc", odm="xyztC", mode="gather", blk_i="c", blk_d="C",
+                       jj_flat=jj,
+                       row_counts=torch.full((V,), nnz, dtype=torch.int32, device=dev))
+
+
+def _orthonormalise(v: CArray) -> CArray:
+    """The columns of fields [n, ...] made orthonormal: their n x n Gram
+    matrix (f32 products, Cholesky in complex128), v <- L^-1 v."""
+    n = v.re.shape[0]
+    vr, vi = v.re.reshape(n, -1), v.im.reshape(n, -1)
+    with cplx._full_f32():
+        g = torch.complex((vr @ vr.T + vi @ vi.T).double(), (vi @ vr.T - vr @ vi.T).double())
+    g = g + 1e-12 * torch.trace(g).real / n * torch.eye(n, dtype=g.dtype, device=g.device)
+    li = torch.linalg.inv(torch.linalg.cholesky(g)).to(torch.complex64 if vr.dtype ==
+                                                       torch.float32 else torch.complex128)
+    lr, lm = li.real.contiguous(), li.imag.contiguous()
+    with cplx._full_f32():
+        out = CArray(lr @ vr - lm @ vi, lr @ vi + lm @ vr)
+    return cplx.cmap(lambda a: a.reshape(v.re.shape), out)
+
+
+def _each_column(v: CArray, fn: Callable) -> CArray:
+    """``fn`` on each column [1, 12, *lat] of fields [n, 12, *lat]."""
+    out = cplx.cmap(torch.empty_like, v)
+    for i in range(v.re.shape[0]):
+        y = fn(cplx.cmap(lambda a: a[i:i + 1], v))
+        out.re[i:i + 1].copy_(y.re)
+        out.im[i:i + 1].copy_(y.im)
+    return out
+
+
+@dataclass(frozen=True)
+class CloverMG:
+    """A two-level multigrid of an SoA clover operator ``op``: the
+    prolongator ``P`` [*clat, 2, D, K] (the test vectors' two chiralities
+    apart, block-orthonormal on each aggregate of extent ``block``), the
+    Galerkin coarse operator ``coarse`` (N_c = 2K, mode "gather"), and
+    the cycle's step counts: ``smooth_steps`` GCR steps on D a smoothing,
+    ``coarse_steps`` GCR steps on the coarse operator a coarse solve."""
+
+    op: CloverOperator
+    P: CArray
+    coarse: BSROperator
+    block: Tuple[int, ...]
+    smooth_steps: int = 4
+    coarse_steps: int = 6
+
+
+def _mg_from_vectors(op: CloverOperator, v: CArray, block, **cycle) -> CloverMG:
+    """P from the test vectors (chirally split, CholeskyQR2 on each
+    aggregate) and its Galerkin coarse operator."""
+    P = _block_cholqr(CArray(_chiral_blocks([v.re], block), _chiral_blocks([v.im], block)))
+    return CloverMG(op, P, galerkin_coarse_operator(op, P, block), tuple(block), **cycle)
+
+
+def clover_mg_setup(op: CloverOperator, block=(4, 4, 4, 4), nvec: int = 20, key: int = 0,
+                    setup_rounds: int = 3, setup_steps: int = 8, refine_rounds: int = 1,
+                    smooth_steps: int = 4, coarse_steps: int = 6) -> CloverMG:
+    """Set up the two-level multigrid of an SoA clover operator.
+
+    ``nvec`` Gaussian test vectors from a generator seeded with ``key`` on
+    the operator's device are made near-null by inverse iterations:
+    ``setup_rounds`` times, each vector through ``setup_steps`` GCR steps
+    on D (an approximate D^-1 v), then the set orthonormalised; the
+    hierarchy is built from them; ``refine_rounds`` times more, each
+    vector through the built cycle (the multigrid's own D^-1 v) and the
+    hierarchy built again.  Every apply is ``apply_clover`` on one
+    column, but the coarse operator's probes (``PROBE_COLUMNS``)."""
+    if op.hop.mode != "stencil_soa":
+        raise ValueError("clover_mg_setup needs an operator built with layout='soa'")
+    lat, dev = tuple(op.hop.dim_i), op.hop.blocks_re.device
+    if any(d % b for d, b in zip(lat, block)):
+        raise ValueError(f"aggregates {tuple(block)} do not tile the lattice {lat}")
+    dt = torch.promote_types(op.hop.blocks_re.dtype, torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(key))
+    v = CArray(*(torch.randn((nvec, 12) + lat, generator=gen, device=dev, dtype=dt)
+                 for _ in range(2)))
+    cycle = dict(smooth_steps=smooth_steps, coarse_steps=coarse_steps)
+    D = functools.partial(apply_clover, op)
+    for _ in range(setup_rounds):
+        v = _orthonormalise(_each_column(v, lambda t: fgcr(
+            D, t, tol=0.0, maxiter=setup_steps, restart=setup_steps, counter=None)[0]))
+    mg = _mg_from_vectors(op, v, block, **cycle)
+    for _ in range(refine_rounds):
+        v = _orthonormalise(_each_column(v, functools.partial(mg_cycle, mg)))
+        del mg
+        mg = _mg_from_vectors(op, v, block, **cycle)
+    return mg
+
+
+@tracker.spanned("mg.coarse")
+def _coarse_solve_gcr(mg: CloverMG, rc: CArray) -> CArray:
+    """The coarse correction's solve: ``coarse_steps`` GCR steps on the
+    coarse operator's apply (``apply_coarse``), counted as
+    ``mg.coarse_iterations``.  A fixed count, as the smoother's: a
+    convergence read would stop the device while the host launches the
+    small coarse vectors' passes (the host holds the pace there)."""
+    return fgcr(functools.partial(apply_coarse, mg.coarse), rc, tol=0.0,
+                maxiter=mg.coarse_steps, restart=mg.coarse_steps,
+                counter="mg.coarse_iterations")[0]
+
+
+@tracker.spanned("mg.cycle")
+def mg_cycle(mg: CloverMG, r: CArray) -> CArray:
+    """One application of the multigrid cycle to SoA fields r [n, 12, *lat]
+    (the right preconditioner of FGCR on D, ``mg_preconditioner_d``'s
+    scheme):
+
+        x1 = S r;   x2 = x1 + P A_c^-1 P^H (r - D x1);   M r = x2 + S (r - D x2)
+
+    S is ``smooth_steps`` GCR steps on D, A_c^-1 the coarse GCR; 2
+    ``smooth_steps`` + 2 fine applies.  Counted as ``mg.cycles``."""
+    tracker.count("mg.cycles")
+    D = functools.partial(apply_clover, mg.op)
+
+    def S(t):
+        return fgcr(D, t, tol=0.0, maxiter=mg.smooth_steps, restart=mg.smooth_steps,
+                    counter=None)[0]
+
+    x1 = S(r)
+    dx1 = D(x1)
+    rc = _restrict_chiral(mg.P, CArray(r.re - dx1.re, r.im - dx1.im), mg.block)
+    pc = _prolong_chiral(mg.P, _coarse_solve_gcr(mg, rc), mg.block)
+    x2 = CArray(x1.re + pc.re, x1.im + pc.im)
+    dx2 = D(x2)
+    s2 = S(CArray(r.re - dx2.re, r.im - dx2.im))
+    return CArray(x2.re + s2.re, x2.im + s2.im)
+
+
+def mg_solve_clover(mg: CloverMG, b: CArray, tol: float = 1e-5, maxiter: int = 1000,
+                    restart: int = 8):
+    """Solve D x = b (SoA fields [n, 12, *lat]) by ``solvers.fgcr`` on D,
+    right-preconditioned by :func:`mg_cycle`, to ``tol`` on |D x - b| /
+    |b|, the convergence read after every iteration.  Returns (x, |r|^2,
+    iterations) as the other solves do; an iteration is one cycle and one
+    apply of D, and only these iterations count as ``solver.iterations``."""
+    return fgcr(functools.partial(apply_clover, mg.op), b, M=functools.partial(mg_cycle, mg),
+                tol=tol, maxiter=maxiter, restart=restart, read_each=True)

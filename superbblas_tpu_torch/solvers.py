@@ -268,7 +268,8 @@ def bicgstab(A: Callable, b, x0=None, tol: float = 1e-8, maxiter: int = 100):
 
 def fgcr(A: Callable, b, M: Optional[Callable] = None, x0=None,
          tol: float = 1e-8, maxiter: int = 100, restart: int = 8,
-         cols: bool = False):
+         cols: bool = False, counter: Optional[str] = "solver.iterations",
+         read_each: bool = False):
     """Flexible restarted GCR(``restart``) for general ``A`` with an
     arbitrary, possibly varying, right preconditioner ``M`` (e.g. a
     multigrid V-cycle).  Each cycle minimises ||b - A x|| over the
@@ -278,7 +279,12 @@ def fgcr(A: Callable, b, M: Optional[Callable] = None, x0=None,
     right-hand sides in the trailing axis with per-column projection
     coefficients.  One A and one M apply per iteration; each cycle keeps
     ``restart`` direction pairs (z_k, A z_k) and counts ``restart``
-    iterations."""
+    iterations.  With ``read_each`` the convergence test is read after
+    every iteration, so the solve stops at the first that meets it (a
+    cycle then counts the iterations it ran).  A ``tol`` of 0 reads
+    nothing: the fixed count of a smoother.  The iterations go to the
+    tracker's ``counter`` (none where it is None: a solve nested in
+    another solve's preconditioner counts apart from it)."""
     if M is None:
         M = lambda r: r  # noqa: E731
     x = _zeros(b) if x0 is None else x0
@@ -286,7 +292,8 @@ def fgcr(A: Callable, b, M: Optional[Callable] = None, x0=None,
     rs = _inner_r(r, r, cols)
     bs = torch.clamp_min(_inner_r(b, b, cols), 1e-30)
     k = 0
-    while k < maxiter and _above(rs / bs, tol):
+    go = maxiter > 0 and (tol <= 0 or _above(rs / bs, tol))
+    while go:
         zs, ws = [], []
         for _ in range(restart):
             z = M(r)
@@ -303,9 +310,18 @@ def fgcr(A: Callable, b, M: Optional[Callable] = None, x0=None,
             alpha = _inner_c(w, r, cols)
             x = _axpy_c(alpha, z, x)
             r = _axpy_c((-alpha[0], -alpha[1]), w, r)
-        rs = _inner_r(r, r, cols)
-        k += restart
-    tracker.count("solver.iterations", k)
+            if read_each:
+                k += 1
+                rs = _inner_r(r, r, cols)
+                go = k < maxiter and (tol <= 0 or _above(rs / bs, tol))
+                if not go:
+                    break
+        if not read_each:
+            rs = _inner_r(r, r, cols)
+            k += restart
+            go = k < maxiter and (tol <= 0 or _above(rs / bs, tol))
+    if counter is not None:
+        tracker.count(counter, k)
     return x, rs, k
 
 
